@@ -81,16 +81,26 @@ def bound_ms(nbytes: float, flops: float):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def work(b, s, q, n, c, p, esize):
-    """(bytes, flops) of K1 and K2: each input read once, each output
-    written once; flops of |f|^2 and the 2p-column products."""
-    k2 = 2 * p
-    k1 = (b * s * n * c * esize + 2 * b * s * n * 4 + c * k2 * 4
-          + b * k2 * c * 4,
-          b * s * n * (2 * c + 4 * c * k2))
-    match = (b * q * n * c * esize + b * k2 * c * 4 + 2 * b * q * n * 2 * 4,
-             b * q * n * (2 * c + 2 * c * k2))
-    return k1, match
+def work(b, s, q, n, c, p, esize, tile):
+    """(bytes, flops) of each kernel and of the chain, for calls that write
+    no indices: each input read once, each output written once; flops of
+    |f|^2, the 2p-column products and the tile sums."""
+    k2, tiles = 2 * p, -(-n // tile)
+    masks, ctr = 2 * b * s * n * 4, c * k2 * 4
+    part = b * s * tiles * k2 * (c + 1) * 4
+    protos, logits = b * k2 * c * 4, b * q * n * 2 * 4
+    f1 = b * s * n * (2 * c + 4 * c * k2)
+    f2 = b * s * k2 * (c * tiles + tiles + 2 * c)
+    f3 = b * q * n * (2 * c + 2 * c * k2)
+    return {
+        "assign_partial": (b * s * n * c * esize + masks + ctr + part, f1),
+        "assign_reduce": (part + protos, f2),
+        "match": (b * q * n * c * esize + protos + logits, f3),
+        # the chain's own inputs and output; K1's scratch and prototypes
+        # between the launches are not part of the function
+        "chain": (b * (s + q) * n * c * esize + masks + ctr + logits,
+                  f1 + f2 + f3),
+    }
 
 
 def make_inputs(torch, b, s, q, n, c, p, dtype, far=False, seed=0):
@@ -143,10 +153,21 @@ def kernel_phase(torch, K, plain):
         ("far_ctr_f32", 2, 1, 1, 2601, torch.float32, True),
         ("far_ctr_bf16", 2, 1, 1, 1030, torch.bfloat16, True),
     ]
-    results, worst = [], {"assign": 0.0, "match": 0.0, "chain": 0.0}
+    results = []
+    worst = {"assign_partial": 0.0, "assign_reduce": 0.0, "match": 0.0,
+             "chain": 0.0}
     for name, b, s, q, n, dtype, far in cases:
         fts, fg, bg, ctr = make_inputs(torch, b, s, q, n, c, p, dtype, far)
-        # K1 alone
+        # K1's two launches, each against its plain version on its inputs
+        kpart = K._assign_partial_launch(fts, fg, bg, ctr, p)
+        ppart = K.plain_assign_partial(fts, fg, bg, ctr, p)
+        err_p = (kpart - ppart).abs().max().item()
+        rel_p = err_p / ppart.abs().max().item()
+        kred = K._assign_reduce_launch(kpart, b, s, plain.ASSIGN_EPS)
+        pred = K.plain_assign_reduce(kpart, b, s, plain.ASSIGN_EPS)
+        err_r = (kred - pred).abs().max().item()
+        rel_r = err_r / pred.abs().max().item()
+        # K1 whole
         kf, kb = K.mpm_assign(fts, fg, bg, ctr, p)
         pf, pb = plain.meta_prototype_assign(fts[:, :s], fg, bg, ctr, p)
         ref = torch.cat([pf, pb], 1)
@@ -168,16 +189,22 @@ def kernel_phase(torch, K, plain):
         err3 = (cl - pl).abs().max().item()
         agree3, sure3 = index_agreement(ci, pi, margin)
         torch.cuda.synchronize()
-        ok = (finite1 and rel1 <= PROTO_RTOL and err2 <= LOGIT_ATOL
+        ok = (finite1 and rel_p <= PROTO_RTOL and rel_r <= PROTO_RTOL
+              and rel1 <= PROTO_RTOL and err2 <= LOGIT_ATOL
               and sure2 and err3 <= LOGIT_ATOL and sure3 and bitwise)
         row = {"case": name, "B": b, "S": s, "Q": q, "n": n, "c": c, "p": p,
                "dtype": str(dtype).replace("torch.", ""),
+               "assign_partial_max_abs_err": err_p,
+               "assign_partial_max_rel_err": rel_p,
+               "assign_reduce_max_abs_err": err_r,
+               "assign_reduce_max_rel_err": rel_r,
                "assign_max_abs_err": err1, "assign_max_rel_err": rel1,
                "match_max_abs_err": err2, "match_index_agreement": agree2,
                "chain_max_abs_err": err3, "chain_index_agreement": agree3,
                "chain_bit_identical": bitwise, "ok": ok}
         results.append(row)
-        worst["assign"] = max(worst["assign"], err1)
+        worst["assign_partial"] = max(worst["assign_partial"], err_p)
+        worst["assign_reduce"] = max(worst["assign_reduce"], err_r)
         worst["match"] = max(worst["match"], err2)
         worst["chain"] = max(worst["chain"], err3)
         if not ok:
@@ -187,9 +214,18 @@ def kernel_phase(torch, K, plain):
     # timings at the main-path shapes, bf16 features (what the model feeds)
     b, s, q, n = 8, 1, 1, 2601
     fts, fg, bg, ctr = make_inputs(torch, b, s, q, n, c, p, torch.bfloat16)
-    packed = K._assign_launch(fts, fg, bg, ctr, p, plain.ASSIGN_EPS)
+    part = K._assign_partial_launch(fts, fg, bg, ctr, p)
+    packed = K._assign_reduce_launch(part, b, s, plain.ASSIGN_EPS)
     pf, pb = packed[:, :p], packed[:, p:]
     t = {
+        "assign_partial": time_ms(torch, lambda: K._assign_partial_launch(
+            fts, fg, bg, ctr, p), flush),
+        "assign_partial_plain": time_ms(torch, lambda: K.plain_assign_partial(
+            fts, fg, bg, ctr, p), flush),
+        "assign_reduce": time_ms(torch, lambda: K._assign_reduce_launch(
+            part, b, s, plain.ASSIGN_EPS), flush),
+        "assign_reduce_plain": time_ms(torch, lambda: K.plain_assign_reduce(
+            part, b, s, plain.ASSIGN_EPS), flush),
         "assign": time_ms(torch, lambda: K._assign_launch(
             fts, fg, bg, ctr, p, plain.ASSIGN_EPS), flush),
         "assign_plain": time_ms(torch, lambda: plain.meta_prototype_assign(
@@ -204,22 +240,33 @@ def kernel_phase(torch, K, plain):
             fts[:, s:], *plain.meta_prototype_assign(
                 fts[:, :s], fg, bg, ctr, p), scale), flush),
     }
-    (b1, f1), (b2, f2) = work(b, s, q, n, c, p, 2)
-    bounds = {"assign": bound_ms(b1, f1), "match": bound_ms(b2, f2),
-              "chain": bound_ms(b1 + b2, f1 + f2)}
+    bounds = {k: bound_ms(*v)
+              for k, v in work(b, s, q, n, c, p, 2, K.TILE).items()}
     emit({"phase": "kernels", "cases": results, "timing_shapes": {
         "B": b, "S": s, "Q": q, "n": n, "c": c, "p": p, "dtype": "bfloat16"},
         "ms": t, "bound_ms": {k: v[0] for k, v in bounds.items()},
         "bound_by": {k: v[1] for k, v in bounds.items()},
         "tolerance": {"proto_rtol": PROTO_RTOL, "logit_atol": LOGIT_ATOL,
-                      "index_margin": MARGIN}})
+                      "index_margin": MARGIN},
+        "note": "assign = assign_partial + assign_reduce (K1); chain = "
+                "K1 then match on the packed tensor (K3), no launch of "
+                "its own"})
     return t, bounds, worst
 
 
 def main_path_phase(torch, K):
+    from unittest import mock
+
     from pemp_tpu_torch.core.evaluator import make_fast_eval_step
     from pemp_tpu_torch.data import datasets
     from pemp_tpu_torch.entry import pemp_stage1 as entry
+    from pemp_tpu_torch.models import pemp_stage1 as stage1
+
+    def plain_chain(fts, sup_fg, sup_bg, ctr, protos, dist_scalar,
+                    return_indices=False):
+        s = sup_fg.shape[1]
+        return stage1.mpm_predict(fts[:, :s], fts[:, s:], sup_fg, sup_bg,
+                                  ctr, protos, dist_scalar, return_indices)
 
     K.reset_launches()
     t0 = time.perf_counter()
@@ -242,12 +289,13 @@ def main_path_phase(torch, K):
     t = {k: torch.from_numpy(batch[k]).to(device)
          for k in ("sup_rgb", "sup_mask", "qry_rgb")}
     with torch.no_grad():
-        model.use_kernels = True
         lk = model(t["sup_rgb"], t["sup_mask"], t["qry_rgb"])
-        model.use_kernels = False
-        lp = model(t["sup_rgb"], t["sup_mask"], t["qry_rgb"])
-        model.use_kernels = True
+        before = dict(K.launches)
+        with mock.patch.object(stage1, "mpm_chain_packed", plain_chain):
+            lp = model(t["sup_rgb"], t["sup_mask"], t["qry_rgb"])
     torch.cuda.synchronize()
+    if K.launches != before:
+        raise AssertionError("the plain forward launched a kernel")
     want = (cfg.data.test_bs, cfg.query, cfg.data.height, cfg.data.width, 2)
     if tuple(lk.shape) != want or not torch.isfinite(lk).all():
         raise AssertionError(f"logits {tuple(lk.shape)} (want {want}) or "
@@ -335,20 +383,19 @@ def main() -> int:
     times, bounds, worst = kernel_phase(torch, K, plain)
     launches, _ = main_path_phase(torch, K)
 
-    rows = [("mpm_assign", "assign", "pemp_tpu/ops/pallas/mpm.py:119",
-             launches["mpm_assign"]),
-            ("mpm_match", "match", "pemp_tpu/ops/pallas/mpm.py:249",
-             launches["mpm_match"]),
-            ("mpm_chain_packed", "chain", "pemp_tpu/ops/pallas/mpm.py:342",
-             launches["mpm_chain_packed"])]
+    # one row per __global__ kernel; the chain (K3, mpm.py:342) is these
+    # launches on the packed tensor and has none of its own
+    rows = [("assign_partial", "pemp_tpu/ops/pallas/mpm.py:119"),
+            ("assign_reduce", "pemp_tpu/ops/pallas/mpm.py:119"),
+            ("match", "pemp_tpu/ops/pallas/mpm.py:249")]
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": "pemp_tpu_torch/ops/kernels/csrc/mpm.cu",
-         "replaces": replaces, "launches": n,
-         "max_abs_err": worst[key], "ms": times[key],
-         "plain_ms": times[f"{key}_plain"], "bound_ms": bounds[key][0],
-         "bound_by": bounds[key][1], "library_ms": None}
-        for name, key, replaces, n in rows]})
+         "replaces": replaces, "launches": launches[name],
+         "max_abs_err": worst[name], "ms": times[name],
+         "plain_ms": times[f"{name}_plain"], "bound_ms": bounds[name][0],
+         "bound_by": bounds[name][1], "library_ms": None}
+        for name, replaces in rows]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

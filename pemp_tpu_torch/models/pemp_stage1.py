@@ -8,9 +8,9 @@ max-over-p cosine matching -- and an align-corners upsample.
 
 The encoder runs under bf16 autocast when ``compute_dtype`` is bf16 (the
 JAX package's ``tpu.precision=bf16``); the mpm and everything after it
-run in float32 outside autocast. With ``use_kernels`` the mpm goes
-through the CUDA kernels (``ops/kernels/mpm.py``) on a CUDA device;
-otherwise, and always on the CPU, through the plain PyTorch version.
+run in float32 outside autocast. The mpm goes through the CUDA kernels
+(``ops/kernels/mpm.py``) for features on a CUDA device and through the
+plain PyTorch version for features on the CPU.
 """
 
 from __future__ import annotations
@@ -65,11 +65,11 @@ def mpm_predict(sup_fts, qry_fts, sup_fg, sup_bg, ctr, protos, dist_scalar,
 
 
 def mpm_predict_packed(fts, s, sup_fg, sup_bg, ctr, protos, dist_scalar,
-                       ret_ind=False, use_kernels=True):
-    """``mpm_predict`` on the packed features [B,S+Q,n,c]. With
-    ``use_kernels`` the support/query split happens inside the kernels
-    (``mpm_chain_packed``); otherwise the features are split here."""
-    if ctr is not None and use_kernels:
+                       ret_ind=False):
+    """``mpm_predict`` on the packed features [B,S+Q,n,c]. With centers
+    the support/query split happens inside ``mpm_chain_packed``; without
+    (protos == 0) the features are split here."""
+    if ctr is not None:
         return mpm_chain_packed(fts, sup_fg, sup_bg, ctr, protos, dist_scalar,
                                 return_indices=ret_ind)
     return mpm_predict(fts[:, :s], fts[:, s:], sup_fg, sup_bg, ctr, protos,
@@ -108,15 +108,13 @@ class PEMPStage1(nn.Module):
     def __init__(self, backbone: str = "resnet50", out_channels: int = 512,
                  protos: int = 3, drop_rate: float = 0.1, block_size: int = 4,
                  dist_scalar: float = 20.0, init_channels: int = 3,
-                 compute_dtype: torch.dtype = torch.float32,
-                 use_kernels: bool = True, layers=None):
+                 compute_dtype: torch.dtype = torch.float32, layers=None):
         super().__init__()
         self.encoder = Encoder(backbone, out_channels, drop_rate, block_size,
                                init_channels, layers)
         self.protos = protos
         self.dist_scalar = dist_scalar
         self.compute_dtype = compute_dtype
-        self.use_kernels = use_kernels
         self.ctr = (nn.Parameter(torch.rand(out_channels, 2 * protos))
                     if protos > 0 else None)
 
@@ -161,8 +159,7 @@ class PEMPStage1(nn.Module):
         sup_fg, sup_bg = downsample_masks(sup_mask, (h, w))
         out = mpm_predict_packed(fts.contiguous(), s, sup_fg, sup_bg,
                                  self.ctr, self.protos, self.dist_scalar,
-                                 ret_ind=ret_ind,
-                                 use_kernels=self.use_kernels)
+                                 ret_ind=ret_ind)
         if ret_ind:
             logits, indices = out
             logits = logits.reshape(b, q, h, w, 2)

@@ -322,15 +322,14 @@ size_t pemp_mpm_assign_smem(int c, int p, int is_bf16) {
 
 size_t pemp_mpm_match_smem(int c, int p) { return (size_t)2 * p * c * 4; }
 
-// fts [B, S+Q, n, c] (f32 or bf16), fg/bg [B*S, n] f32, ctr [c, 2p] f32,
-// part [B*S, tiles, 2p, c+1] f32 scratch, protos [B, 2p, c] f32 out
-// (fg prototypes first, then bg). Returns cudaGetLastError().
-int pemp_mpm_assign(const void* fts, int is_bf16, const void* fg, const void* bg,
-                    const void* ctr, void* part, void* protos, int B, int S, int Q,
-                    int n, int c, int p, float eps, void* stream) {
+// K1, launch 1. fts [B, S+Q, n, c] (f32 or bf16), fg/bg [B*S, n] f32,
+// ctr [c, 2p] f32, part [B*S, tiles, 2p, c+1] f32 out.
+// Returns cudaGetLastError().
+int pemp_mpm_assign_partial(const void* fts, int is_bf16, const void* fg, const void* bg,
+                            const void* ctr, void* part, int B, int S, int Q, int n,
+                            int c, int p, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int tiles = (n + kTile - 1) / kTile;
-  const int k2 = 2 * p;
   const size_t smem = pemp_mpm_assign_smem(c, p, is_bf16);
   const dim3 grid(B * S, tiles);
   cudaError_t e;
@@ -349,10 +348,16 @@ int pemp_mpm_assign(const void* fts, int is_bf16, const void* fg, const void* bg
         static_cast<const float*>(bg), static_cast<const float*>(ctr),
         static_cast<float*>(part), S, S + Q, n, c, p);
   }
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  const dim3 grid2(B, (k2 * c + kThreads - 1) / kThreads);
-  assign_reduce_kernel<<<grid2, kThreads, 0, st>>>(
+  return cudaGetLastError();
+}
+
+// K1, launch 2. part [B*S, tiles, 2p, c+1] f32, protos [B, 2p, c] f32 out
+// (fg prototypes first, then bg). Returns cudaGetLastError().
+int pemp_mpm_assign_reduce(const void* part, void* protos, int B, int S, int tiles,
+                           int c, int p, float eps, void* stream) {
+  const int k2 = 2 * p;
+  const dim3 grid(B, (k2 * c + kThreads - 1) / kThreads);
+  assign_reduce_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(part), static_cast<float*>(protos), S, tiles, c, k2, eps);
   return cudaGetLastError();
 }

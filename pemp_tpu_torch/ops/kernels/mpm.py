@@ -16,10 +16,11 @@ Replaces the TPU kernels of ``pemp_tpu/ops/pallas/mpm.py``:
 
 For a tensor on the CPU each wrapper runs the plain version
 (``pemp_tpu_torch.ops.prototypes``); for a CUDA tensor it launches its
-kernel or raises. ``launches`` counts the kernel launches of each wrapper
-on CUDA: ``mpm_assign`` once per K1 call (its pair of launches),
-``mpm_match`` once per K2 launch, ``mpm_chain_packed`` once per chain
-(whose K1 and K2 launches also count under their own names).
+kernels or raises. ``launches`` counts each ``__global__`` kernel's
+launches on CUDA, one at the site that launches it: ``assign_partial``
+and ``assign_reduce`` (K1's two launches) and ``match`` (K2). The chain
+launches nothing of its own. ``plain_assign_partial`` and
+``plain_assign_reduce`` are the plain versions of K1's two launches.
 """
 
 from __future__ import annotations
@@ -28,18 +29,20 @@ import ctypes
 from typing import Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from pemp_tpu_torch.ops.kernels.build import load_library
 from pemp_tpu_torch.ops.prototypes import (
     ASSIGN_EPS, COS_EPS, meta_prototype_assign, prototype_predictions,
+    soft_assignment,
 )
 
 MAX_PROTOS = 8           # csrc/mpm.cu kMaxProtos
 TILE = 64                # csrc/mpm.cu kTile (pixel rows per block)
 SMEM_LIMIT = 232448      # dynamic shared memory a block may use on sm_90
 
-launches: Dict[str, int] = {"mpm_assign": 0, "mpm_match": 0,
-                            "mpm_chain_packed": 0}
+launches: Dict[str, int] = {"assign_partial": 0, "assign_reduce": 0,
+                            "match": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -56,9 +59,12 @@ def _lib():
     global _bound
     if _bound is None:
         lib = load_library("mpm")
-        lib.pemp_mpm_assign.argtypes = [_P, _I, _P, _P, _P, _P, _P, _I, _I,
-                                        _I, _I, _I, _I, _F, _P]
-        lib.pemp_mpm_assign.restype = _I
+        lib.pemp_mpm_assign_partial.argtypes = [_P, _I, _P, _P, _P, _P, _I,
+                                                _I, _I, _I, _I, _I, _P]
+        lib.pemp_mpm_assign_partial.restype = _I
+        lib.pemp_mpm_assign_reduce.argtypes = [_P, _P, _I, _I, _I, _I, _I, _F,
+                                               _P]
+        lib.pemp_mpm_assign_reduce.restype = _I
         lib.pemp_mpm_match.argtypes = [_P, _I, _P, _P, _P, _I, _I, _I, _I,
                                        _I, _I, _F, _F, _P]
         lib.pemp_mpm_match.restype = _I
@@ -112,8 +118,9 @@ def _f32_on(x: torch.Tensor, device, shape, what: str) -> torch.Tensor:
     return x.to(torch.float32).contiguous()
 
 
-def _assign_launch(fts, sup_fg, sup_bg, ctr, protos: int, eps: float):
-    """K1 on CUDA -> packed prototypes [B, 2p, c] (fg first, then bg)."""
+def _assign_partial_launch(fts, sup_fg, sup_bg, ctr, protos: int):
+    """K1 launch 1 on CUDA -> per-tile partial sums [B*S, tiles, 2p, c+1]
+    (``num`` in [..., :c], ``den`` in [..., c])."""
     _check_features(fts, protos)
     b, sq, n, c = fts.shape
     s = sup_fg.shape[1]
@@ -128,19 +135,69 @@ def _assign_launch(fts, sup_fg, sup_bg, ctr, protos: int, eps: float):
     if smem > SMEM_LIMIT:
         raise ValueError(f"c={c}, p={protos} needs {smem} bytes of shared "
                          f"memory per block (limit {SMEM_LIMIT})")
-    tiles = -(-n // TILE)
-    part = torch.empty((b * s, tiles, 2 * protos, c + 1), dtype=torch.float32,
-                       device=fts.device)
-    out = torch.empty((b, 2 * protos, c), dtype=torch.float32,
-                      device=fts.device)
+    part = torch.empty((b * s, -(-n // TILE), 2 * protos, c + 1),
+                       dtype=torch.float32, device=fts.device)
     stream = torch.cuda.current_stream(fts.device).cuda_stream
-    rc = lib.pemp_mpm_assign(fts.data_ptr(), is_bf16, fg.data_ptr(),
-                             bg.data_ptr(), ctr.data_ptr(), part.data_ptr(),
-                             out.data_ptr(), b, s, sq - s, n, c, protos,
-                             float(eps), stream)
-    _check_rc(lib, rc, "mpm_assign")
-    launches["mpm_assign"] += 1
+    rc = lib.pemp_mpm_assign_partial(fts.data_ptr(), is_bf16, fg.data_ptr(),
+                                     bg.data_ptr(), ctr.data_ptr(),
+                                     part.data_ptr(), b, s, sq - s, n, c,
+                                     protos, stream)
+    _check_rc(lib, rc, "assign_partial")
+    launches["assign_partial"] += 1
+    return part
+
+
+def _assign_reduce_launch(part, b: int, s: int, eps: float):
+    """K1 launch 2 on CUDA: partial sums [B*S, tiles, 2p, c+1] -> packed
+    prototypes [B, 2p, c] (fg first, then bg)."""
+    if (part.device.type != "cuda" or part.dtype != torch.float32
+            or part.ndim != 4 or part.shape[0] != b * s
+            or not part.is_contiguous()):
+        raise ValueError(f"partial sums {part.dtype} {tuple(part.shape)} on "
+                         f"{part.device}: expected contiguous float32 "
+                         f"[{b * s}, tiles, 2p, c+1] on cuda")
+    _, tiles, k2, c1 = part.shape
+    out = torch.empty((b, k2, c1 - 1), dtype=torch.float32,
+                      device=part.device)
+    lib = _lib()
+    stream = torch.cuda.current_stream(part.device).cuda_stream
+    rc = lib.pemp_mpm_assign_reduce(part.data_ptr(), out.data_ptr(), b, s,
+                                    tiles, c1 - 1, k2 // 2, float(eps),
+                                    stream)
+    _check_rc(lib, rc, "assign_reduce")
+    launches["assign_reduce"] += 1
     return out
+
+
+def _assign_launch(fts, sup_fg, sup_bg, ctr, protos: int, eps: float):
+    """K1 on CUDA (both launches) -> packed prototypes [B, 2p, c]."""
+    part = _assign_partial_launch(fts, sup_fg, sup_bg, ctr, protos)
+    return _assign_reduce_launch(part, fts.shape[0], sup_fg.shape[1], eps)
+
+
+def plain_assign_partial(fts, sup_fg, sup_bg, ctr, protos: int):
+    """Plain version of K1's first launch: for each support image and
+    TILE-row pixel tile, ``num = a^T f`` [2p, c] and ``den = sum a`` [2p]
+    of the soft assignment ``a``. Returns [B*S, tiles, 2p, c+1] float32."""
+    s = sup_fg.shape[1]
+    f = fts[:, :s].float()
+    b, _, n, c = f.shape
+    a = soft_assignment(f, sup_fg, sup_bg, ctr, protos)
+    pad = -(-n // TILE) * TILE - n
+    f = F.pad(f.reshape(b * s, n, c), (0, 0, 0, pad))
+    a = F.pad(a.reshape(b * s, n, 2 * protos), (0, 0, 0, pad))
+    f = f.reshape(b * s, -1, TILE, c)
+    a = a.reshape(b * s, -1, TILE, 2 * protos)
+    num = torch.einsum("itrk,itrc->itkc", a, f)
+    return torch.cat([num, a.sum(dim=2)[..., None]], dim=-1)
+
+
+def plain_assign_reduce(part, b: int, s: int, eps: float = ASSIGN_EPS):
+    """Plain version of K1's second launch: sum the partials over tiles,
+    ``num / (den + eps)``, mean over the S shots -> [B, 2p, c]."""
+    tot = part.sum(dim=1)                                   # [B*S, 2p, c+1]
+    proto = tot[..., :-1] / (tot[..., -1:] + eps)
+    return proto.reshape(b, s, *proto.shape[1:]).mean(dim=1)
 
 
 def _match_launch(fts, s: int, packed, protos: int, dist_scalar: float,
@@ -166,8 +223,8 @@ def _match_launch(fts, s: int, packed, protos: int, dist_scalar: float,
                             inds.data_ptr() if inds is not None else None,
                             b, s, q, n, c, protos, float(dist_scalar),
                             COS_EPS, stream)
-    _check_rc(lib, rc, "mpm_match")
-    launches["mpm_match"] += 1
+    _check_rc(lib, rc, "match")
+    launches["match"] += 1
     return (logits, inds) if return_indices else logits
 
 
@@ -216,6 +273,4 @@ def mpm_chain_packed(fts: torch.Tensor, sup_fg: torch.Tensor,
         return prototype_predictions(fts[:, s:], fg, bg, dist_scalar,
                                      return_indices)
     packed = _assign_launch(fts, sup_fg, sup_bg, ctr, protos, eps)
-    out = _match_launch(fts, s, packed, protos, dist_scalar, return_indices)
-    launches["mpm_chain_packed"] += 1
-    return out
+    return _match_launch(fts, s, packed, protos, dist_scalar, return_indices)

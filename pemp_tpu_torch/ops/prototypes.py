@@ -78,17 +78,15 @@ def prototype_predictions(qry_fts: torch.Tensor, fg_proto: torch.Tensor,
     return logits
 
 
-def meta_prototype_assign(sup_fts: torch.Tensor, sup_fg: torch.Tensor,
-                          sup_bg: torch.Tensor, ctr: torch.Tensor,
-                          protos: int, eps: float = ASSIGN_EPS
-                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Meta-prototype soft assignment -> per-episode adaptive prototypes.
+def soft_assignment(sup_fts: torch.Tensor, sup_fg: torch.Tensor,
+                    sup_bg: torch.Tensor, ctr: torch.Tensor,
+                    protos: int) -> torch.Tensor:
+    """Masked soft assignment of the support pixels to the centers.
 
     sup_fts [B, S, n, c]; sup_fg / sup_bg [B, S, n]; ctr [c, 2p] with
     columns [0, p) foreground and [p, 2p) background. ``D = -|f - ctr|^2``,
-    a softmax over the p centers within each class, masked by the class
-    mask, assignment-weighted feature averages, then a mean over shots.
-    Returns (fg_proto, bg_proto), each [B, p, c].
+    a softmax over the p centers within each class, times the class mask.
+    Returns [B, S, n, 2p] float32.
     """
     f = f32up(sup_fts)
     ctr = f32up(ctr)
@@ -99,7 +97,19 @@ def meta_prototype_assign(sup_fts: torch.Tensor, sup_fg: torch.Tensor,
     dist = -(f_sq - 2.0 * f_dot_c + c_sq)
     assign = torch.softmax(dist.reshape(b, s, n, 2, protos), dim=-1)
     mask = f32up(torch.stack([sup_fg, sup_bg], dim=-1))        # [B,S,n,2]
-    assign = (assign * mask[..., None]).reshape(b, s, n, 2 * protos)
+    return (assign * mask[..., None]).reshape(b, s, n, 2 * protos)
+
+
+def meta_prototype_assign(sup_fts: torch.Tensor, sup_fg: torch.Tensor,
+                          sup_bg: torch.Tensor, ctr: torch.Tensor,
+                          protos: int, eps: float = ASSIGN_EPS
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Meta-prototype soft assignment -> per-episode adaptive prototypes:
+    ``soft_assignment``-weighted feature averages, then a mean over shots.
+    Returns (fg_proto, bg_proto), each [B, p, c].
+    """
+    f = f32up(sup_fts)
+    assign = soft_assignment(sup_fts, sup_fg, sup_bg, ctr, protos)
     num = torch.einsum("bsnc,bsnk->bskc", f, assign)           # [B,S,2p,c]
     den = assign.sum(dim=2)[..., None] + eps                   # [B,S,2p,1]
     proto = (num / den).mean(dim=1)                            # [B,2p,c]

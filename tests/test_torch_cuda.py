@@ -7,7 +7,8 @@ GPU). Run where there is one:
 not need and the GPU machine may not have.)
 
 Each kernel against its plain PyTorch version on the same CUDA tensors:
-prototypes within 1e-3 of their largest magnitude, logits within 2e-3
+partial sums and prototypes within 1e-3 of their largest magnitude,
+logits within 2e-3
 (float32 sums in another order), indices equal wherever the top-two
 similarity margin exceeds 1e-3, and the chain bit-identical run to run.
 """
@@ -44,6 +45,13 @@ def _inputs(cuda, b, s, q, n, c, dtype, seed=0):
 def test_kernels_match_plain(cuda, dtype, s, n):
     fts, fg, bg, ctr = _inputs(cuda, 2, s, 1, n, 64, dtype)
     K.reset_launches()
+    part = K._assign_partial_launch(fts, fg, bg, ctr, P)
+    ppart = K.plain_assign_partial(fts, fg, bg, ctr, P)
+    assert (part - ppart).abs().max() <= 1e-3 * ppart.abs().max()
+    red = K._assign_reduce_launch(part, 2, s, plain.ASSIGN_EPS)
+    pred = K.plain_assign_reduce(part, 2, s, plain.ASSIGN_EPS)
+    assert (red - pred).abs().max() <= 1e-3 * pred.abs().max()
+
     kf, kb = K.mpm_assign(fts, fg, bg, ctr, P)
     pf, pb = plain.meta_prototype_assign(fts[:, :s], fg, bg, ctr, P)
     ref = torch.cat([pf, pb], 1)
@@ -63,8 +71,8 @@ def test_kernels_match_plain(cuda, dtype, s, n):
     cl2, ci2 = K.mpm_chain_packed(fts, fg, bg, ctr, P, SCALE, True)
     assert torch.equal(cl, cl2) and torch.equal(ci, ci2)
     assert (cl - pl).abs().max() <= 2e-3
-    assert K.launches == {"mpm_assign": 3, "mpm_match": 3,
-                          "mpm_chain_packed": 2}
+    assert K.launches == {"assign_partial": 4, "assign_reduce": 4,
+                          "match": 3}
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):

@@ -74,5 +74,24 @@ def test_cpu_path_launches_no_kernel():
     K.reset_launches()
     fts, fg, bg, ctr = _inputs(1, 1, 1, 49, seed=8)
     K.mpm_chain_packed(*[torch.from_numpy(a) for a in (fts, fg, bg, ctr)], P)
-    assert K.launches == {"mpm_assign": 0, "mpm_match": 0,
-                          "mpm_chain_packed": 0}
+    assert K.launches == {"assign_partial": 0, "assign_reduce": 0,
+                          "match": 0}
+
+
+@pytest.mark.parametrize("n,s", [(49, 1), (1030, 2)])
+def test_plain_assign_launches_compose_to_the_jax_prototypes(n, s):
+    """The plain versions of K1's two launches (per-tile partial sums,
+    then the reduction over tiles) give the JAX prototypes: rtol 1e-4,
+    atol 1e-5. The tiles cover n with a partial last tile."""
+    fts, fg, bg, ctr = _inputs(2, s, 1, n, seed=n * s)
+    _, _, ref_f, ref_b = mpm_chain_packed_pallas(
+        jnp.asarray(fts), jnp.asarray(fg), jnp.asarray(bg), jnp.asarray(ctr),
+        P, SCALE, return_residuals=True, interpret=True)
+    t = [torch.from_numpy(a) for a in (fts, fg, bg, ctr)]
+    part = K.plain_assign_partial(*t, P)
+    assert part.shape == (2 * s, -(-n // K.TILE), 2 * P, C + 1)
+    protos = K.plain_assign_reduce(part, 2, s)
+    np.testing.assert_allclose(protos[:, :P].numpy(), np.asarray(ref_f),
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(protos[:, P:].numpy(), np.asarray(ref_b),
+                               rtol=1e-4, atol=1e-5)
