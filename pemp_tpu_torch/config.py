@@ -1,12 +1,17 @@
 """Dataclass configuration tree and the ``<command> with k=v`` CLI.
 
 Counterpart of the part of ``pemp_tpu/config/base.py`` and
-``pemp_tpu/config/cli.py`` that the ``test`` command needs: scopes ``g``
-(run directories), ``dev`` (device and precision; the JAX package's
-``tpu`` scope), ``data``, ``te`` and the per-entry ``net``, plus the
-top-level keys; dotted ``a.b=value`` overrides; the ``print_config`` and
-``help`` commands. The port records no run directories (the JAX CLI's
-``-u``/``-p`` flags are not taken).
+``pemp_tpu/config/cli.py`` that the ``train`` and ``test`` commands need:
+scopes ``g`` (run directories), ``dev`` (device and precision; the JAX
+package's ``tpu`` scope), ``data``, ``tr``, ``te`` and the per-entry
+``net``, plus the top-level keys; dotted ``a.b=value`` overrides; the
+``print_config`` and ``help`` commands.
+
+``train`` records its run into ``<g.model_dir>/<tag>/<id>/`` (an
+auto-incremented integer id; ``resume=True exp_id=<id>`` reuses the
+directory) unless ``-u`` / ``--unobserved`` or ``g.fileStorage=False``.
+The JAX CLI's ``config.json``/``metrics.json`` observers and its ``-p``
+flag are not ported; ``test`` records no run.
 """
 
 from __future__ import annotations
@@ -15,13 +20,15 @@ import ast
 import copy
 import sys
 from dataclasses import dataclass, field, fields, is_dataclass
+from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional
 
 
 @dataclass
 class GlobalConfig:
-    """Scope ``g``: where ``exp_id`` looks for checkpoints."""
+    """Scope ``g``: run directories (reference config.py:14-19)."""
     model_dir: str = "model_dir"        # model_dir/<tag>/<exp_id>/<ckpt>
+    fileStorage: bool = True            # record train runs into model_dir
 
 
 @dataclass
@@ -37,12 +44,42 @@ class DataConfig:
     dataset: str = "PASCAL"             # SYNTH (PASCAL, COCO not ported yet)
     height: int = 401
     width: int = 401
+    bs: int = 4                         # training episodes per step
     test_bs: int = 1
+    train_n: int = 5000                 # episodes per training epoch
     test_n: int = 1000                  # episodes per eval round
+    seed: int = 1234                    # training episode stream
     test_seed: int = 5678
     one_cls: int = 0                    # restrict sampling to a single class id
     cache: bool = True                  # cache rendered images in host RAM
     num_workers: int = 4                # host render worker threads
+
+
+@dataclass
+class TrainConfig:
+    """Scope ``tr`` (reference core/solver.py:11-44)."""
+    epochs: int = 0
+    total_epochs: int = 3
+    lr: float = 1e-3
+    lrp: str = "period_step"            # custom_step|period_step|plateau|cosine|poly
+    lr_boundaries: List[int] = field(default_factory=list)   # [custom_step]
+    lr_step: int = 999999999            # [period_step]
+    lr_rate: float = 0.1                # decay rate
+    lr_end: float = 0.0                 # [plateau, cosine, poly]
+    lr_patience: int = 30               # [plateau]
+    lr_min_delta: float = 1e-4          # [plateau]
+    cool_down: int = 0                  # [plateau]
+    monitor: str = "val_loss"           # [plateau]
+    power: float = 0.9                  # [poly]
+    opt: str = "sgd"                    # sgd | adam
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.999
+    adam_epsilon: float = 1e-8
+    sgd_momentum: float = 0.9
+    sgd_nesterov: bool = False
+    weight_decay: float = 0.0005
+    ckpt_epoch: int = 1                 # checkpoint interval (0 disables)
+    grad_clip: float = 0.0              # global-norm clip (0 disables)
 
 
 @dataclass
@@ -58,13 +95,17 @@ class Config:
     shot: int = 1
     query: int = 1
     split: int = -1                     # REQUIRED for train/test
-    seed: int = 1234                    # weight init seed (no checkpoint)
-    ckpt: str = ""                      # .pt state_dict; "" = init from seed
+    seed: int = 1234                    # weight init and dropout seed
+    ckpt: str = ""                      # .pt checkpoint; "" = init from seed
     exp_id: int = -1                    # look for ckpt in model_dir/tag/exp_id
+    loss: str = "ce"                    # ce | cedt
+    sigma: float = 5.0                  # cedt EDT bandwidth
+    resume: bool = False                # resume run exp_id's ckpt.pt
 
     g: GlobalConfig = field(default_factory=GlobalConfig)
     dev: DeviceConfig = field(default_factory=DeviceConfig)
     data: DataConfig = field(default_factory=DataConfig)
+    tr: TrainConfig = field(default_factory=TrainConfig)
     te: TestConfig = field(default_factory=TestConfig)
     # ``net`` is installed per entry with the model's own dataclass.
     net: Any = None
@@ -117,6 +158,8 @@ def apply_overrides(cfg: Any, overrides: Dict[str, Any]) -> Any:
                 value = float(value)
             elif isinstance(current, str) and not isinstance(value, str):
                 value = str(value)
+            elif isinstance(current, list) and isinstance(value, tuple):
+                value = list(value)
         setattr(obj, leaf, value)
     return cfg
 
@@ -140,14 +183,28 @@ def format_config(cfg: Any) -> str:
     return "\n".join(lines)
 
 
+class Run:
+    """One experiment run: its id and directory (None when not recorded)."""
+
+    def __init__(self, run_id: Optional[int], run_dir: Optional[Path]):
+        self._id = run_id
+        self.run_dir = run_dir
+
+
+def _next_run_id(tag_dir: Path) -> int:
+    existing = [int(p.name) for p in tag_dir.glob("*") if p.name.isdigit()]
+    return max(existing, default=0) + 1
+
+
 class Experiment:
-    """Named command registry: ``<command> [with a.b=v ...]``."""
+    """Named command registry: ``<command> [with a.b=v ...] [-u]``. A
+    command is called with (cfg, run)."""
 
     def __init__(self, name: str, config):
         self.name = name
         self.base_config = config
         self.commands: Dict[str, Callable] = {
-            "print_config": lambda cfg: print(format_config(cfg))}
+            "print_config": lambda cfg, run: print(format_config(cfg))}
 
     def command(self, fn: Callable) -> Callable:
         self.commands[fn.__name__] = fn
@@ -158,19 +215,48 @@ class Experiment:
         if command in ("train", "test") and cfg.split not in (0, 1, 2, 3):
             raise ValueError(
                 f"'split' must be specified in [0, 1, 2, 3], got {cfg.split}")
+        if command == "train" and cfg.resume and cfg.exp_id < 0:
+            # a fresh run dir would hold no checkpoint, and training would
+            # restart from scratch despite the explicit resume
+            raise ValueError("resume=True requires exp_id=<run id of the "
+                             f"run to resume> (got exp_id={cfg.exp_id})")
         return cfg
+
+    @staticmethod
+    def open_run(cfg, command: str, observed: bool = True) -> Run:
+        """The run of ``command``: ``train`` (observed, ``g.fileStorage``)
+        gets ``<g.model_dir>/<tag>/<id>/``, a new id or, on resume, the
+        ``exp_id`` it continues; anything else records nothing."""
+        if not (observed and command == "train" and cfg.g.fileStorage):
+            return Run(None, None)
+        tag_dir = Path(cfg.g.model_dir) / str(cfg.tag)
+        tag_dir.mkdir(parents=True, exist_ok=True)
+        if cfg.resume:
+            run_dir = tag_dir / str(cfg.exp_id)
+            run_dir.mkdir(parents=True, exist_ok=True)
+            return Run(cfg.exp_id, run_dir)
+        while True:     # atomic id allocation against concurrent runs
+            run_id = _next_run_id(tag_dir)
+            try:
+                (tag_dir / str(run_id)).mkdir(parents=True, exist_ok=False)
+                return Run(run_id, tag_dir / str(run_id))
+            except FileExistsError:
+                continue
 
     def run_commandline(self, argv: Optional[List[str]] = None):
         argv = list(sys.argv[1:] if argv is None else argv)
         if not argv or argv[0] in ("help", "-h", "--help"):
-            print(f"usage: {self.name} <command> [with k=v ...]")
+            print(f"usage: {self.name} <command> [with k=v ...] [-u]")
             print("commands:", ", ".join(sorted(self.commands)))
             return None
         command, rest = argv[0], argv[1:]
         overrides: Dict[str, Any] = {}
+        observed = True
         expect_with = True
         for token in rest:
-            if token == "with" and expect_with:
+            if token in ("-u", "--unobserved"):
+                observed = False
+            elif token == "with" and expect_with:
                 expect_with = False
             elif "=" in token:
                 key, _, value = token.partition("=")
@@ -180,4 +266,6 @@ class Experiment:
         if command not in self.commands:
             raise SystemExit(f"Unknown command '{command}'. "
                              f"Available: {', '.join(sorted(self.commands))}")
-        return self.commands[command](self.assemble(command, overrides))
+        cfg = self.assemble(command, overrides)
+        return self.commands[command](cfg, self.open_run(cfg, command,
+                                                         observed))

@@ -48,12 +48,16 @@ def make_fast_eval_step(model: torch.nn.Module, device: torch.device
 
 
 class Evaluator:
-    """The final ``te.epochs``-round eval (the JAX package's ``EVAL``
-    mode; the in-training ``EVAL_ONLINE`` comes with training)."""
+    """The ``te.epochs``-round eval: ``EVAL`` (the final eval, which logs
+    the 5-round summary) or ``EVAL_ONLINE`` (the eval after each training
+    epoch)."""
 
     def __init__(self, cfg, step: Callable, val_labels,
-                 logger: logging.Logger = None):
+                 logger: logging.Logger = None, mode: str = "EVAL"):
+        if mode not in ("EVAL_ONLINE", "EVAL"):
+            raise ValueError(f"Not supported evaluation mode {mode}")
         self.cfg = cfg
+        self.mode = mode
         self.step = step
         self.val_labels = list(val_labels)
         self.logger = logger or logging.getLogger(__name__)
@@ -97,6 +101,8 @@ class Evaluator:
             accum.update(loss=inner.mean("loss"), miou=miou, biou=biou)
 
         self.fps = n_episodes / timer.total if timer.total else 0.0
+        if self.mode == "EVAL_ONLINE":
+            return accum.mean(["loss", "miou", "biou"])
         miou_r, biou_r = accum.mean(["miou", "biou"], axis=0)
         miou_avg, biou_avg = accum.mean(["miou", "biou"])
         self.logger.info("-" * 21 + " Final Results " + "-" * 21)

@@ -1,10 +1,18 @@
-"""Eval losses on the device.
+"""Segmentation losses on the device.
 
-Counterpart of ``cross_entropy`` and ``per_episode_cross_entropy`` in
-``pemp_tpu/core/losses.py`` (reference core/losses.py:10): mean
-cross-entropy with ignore index 255. Logits are channels-last
-``[..., 2]``; labels are integer maps of the same leading shape. The
-boundary-weighted ``cedt`` loss and its EDT come with the training slice.
+Counterpart of ``pemp_tpu/core/losses.py`` (reference core/losses.py):
+
+- ``cross_entropy``: mean CE with ignore index 255 (reference :10);
+- ``per_episode_cross_entropy``: the eval CE per episode;
+- ``cedt``: boundary-weighted CE, per-pixel CE times
+  ``exp(-EDT(boundary)/sigma^2) + 1``, divided by the *total* weight,
+  ignored pixels included (the reference divides by ``weight.sum()``,
+  :43). The EDT runs on the device (``ops/edt.py``, the min-plus kernel
+  on CUDA); the weight is a function of the labels and carries no
+  gradient.
+
+Logits are channels-last ``[..., 2]``; labels are integer maps of the
+same leading shape.
 """
 
 from __future__ import annotations
@@ -12,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from pemp_tpu_torch.ops.dtypes import f32up
+from pemp_tpu_torch.ops.edt import edt_boundary_weight
 
 IGNORE = 255
 
@@ -42,3 +51,23 @@ def per_episode_cross_entropy(logits: torch.Tensor,
     per_query = (pix.reshape(b, q, -1).sum(dim=2)
                  / valid.reshape(b, q, -1).sum(dim=2).clamp(min=1))
     return per_query.mean(dim=1)
+
+
+def cedt(logits: torch.Tensor, labels: torch.Tensor,
+         sigma: float = 5.0) -> torch.Tensor:
+    """Boundary-distance-weighted CE (reference CELossDT :33-43).
+    logits [B, H, W, 2] (query axis folded), labels [B, H, W]."""
+    pix, _ = _pixel_ce(logits, labels)
+    weight = edt_boundary_weight(labels, sigma, dtype=pix.dtype)
+    return (pix * weight).sum() / weight.sum()
+
+
+def get(cfg):
+    """The loss ``cfg.loss`` names (reference core/losses.py:8-14)."""
+    if cfg.loss == "ce":
+        return cross_entropy
+    if cfg.loss == "cedt":
+        sigma = cfg.sigma
+        return lambda logits, labels: cedt(logits, labels, sigma)
+    raise ValueError(f"Unsupported loss type, got {cfg.loss}. "
+                     "Please choose from [ce, cedt]")

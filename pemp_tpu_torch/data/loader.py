@@ -28,21 +28,26 @@ def _collate(episodes) -> Dict:
 
 
 class EpisodeLoader:
-    """Iterates batches over the dataset's pre-sampled tasks, in order."""
+    """Iterates batches over the dataset's pre-sampled tasks, in order;
+    ``drop_last`` (training) leaves out a short last batch."""
 
     def __init__(self, dataset, batch_size: int, num_workers: int = 4,
-                 prefetch: int = 2):
+                 prefetch: int = 2, drop_last: bool = False):
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_workers = max(1, num_workers)
         self.prefetch = max(1, prefetch)
+        self.drop_last = drop_last
 
     def __len__(self):
-        return -(-len(self.dataset) // self.batch_size)
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last \
+            else -(-n // self.batch_size)
 
     def _batches(self):
         n = len(self.dataset)
-        for s in range(0, n, self.batch_size):
+        stop = len(self) * self.batch_size if self.drop_last else n
+        for s in range(0, stop, self.batch_size):
             yield list(range(s, min(s + self.batch_size, n)))
 
     def __iter__(self) -> Iterator[Dict]:

@@ -1,7 +1,7 @@
 """Synthetic episodic dataset (dataset name ``SYNTH``).
 
-Copy of the test side of ``pemp_tpu/data/synthetic.py``, without its
-variable-size-GT emulation (``data.var_gt``): procedurally generated
+Copy of ``pemp_tpu/data/synthetic.py`` without its variable-size-GT
+emulation (``data.var_gt``) and its visualize names: procedurally generated
 images and blob masks keyed by sample name, with the same episode
 contract and sampler semantics as the real PASCAL-5i / COCO-20i loaders,
 so equal seeds give the JAX package's episodes.
@@ -26,23 +26,32 @@ SAMPLES_PER_CLASS = 40
 
 
 class SyntheticDataset:
-    """The test episodes of ``split``: its 5 val classes, ``data.test_n``
-    episodes a round drawn from ``data.test_seed``."""
+    """Training episodes (``train``: every class but the split's 5,
+    ``data.train_n`` episodes an epoch from ``data.seed``) or test
+    episodes (the split's 5 val classes, ``data.test_n`` a round from
+    ``data.test_seed``)."""
 
-    def __init__(self, cfg, split: int, shot: int, query: int):
+    def __init__(self, cfg, train: bool, split: int, shot: int, query: int):
         self.cfg = cfg
+        self.train = train
         self.split = split
         self.shot = shot
         self.query = query
         self.height = cfg.data.height
         self.width = cfg.data.width
-        self.classes = list(range(split * 5 + 1, split * 5 + 6))
+        val = list(range(split * 5 + 1, split * 5 + 6))
+        if train:
+            self.classes = sorted(set(range(1, N_CLASSES + 1)) - set(val))
+            n, seed = cfg.data.train_n, cfg.data.seed
+        else:
+            self.classes = val
+            n, seed = cfg.data.test_n, cfg.data.test_seed
         self.samples_by_class = {
             c: [f"synth_{c:02d}_{i:03d}" for i in range(SAMPLES_PER_CLASS)]
             for c in self.classes}
         self.sampler = EpisodeSampler(
-            self.classes, self.samples_by_class, cfg.data.test_n, shot,
-            query, cfg.data.test_seed, one_cls=cfg.data.one_cls)
+            self.classes, self.samples_by_class, n, shot, query, seed,
+            one_cls=cfg.data.one_cls)
         self._render_cache = {}
 
     def reset_sampler(self):

@@ -2,19 +2,25 @@
 
 Counterpart of ``entry/pemp_stage1.py`` of the JAX package:
 
+    python -m pemp_tpu_torch.entry.pemp_stage1 train with split=0 \
+        data.dataset=SYNTH loss=cedt [dev.device=cpu] [k=v ...] [-u]
     python -m pemp_tpu_torch.entry.pemp_stage1 test with split=0 \
         data.dataset=SYNTH [ckpt=weights.pt] [dev.device=cpu] [k=v ...]
 
-``test`` builds the model on the device (CUDA unless ``dev.device=cpu``),
-initialises it from ``seed`` or loads a ``.pt`` state_dict (for example
-one written from ``pemp_tpu_torch.utils.convert.state_dict_from_jax``),
-and runs the 5-round evaluator. ``train`` and ``visualize`` are not
-ported yet.
+Both run on CUDA unless ``dev.device=cpu``. ``train`` initialises the
+model from ``seed``, trains it (SGD, gradient clip 1.1, the backbone BNs
+frozen), records the run into ``g.model_dir/<tag>/<id>/`` and, when the
+run is recorded, chains into ``test`` with ``exp_id=<id>
+ckpt=bestckpt.pt``. ``test`` initialises the model from ``seed`` or loads
+a ``.pt`` checkpoint (the trainer's, or a bare state_dict such as one
+written from ``pemp_tpu_torch.utils.convert.state_dict_from_jax``) and
+runs the 5-round evaluator. ``visualize`` is not ported yet.
 """
 
 from __future__ import annotations
 
 import logging
+import random
 import sys
 from pathlib import Path
 from typing import Dict, List, Optional
@@ -23,7 +29,11 @@ import numpy as np
 import torch
 
 from pemp_tpu_torch.config import Config, Experiment
+from pemp_tpu_torch.core import checkpoint as ckpt_lib
+from pemp_tpu_torch.core import losses as loss_lib
+from pemp_tpu_torch.core import solver
 from pemp_tpu_torch.core.evaluator import Evaluator, make_fast_eval_step
+from pemp_tpu_torch.core.trainer import Trainer
 from pemp_tpu_torch.data import datasets
 from pemp_tpu_torch.device import resolve_device
 from pemp_tpu_torch.models.pemp_stage1 import NetConfig, PEMPStage1
@@ -33,6 +43,7 @@ PRECISIONS = {"bf16": torch.bfloat16, "f32": torch.float32}
 
 base_cfg = Config(tag=NAME)
 base_cfg.net = NetConfig()
+base_cfg.tr.grad_clip = 1.1     # reference entry/pemp_stage1.py:63
 ex = Experiment(NAME, base_cfg)
 
 
@@ -62,7 +73,8 @@ def set_precision(precision: str) -> torch.dtype:
 
 def build_model(cfg, device: torch.device) -> PEMPStage1:
     """The eval-mode model on ``device`` (channels_last), initialised from
-    ``cfg.seed`` or loaded from the checkpoint ``cfg.ckpt`` names."""
+    ``cfg.seed`` or loaded from the checkpoint ``cfg.ckpt`` names (the
+    trainer's ``{"model": ...}`` dict or a bare state_dict)."""
     net = cfg.net
     model = PEMPStage1(
         backbone=net.backbone, out_channels=net.out_channels,
@@ -78,8 +90,7 @@ def build_model(cfg, device: torch.device) -> PEMPStage1:
             "reading the JAX package's .msgpack checkpoints is not ported "
             "yet; convert with state_dict_from_jax and torch.save a .pt")
     else:
-        model.load_state_dict(torch.load(path, map_location="cpu",
-                                         weights_only=True))
+        model.load_state_dict(ckpt_lib.model_state(ckpt_lib.load(path)))
     return model.to(device, memory_format=torch.channels_last).eval()
 
 
@@ -116,18 +127,58 @@ def run_test(cfg) -> Dict[str, float]:
     return result
 
 
+def _train(cfg, run) -> Dict:
+    """Train on the device; returns the run id, every step's loss, the
+    best online-eval mIoU and its epoch, and whether a signal stopped it."""
+    logger = _logger()
+    device = resolve_device(cfg.dev.device)
+    random.seed(cfg.seed)
+    np.random.seed(cfg.seed)
+    train_ds, train_loader, _ = datasets.load(cfg, "train")
+    val_ds, val_loader, num_classes = datasets.load(cfg, "eval_online")
+    model = build_model(cfg, device).train()
+    params = model.freeze()
+    optimizer = solver.make_optimizer(cfg.tr, params)
+    lr_policy = solver.LRPolicy(cfg.tr, cfg.tr.total_epochs
+                                * len(train_loader))
+    trainer = Trainer(cfg, run, model, optimizer, params, loss_lib.get(cfg),
+                      lr_policy, device, logger)
+    evaluator = Evaluator(cfg, make_fast_eval_step(model, device),
+                          datasets.get_val_labels(cfg, cfg.split), logger,
+                          mode="EVAL_ONLINE")
+    logger.info(f"Start training on {device}.")
+    trainer.start_training_loop(train_ds, train_loader, evaluator, val_ds,
+                                val_loader, num_classes, resume=cfg.resume)
+    what = "Training preempted" if trainer.preempted else "Ending training"
+    logger.info(f"========== {what} with id {run._id} ==========")
+    return {"run_id": run._id, "losses": trainer.step_losses,
+            "best_iou": trainer.best_iou, "best_epoch": trainer.best_epoch,
+            "preempted": trainer.preempted, "device": str(device)}
+
+
+def run_train(cfg, run) -> Dict:
+    """The ``train`` command: ``{"train": <_train's summary>}`` plus, for a
+    recorded run that was not stopped, ``"test"``: the chained ``test``
+    of ``bestckpt.pt``."""
+    result = {"train": _train(cfg, run)}
+    if run._id is not None and not result["train"]["preempted"]:
+        cfg.exp_id, cfg.ckpt = run._id, ckpt_lib.BEST
+        result["test"] = run_test(cfg)
+    return result
+
+
 @ex.command
-def test(cfg):
+def test(cfg, run):
     return run_test(cfg)
 
 
 @ex.command
-def train(cfg):
-    raise SystemExit(f"{NAME} train is not yet ported to pemp_tpu_torch")
+def train(cfg, run):
+    return run_train(cfg, run)
 
 
 @ex.command
-def visualize(cfg):
+def visualize(cfg, run):
     raise SystemExit(f"{NAME} visualize is not yet ported to pemp_tpu_torch")
 
 

@@ -17,8 +17,12 @@ Modules take NCHW tensors; the models keep them in
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
+
+from pemp_tpu_torch.ops.dropblock import dropblock_2d
 
 Conv = nn.Conv2d
 BatchNorm = nn.BatchNorm2d      # defaults eps=1e-5, momentum=0.1
@@ -29,20 +33,20 @@ def max_pool_torch() -> nn.MaxPool2d:
 
 
 class DropBlock(nn.Module):
-    """DropBlock2D: the identity in eval mode (and at rate 0). Its
-    train-mode sampling (``pemp_tpu/ops/dropblock.py``) is not ported
-    yet."""
+    """DropBlock2D (``ops/dropblock.py``): the identity in eval mode and at
+    rate 0. In train mode it draws from ``self.generator`` (set by the
+    trainer, one per epoch; None draws from PyTorch's default)."""
 
     def __init__(self, rate: float, block_size: int):
         super().__init__()
         self.rate = rate
         self.block_size = block_size
+        self.generator: Optional[torch.Generator] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training or self.rate == 0.0:
+        if not self.training:
             return x
-        raise NotImplementedError(
-            "DropBlock train mode is not ported yet (training slice)")
+        return dropblock_2d(x, self.rate, self.block_size, self.generator)
 
 
 class ASPPV2(nn.Module):

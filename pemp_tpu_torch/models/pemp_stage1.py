@@ -10,14 +10,20 @@ The encoder runs under bf16 autocast when ``compute_dtype`` is bf16 (the
 JAX package's ``tpu.precision=bf16``); the mpm and everything after it
 run in float32 outside autocast. The mpm goes through the CUDA kernels
 (``ops/kernels/mpm.py``) for features on a CUDA device and through the
-plain PyTorch version for features on the CPU.
+plain PyTorch version for features on the CPU; with grad enabled it is
+the ``MPMChainPacked`` autograd Function.
+
+Training is ``model.train()``: BatchNorms use batch statistics and update
+their running stats, DropBlocks drop. ``freeze()`` applies ``FROZEN``:
+the backbone BatchNorms keep batch statistics but their affine
+parameters do not train (reference backbones.py:56-62).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -26,6 +32,7 @@ from pemp_tpu_torch.models.backbones import ResNet
 from pemp_tpu_torch.models.common import (
     RESNET_LAYERS, PurifierV2, downsample_masks, output_resize,
 )
+from pemp_tpu_torch.models.layers import DropBlock
 from pemp_tpu_torch.ops.kernels.mpm import mpm_chain_packed
 from pemp_tpu_torch.ops.prototypes import (
     masked_average_pooling, meta_prototype_assign, prototype_predictions,
@@ -105,6 +112,12 @@ class PEMPStage1(nn.Module):
     (``encoder.backbone.*``, ``encoder.purifier.*``, ``ctr``).
     ``layers`` overrides the ResNet depth (tests build ``(1, 1, 1)``)."""
 
+    # module types under ``encoder.backbone`` whose parameters do not
+    # train (both ResNets). The JAX package's regex ``backbone/.*bn`` also matches its
+    # ``downsample_bn``; here that module is ``layerK.0.downsample.1``, so
+    # the rule goes by module type, not by name.
+    FROZEN = (nn.BatchNorm2d,)
+
     def __init__(self, backbone: str = "resnet50", out_channels: int = 512,
                  protos: int = 3, drop_rate: float = 0.1, block_size: int = 4,
                  dist_scalar: float = 20.0, init_channels: int = 3,
@@ -135,6 +148,24 @@ class PEMPStage1(nn.Module):
                 m.reset_parameters()
         if self.ctr is not None:
             self.ctr.uniform_(0.0, 1.0, generator=generator)
+
+    def freeze(self) -> List[nn.Parameter]:
+        """``requires_grad=False`` on the parameters of every ``FROZEN``
+        module under the backbone (those BNs stay in train mode, so they
+        still use and update batch statistics); returns the parameters
+        that train."""
+        for m in self.encoder.backbone.modules():
+            if isinstance(m, self.FROZEN):
+                for p in m.parameters(recurse=False):
+                    p.requires_grad_(False)
+        return [p for p in self.parameters() if p.requires_grad]
+
+    def set_dropout_generator(self, generator: Optional[torch.Generator]
+                              ) -> None:
+        """The generator every DropBlock draws from in train mode."""
+        for m in self.modules():
+            if isinstance(m, DropBlock):
+                m.generator = generator
 
     def forward(self, sup_img, sup_mask, qry_img,
                 out_hw: Optional[Tuple[int, int]] = "input",

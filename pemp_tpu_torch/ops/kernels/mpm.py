@@ -12,7 +12,9 @@ Replaces the TPU kernels of ``pemp_tpu/ops/pallas/mpm.py``:
 - ``mpm_chain_packed`` <- ``mpm_chain_packed_pallas`` (K3): K1 then K2 on
   the un-split purifier output ``[B, S+Q, n, c]``; the kernels pick the
   support rows ``(i//S)(S+Q)+i%S`` and query rows ``(i//Q)(S+Q)+S+i%Q``
-  themselves, so no split copy is made.
+  themselves, so no split copy is made;
+- ``MPMChainPacked`` <- the custom VJPs of ``pemp_tpu/ops/pallas/mpm_vjp.py``
+  (K4): K1 and K2 forward, the analytic backward in PyTorch ops.
 
 For a tensor on the CPU each wrapper runs the plain version
 (``pemp_tpu_torch.ops.prototypes``); for a CUDA tensor it launches its
@@ -21,6 +23,8 @@ launches on CUDA, one at the site that launches it: ``assign_partial``
 and ``assign_reduce`` (K1's two launches) and ``match`` (K2). The chain
 launches nothing of its own. ``plain_assign_partial`` and
 ``plain_assign_reduce`` are the plain versions of K1's two launches.
+``backward_calls`` counts ``MPMChainPacked`` backward passes (torch ops,
+no kernel of their own).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from pemp_tpu_torch.ops.dtypes import f32up
 from pemp_tpu_torch.ops.kernels.build import load_library
 from pemp_tpu_torch.ops.prototypes import (
     ASSIGN_EPS, COS_EPS, meta_prototype_assign, prototype_predictions,
@@ -43,6 +48,7 @@ SMEM_LIMIT = 232448      # dynamic shared memory a block may use on sm_90
 
 launches: Dict[str, int] = {"assign_partial": 0, "assign_reduce": 0,
                             "match": 0}
+backward_calls: Dict[str, int] = {"mpm_backward": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -53,6 +59,7 @@ _bound = None
 def reset_launches() -> None:
     for key in launches:
         launches[key] = 0
+    backward_calls["mpm_backward"] = 0
 
 
 def _lib():
@@ -259,14 +266,157 @@ def mpm_match(fts: torch.Tensor, s: int, fg_proto: torch.Tensor,
                          return_indices)
 
 
+def _norm_and_guard(x: torch.Tensor):
+    """``_safe_norm``'s value and the ``sq >= 1e-30`` gate its gradient
+    implies."""
+    sq = (x * x).sum(dim=-1)
+    return torch.sqrt(torch.clamp(sq, min=1e-30)), sq >= 1e-30
+
+
+def _assign_backward(sup_fts, sup_fg, sup_bg, ctr, g_proto, protos: int,
+                     eps: float):
+    """Cotangents of (sup_fts, sup_fg, sup_bg, ctr) from the packed
+    prototype cotangent g_proto [B, 2p, c] (``_assign_bwd``,
+    ``pemp_tpu/ops/pallas/mpm_vjp.py:63-112``). The softmax assignment is
+    recomputed from the four inputs, not saved."""
+    f = f32up(sup_fts)
+    c32 = ctr.to(f.dtype)
+    b, s, n, c = f.shape
+    k = protos
+    f_sq = (f * f).sum(dim=-1, keepdim=True)                      # [B,S,n,1]
+    c_sq = (c32 * c32).sum(dim=0)                                 # [2k]
+    dist = -(f_sq - 2.0 * torch.einsum("bsnc,ck->bsnk", f, c32) + c_sq)
+    sm5 = torch.softmax(dist.reshape(b, s, n, 2, k), dim=-1)      # [B,S,n,2,k]
+    mask2 = torch.stack([sup_fg, sup_bg], dim=-1).to(f.dtype)     # [B,S,n,2]
+    a = (sm5 * mask2[..., None]).reshape(b, s, n, 2 * k)
+    num = torch.einsum("bsnc,bsnk->bskc", f, a)                   # [B,S,2k,c]
+    den = a.sum(dim=2)[..., None] + eps                           # [B,S,2k,1]
+
+    # proto = mean_s(num / den)
+    gq = g_proto.to(f.dtype)[:, None] / s                         # [B,1,2k,c]
+    g_num = gq / den
+    g_den = -(gq * num).sum(dim=-1, keepdim=True) / (den * den)
+    g_a = (torch.einsum("bsnc,bskc->bsnk", f, g_num)
+           + g_den[..., 0][:, :, None, :])                        # [B,S,n,2k]
+    g_f = torch.einsum("bsnk,bskc->bsnc", a, g_num)
+
+    # a = softmax(dist | class) * mask
+    g_a5 = g_a.reshape(b, s, n, 2, k)
+    g_mask2 = (sm5 * g_a5).sum(dim=-1)                            # [B,S,n,2]
+    g_sm5 = g_a5 * mask2[..., None]
+    g_d5 = sm5 * (g_sm5 - (sm5 * g_sm5).sum(dim=-1, keepdim=True))
+    g_dist = g_d5.reshape(b, s, n, 2 * k)
+
+    # dist = -(f_sq - 2 f.ctr + c_sq)
+    g_fc = 2.0 * g_dist
+    g_row = g_dist.sum(dim=-1, keepdim=True)
+    g_f = g_f - 2.0 * f * g_row + torch.einsum("bsnk,ck->bsnc", g_fc, c32)
+    g_ctr = (torch.einsum("bsnc,bsnk->ck", f, g_fc)
+             - 2.0 * c32 * g_dist.sum(dim=(0, 1, 2))[None, :])
+    return g_f, g_mask2[..., 0], g_mask2[..., 1], g_ctr
+
+
+def _match_backward(qry_fts, packed, inds, g, protos: int,
+                    dist_scalar: float, cos_eps: float = COS_EPS):
+    """Cotangents of (qry_fts, packed prototypes [B, 2p, c]) from the
+    logit cotangent g [B, Q, n, 2] (``_match_bwd``, ``mpm_vjp.py:146-186``).
+    The max over p sends each row's gradient only to its argmax prototype
+    (``inds``, written by the forward), as a one-hot mask."""
+    q = f32up(qry_fts)
+    qn, q_live = _norm_and_guard(q)                               # [B,Q,n]
+    col = torch.arange(protos, device=q.device)
+
+    def class_backward(proto, idx, g_cls):
+        p = proto.to(q.dtype)
+        pn, p_live = _norm_and_guard(p)                           # [B,k]
+        dot = torch.einsum("bqnc,bkc->bqnk", q, p)
+        d_raw = qn[..., None] * pn[:, None, None, :]              # [B,Q,n,k]
+        d_cl = torch.clamp(d_raw, min=cos_eps)
+        g_cos = ((idx[..., None] == col).to(q.dtype)
+                 * g_cls[..., None].to(q.dtype) * dist_scalar)
+        g_dot = g_cos / d_cl
+        g_d = torch.where(d_raw >= cos_eps, -g_cos * dot / (d_cl * d_cl),
+                          torch.zeros_like(dot))
+        g_qn = (g_d * pn[:, None, None, :]).sum(dim=-1)           # [B,Q,n]
+        g_pn = (g_d * qn[..., None]).sum(dim=(1, 2))              # [B,k]
+        g_q = (torch.einsum("bqnk,bkc->bqnc", g_dot, p)
+               + torch.where(q_live, g_qn / qn, torch.zeros_like(qn))[..., None]
+               * q)
+        g_p = (torch.einsum("bqnk,bqnc->bkc", g_dot, q)
+               + torch.where(p_live, g_pn / pn, torch.zeros_like(pn))[..., None]
+               * p)
+        return g_q, g_p
+
+    # class order of the logits is [bg, fg]; packed holds fg then bg
+    g_q_bg, g_bg = class_backward(packed[:, protos:], inds[..., 0], g[..., 0])
+    g_q_fg, g_fg = class_backward(packed[:, :protos], inds[..., 1], g[..., 1])
+    return g_q_bg + g_q_fg, torch.cat([g_fg, g_bg], dim=1)
+
+
+class MPMChainPacked(torch.autograd.Function):
+    """Differentiable assign-then-match on the packed features (K4; the
+    custom VJP ``mpm_packed_fused``, ``pemp_tpu/ops/pallas/mpm_vjp.py:197-230``).
+
+    Forward: on CUDA, K1 then K2 with the argmax indices; on the CPU the
+    plain composition. The packed prototypes [B, 2p, c] and the int32
+    indices are kept for the backward. Backward: PyTorch tensor ops in
+    (at least) float32, the same on both devices, as the JAX package's is
+    jnp outside any kernel; its contractions need TF32 off on the card.
+    Ties of the max over p send the gradient to the first occurrence
+    (autodiff of the plain version splits it; measure zero for real
+    features). ``backward_calls["mpm_backward"]`` counts backward passes.
+    """
+
+    @staticmethod
+    def forward(ctx, fts, sup_fg, sup_bg, ctr, protos: int,
+                dist_scalar: float, eps: float):
+        s = sup_fg.shape[1]
+        if fts.device.type == "cpu":
+            fg, bg = meta_prototype_assign(fts[:, :s], sup_fg, sup_bg, ctr,
+                                           protos, eps)
+            packed = torch.cat([fg, bg], dim=1)
+            logits, inds = prototype_predictions(fts[:, s:], fg, bg,
+                                                 dist_scalar, True)
+        else:
+            packed = _assign_launch(fts, sup_fg, sup_bg, ctr, protos, eps)
+            logits, inds = _match_launch(fts, s, packed, protos, dist_scalar,
+                                         True)
+        ctx.save_for_backward(fts, sup_fg, sup_bg, ctr, packed, inds)
+        ctx.protos, ctx.dist_scalar, ctx.eps = protos, dist_scalar, eps
+        return logits
+
+    @staticmethod
+    def backward(ctx, g):
+        fts, sup_fg, sup_bg, ctr, packed, inds = ctx.saved_tensors
+        backward_calls["mpm_backward"] += 1
+        s = sup_fg.shape[1]
+        g_qry, g_packed = _match_backward(fts[:, s:], packed, inds, g,
+                                          ctx.protos, ctx.dist_scalar)
+        g_sup, g_fg, g_bg, g_ctr = _assign_backward(
+            fts[:, :s], sup_fg, sup_bg, ctr, g_packed, ctx.protos, ctx.eps)
+        need = ctx.needs_input_grad
+        g_fts = torch.cat([g_sup, g_qry], dim=1).to(fts.dtype)
+        return (g_fts if need[0] else None,
+                g_fg.to(sup_fg.dtype) if need[1] else None,
+                g_bg.to(sup_bg.dtype) if need[2] else None,
+                g_ctr.to(ctr.dtype) if need[3] else None,
+                None, None, None)
+
+
 def mpm_chain_packed(fts: torch.Tensor, sup_fg: torch.Tensor,
                      sup_bg: torch.Tensor, ctr: torch.Tensor, protos: int,
                      dist_scalar: float = 20.0, return_indices: bool = False,
                      eps: float = ASSIGN_EPS):
     """Assign then match on the packed purifier output fts [B, S+Q, n, c]
     (S = ``sup_fg.shape[1]``). Returns logits [B, Q, n, 2] and, if asked,
-    the argmax indices [B, Q, n, 2]."""
+    the argmax indices [B, Q, n, 2]. With grad enabled and an input that
+    requires it, the logits come from ``MPMChainPacked`` (same kernels
+    forward, analytic backward)."""
     s = sup_fg.shape[1]
+    if (not return_indices and torch.is_grad_enabled()
+            and any(t.requires_grad for t in (fts, sup_fg, sup_bg, ctr))):
+        return MPMChainPacked.apply(fts, sup_fg, sup_bg, ctr, protos,
+                                    dist_scalar, eps)
     if fts.device.type == "cpu":
         fg, bg = meta_prototype_assign(fts[:, :s], sup_fg, sup_bg, ctr,
                                        protos, eps)

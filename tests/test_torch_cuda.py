@@ -11,12 +11,17 @@ partial sums and prototypes within 1e-3 of their largest magnitude,
 logits within 2e-3
 (float32 sums in another order), indices equal wherever the top-two
 similarity margin exceeds 1e-3, and the chain bit-identical run to run.
+The min-plus kernel and the squared EDT are bit-equal to their plain
+versions; ``MPMChainPacked``'s cotangents are within 1e-3 of the largest
+magnitude of autograd's through the plain chain (float32 features).
 """
 
 import pytest
 import torch
 
+from pemp_tpu_torch.ops import edt
 from pemp_tpu_torch.ops import prototypes as plain
+from pemp_tpu_torch.ops.kernels import minplus as M
 from pemp_tpu_torch.ops.kernels import mpm as K
 
 pytestmark = pytest.mark.cuda
@@ -87,3 +92,44 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         K.mpm_chain_packed(fts, fg, bg, torch.rand(64, 18, device=cuda), 9)
     with pytest.raises(ValueError):
         K.mpm_chain_packed(fts, fg.cpu(), bg, ctr, P)
+
+
+@pytest.mark.parametrize("m,k,n,z", [(40, 37, 53, 0), (33, 401, 65, 0),
+                                     (70, 65, 129, 3)])
+def test_minplus_bit_equals_plain(cuda, m, k, n, z):
+    g = torch.Generator(device=cuda).manual_seed(m)
+    a = torch.randint(0, 2 ** 20, (m, k), generator=g, device=cuda).float()
+    shape = (z, k, n) if z else (k, n)
+    b = torch.randint(0, 2 ** 20, shape, generator=g, device=cuda).float()
+    M.reset_launches()
+    assert torch.equal(M.minplus(a, b), M.plain_minplus(a, b))
+    assert M.launches == {"minplus": 1}
+    with pytest.raises(TypeError):
+        M.minplus(a.double(), b.double())
+    with pytest.raises(ValueError):
+        M.minplus(a, b.cpu())
+
+
+def test_edt2_on_the_card_bit_equals_the_cpu(cuda):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    feat = torch.rand(3, 61, 47, generator=g, device=cuda) < 0.01
+    feat[0, 3, 4] = True
+    feat[2] = False
+    assert torch.equal(edt.edt2(feat).cpu(), edt.edt2(feat.cpu()))
+
+
+def test_mpm_backward_matches_autograd_of_plain(cuda):
+    fts, fg, bg, ctr = _inputs(cuda, 2, 2, 1, 1030, 64, torch.float32)
+    fk, ck = fts.clone().requires_grad_(), ctr.clone().requires_grad_()
+    fp, cp = fts.clone().requires_grad_(), ctr.clone().requires_grad_()
+    w = torch.randn(2, 1, 1030, 2, device=cuda)
+    K.reset_launches()
+    lk = K.mpm_chain_packed(fk, fg, bg, ck, P, SCALE)
+    gk = torch.autograd.grad((lk * w).sum(), (fk, ck))
+    assert K.launches == {"assign_partial": 1, "assign_reduce": 1, "match": 1}
+    assert K.backward_calls == {"mpm_backward": 1}
+    pf, pb = plain.meta_prototype_assign(fp[:, :2], fg, bg, cp, P)
+    lp = plain.prototype_predictions(fp[:, 2:], pf, pb, SCALE)
+    gp = torch.autograd.grad((lp * w).sum(), (fp, cp))
+    for a, b in zip(gk, gp):
+        assert (a - b).abs().max() <= 1e-3 * b.abs().max()

@@ -58,7 +58,7 @@ def test_entry_without_cpu_request_needs_cuda():
     assert resolve_device("cpu").type == "cpu"
 
 
-@pytest.mark.parametrize("argv", [["train", "with", "split=0"],
+@pytest.mark.parametrize("argv", [["train", "with", "split=0", "resume=True"],
                                   ["visualize", "with", "split=0"],
                                   ["bogus"], ["test", "with", "net.bogus=1"],
                                   ["test", "with", "data.dataset=SYNTH"]])
