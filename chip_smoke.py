@@ -14,9 +14,14 @@ and drives the port's two paths at full width (PEMP stage 1, ResNet-50,
   steps, the online eval and the chained ``test`` (``train_path``);
 
 and checks that each path went through the kernels and agrees with the
-plain version. The phases ``minplus`` (the EDT kernel, bit-exact) and
-``mpm_backward`` (the mpm autograd Function against autograd of the plain
-composition) hold the training slice's pieces on their own.
+plain version. The phases ``minplus`` (the EDT kernel, bit-exact, also on
+non-integer input) and ``mpm_backward`` (the mpm autograd Function
+against autograd of the plain composition) hold the training slice's
+pieces on their own. ``kernels`` times the assign kernel at the eval and
+train shapes and, with four shots, its cost per extra row; ``minplus``
+also times one 2048^3 product (the kernel's sustained rate); the train
+profile names the convolutions behind cuDNN's fallback kernels by input
+shape.
 
 Each phase prints one JSON line; then the kernel table, the card's name
 and power limit, and as the last line
@@ -45,6 +50,7 @@ FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 # flops, and a min-plus term is an add and a min with no multiply to fuse
 FP32_INSTR_PER_S = FP32_FLOPS_PER_S / 2
 TIMING_ITERS = 30                # CUDA-event samples per timing (median)
+SPIN_CYCLES = 400_000            # ~0.2 ms at 1.98 GHz: covers the host's enqueue
 # kernel vs plain tolerances (fp32 accumulation in another order):
 PROTO_RTOL = 1e-3    # prototypes: max abs err <= PROTO_RTOL * max |plain|
 LOGIT_ATOL = 2e-3    # logits (cosine x 20): max abs err
@@ -63,6 +69,19 @@ TRAIN_LOSS_RTOL = 1e-5
 # bit-equal; the float32 square roots may differ by one ulp (2^-23)
 EDT_SQRT_RTOL = 2.0 ** -23
 TRAIN_GRAD_RTOL = 1e-3
+# each kernel's time before its redesign: PERF.md section 6, chip run 3 of
+# the training slice (NVIDIA H100 80GB HBM3, 700.00 W); assign = the old
+# assign_partial + assign_reduce launches, minplus = both EDT phases
+MS_BEFORE = {"assign": 0.10273599997162819 + 0.026847999542951584,
+             "match": 0.04809600114822388,
+             "minplus": 0.07449600100517273 + 0.07574400305747986,
+             "minplus_phase1": 0.07449600100517273,
+             "minplus_phase2": 0.07574400305747986,
+             "mpm_backward": 3.9860960245132446}
+
+# cuDNN's fallback convolution kernels at the top of the train step's
+# profile, whose convolutions the profile names by input shape
+CONV_FALLBACK = ("dgrad_engine", "wgrad_alg1_engine")
 
 MAIN_ARGS = ["test", "with", "split=0", "data.dataset=SYNTH",
              "data.height=401", "data.width=401", "shot=1", "query=1",
@@ -89,13 +108,16 @@ def nvidia_smi() -> str:
 
 def time_ms(torch, fn, flush) -> float:
     """Median CUDA-event time of ``fn`` over TIMING_ITERS launches, each
-    after a write of ``flush`` (> L2) so the inputs come from HBM and the
-    device is busy while the host enqueues ``fn``."""
+    after a write of ``flush`` (> L2) so the inputs come from HBM, and a
+    device-side spin of SPIN_CYCLES so the device is still busy when the
+    host has enqueued ``fn``: the events time the device's work, not the
+    host's dispatch of it."""
     fn()
     torch.cuda.synchronize()
     pairs = []
     for _ in range(TIMING_ITERS):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -137,25 +159,21 @@ def mpm_backward_work(b, s, q, n, c, p, esize):
     return nbytes, flops
 
 
-def work(b, s, q, n, c, p, esize, tile):
+def work(b, s, q, n, c, p, esize):
     """(bytes, flops) of each kernel and of the chain, for calls that write
-    no indices: each input read once, each output written once; flops of
-    |f|^2, the 2p-column products and the tile sums."""
-    k2, tiles = 2 * p, -(-n // tile)
+    no indices: each input read once, each output written once (the assign
+    kernel's scratch is not part of its function); flops of |f|^2, the
+    2p-column products, a^T f and the finish."""
+    k2 = 2 * p
     masks, ctr = 2 * b * s * n * 4, c * k2 * 4
-    part = b * s * tiles * k2 * (c + 1) * 4
     protos, logits = b * k2 * c * 4, b * q * n * 2 * 4
-    f1 = b * s * n * (2 * c + 4 * c * k2)
-    f2 = b * s * k2 * (c * tiles + tiles + 2 * c)
-    f3 = b * q * n * (2 * c + 2 * c * k2)
+    f1 = b * s * n * (2 * c + 4 * c * k2) + 2 * b * s * k2 * c
+    f2 = b * q * n * (2 * c + 2 * c * k2)
     return {
-        "assign_partial": (b * s * n * c * esize + masks + ctr + part, f1),
-        "assign_reduce": (part + protos, f2),
-        "match": (b * q * n * c * esize + protos + logits, f3),
-        # the chain's own inputs and output; K1's scratch and prototypes
-        # between the launches are not part of the function
+        "assign": (b * s * n * c * esize + masks + ctr + protos, f1),
+        "match": (b * q * n * c * esize + protos + logits, f2),
         "chain": (b * (s + q) * n * c * esize + masks + ctr + logits,
-                  f1 + f2 + f3),
+                  f1 + f2),
     }
 
 
@@ -197,33 +215,28 @@ def top2_margin(torch, fts_q, fg, bg, scale):
 
 def kernel_phase(torch, K, plain):
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    c, p, scale = 512, 3, 20.0
+    c, scale, eps = 512, 20.0, plain.ASSIGN_EPS
+    bf16, f32 = torch.bfloat16, torch.float32
     cases = [
-        # (name, B, S, Q, n, dtype, far)
-        ("main_bf16", 8, 1, 1, 2601, torch.bfloat16, False),
-        ("main_f32", 8, 1, 1, 2601, torch.float32, False),
-        ("shot5_bf16", 8, 5, 1, 2601, torch.bfloat16, False),
-        ("shot5_f32", 8, 5, 1, 2601, torch.float32, False),
-        ("n1030_bf16", 8, 1, 1, 1030, torch.bfloat16, False),
-        ("n1030_f32", 8, 2, 1, 1030, torch.float32, False),
-        ("far_ctr_f32", 2, 1, 1, 2601, torch.float32, True),
-        ("far_ctr_bf16", 2, 1, 1, 1030, torch.bfloat16, True),
+        # (name, B, S, Q, n, p, dtype, far)
+        ("main_bf16", 8, 1, 1, 2601, 3, bf16, False),
+        ("main_f32", 8, 1, 1, 2601, 3, f32, False),
+        ("train_bf16", 4, 1, 1, 2601, 3, bf16, False),
+        ("shot5_bf16", 8, 5, 1, 2601, 3, bf16, False),
+        ("shot5_f32", 8, 5, 1, 2601, 3, f32, False),
+        ("n1030_bf16", 8, 1, 1, 1030, 3, bf16, False),
+        ("n1030_f32", 8, 2, 1, 1030, 3, f32, False),
+        ("far_ctr_f32", 2, 1, 1, 2601, 3, f32, True),
+        ("far_ctr_bf16", 2, 1, 1, 1030, 3, bf16, True),
+        ("p1_bf16", 8, 1, 1, 2601, 1, bf16, False),
+        ("p8_bf16", 8, 1, 1, 2601, 8, bf16, False),
+        ("p8_f32", 4, 2, 1, 1030, 8, f32, False),
     ]
     results = []
-    worst = {"assign_partial": 0.0, "assign_reduce": 0.0, "match": 0.0,
-             "chain": 0.0}
-    for name, b, s, q, n, dtype, far in cases:
+    worst = {"assign": 0.0, "match": 0.0, "chain": 0.0}
+    for name, b, s, q, n, p, dtype, far in cases:
         fts, fg, bg, ctr = make_inputs(torch, b, s, q, n, c, p, dtype, far)
-        # K1's two launches, each against its plain version on its inputs
-        kpart = K._assign_partial_launch(fts, fg, bg, ctr, p)
-        ppart = K.plain_assign_partial(fts, fg, bg, ctr, p)
-        err_p = (kpart - ppart).abs().max().item()
-        rel_p = err_p / ppart.abs().max().item()
-        kred = K._assign_reduce_launch(kpart, b, s, plain.ASSIGN_EPS)
-        pred = K.plain_assign_reduce(kpart, b, s, plain.ASSIGN_EPS)
-        err_r = (kred - pred).abs().max().item()
-        rel_r = err_r / pred.abs().max().item()
-        # K1 whole
+        # K1: one launch against the plain prototypes
         kf, kb = K.mpm_assign(fts, fg, bg, ctr, p)
         pf, pb = plain.meta_prototype_assign(fts[:, :s], fg, bg, ctr, p)
         ref = torch.cat([pf, pb], 1)
@@ -236,56 +249,61 @@ def kernel_phase(torch, K, plain):
         err2 = (kl - pl).abs().max().item()
         margin = top2_margin(torch, fts[:, s:], pf, pb, scale)
         agree2, sure2 = index_agreement(ki, pi, margin)
-        # K3: the packed chain, twice (bit-identical), against plain
-        cl, ci = K.mpm_chain_packed(fts, fg, bg, ctr, p, scale,
-                                    return_indices=True)
-        cl2, ci2 = K.mpm_chain_packed(fts, fg, bg, ctr, p, scale,
-                                      return_indices=True)
-        bitwise = bool(torch.equal(cl, cl2) and torch.equal(ci, ci2))
+        # K3: the packed chain three times back to back (bit-identical:
+        # each assign launch leaves its episode tickets at zero)
+        runs = [K.mpm_chain_packed(fts, fg, bg, ctr, p, scale,
+                                   return_indices=True) for _ in range(3)]
+        cl, ci = runs[0]
+        bitwise = all(torch.equal(cl, l2) and torch.equal(ci, i2)
+                      for l2, i2 in runs[1:])
         err3 = (cl - pl).abs().max().item()
         agree3, sure3 = index_agreement(ci, pi, margin)
         torch.cuda.synchronize()
-        ok = (finite1 and rel_p <= PROTO_RTOL and rel_r <= PROTO_RTOL
-              and rel1 <= PROTO_RTOL and err2 <= LOGIT_ATOL
+        ok = (finite1 and rel1 <= PROTO_RTOL and err2 <= LOGIT_ATOL
               and sure2 and err3 <= LOGIT_ATOL and sure3 and bitwise)
         row = {"case": name, "B": b, "S": s, "Q": q, "n": n, "c": c, "p": p,
                "dtype": str(dtype).replace("torch.", ""),
-               "assign_partial_max_abs_err": err_p,
-               "assign_partial_max_rel_err": rel_p,
-               "assign_reduce_max_abs_err": err_r,
-               "assign_reduce_max_rel_err": rel_r,
                "assign_max_abs_err": err1, "assign_max_rel_err": rel1,
                "match_max_abs_err": err2, "match_index_agreement": agree2,
                "chain_max_abs_err": err3, "chain_index_agreement": agree3,
-               "chain_bit_identical": bitwise, "ok": ok}
+               "chain_bit_identical_x3": bitwise, "ok": ok}
         results.append(row)
-        worst["assign_partial"] = max(worst["assign_partial"], err_p)
-        worst["assign_reduce"] = max(worst["assign_reduce"], err_r)
+        worst["assign"] = max(worst["assign"], err1)
         worst["match"] = max(worst["match"], err2)
         worst["chain"] = max(worst["chain"], err3)
         if not ok:
             emit({"phase": "kernels", "failed": row})
             raise AssertionError(f"kernel case {name} disagrees with plain")
 
-    # timings at the main-path shapes, bf16 features (what the model feeds)
-    b, s, q, n = 8, 1, 1, 2601
-    fts, fg, bg, ctr = make_inputs(torch, b, s, q, n, c, p, torch.bfloat16)
-    part = K._assign_partial_launch(fts, fg, bg, ctr, p)
-    packed = K._assign_reduce_launch(part, b, s, plain.ASSIGN_EPS)
+    # timings, bf16 features (what the model feeds): the eval shapes (B=8)
+    # and, for assign, the train shapes (B=4)
+    s, q, n, p = 1, 1, 2601, 3
+    t, bounds = {}, {}
+    for b, tag in ((8, ""), (4, "_train")):
+        fts, fg, bg, ctr = make_inputs(torch, b, s, q, n, c, p, bf16)
+        t[f"assign{tag}"] = time_ms(torch, lambda: K._assign_launch(
+            fts, fg, bg, ctr, p, eps), flush)
+        t[f"assign{tag}_plain"] = time_ms(
+            torch, lambda: plain.meta_prototype_assign(
+                fts[:, :s], fg, bg, ctr, p), flush)
+        bounds[f"assign{tag}"] = bound_ms(*work(b, s, q, n, c, p, 2)["assign"])
+    # four shots: the same 128 blocks with four times the rows each, so
+    # the difference to one shot is the kernel's cost per extra row
+    fts, fg, bg, ctr = make_inputs(torch, 8, 4, q, n, c, p, bf16)
+    t["assign_s4"] = time_ms(torch, lambda: K._assign_launch(
+        fts, fg, bg, ctr, p, eps), flush)
+    t["assign_s4_plain"] = time_ms(torch, lambda: plain.meta_prototype_assign(
+        fts[:, :4], fg, bg, ctr, p), flush)
+    bounds["assign_s4"] = bound_ms(*work(8, 4, q, n, c, p, 2)["assign"])
+    extra = work(8, 4, q, n, c, p, 2)["assign"][0] - work(
+        8, s, q, n, c, p, 2)["assign"][0]
+    marginal = extra / ((t["assign_s4"] - t["assign"]) * 1e-3)
+    b = 8
+    fts, fg, bg, ctr = make_inputs(torch, b, s, q, n, c, p, bf16)
+    slots = K._assign_slots(K._lib(), fts.device, c, p, 1)
+    packed = K._assign_launch(fts, fg, bg, ctr, p, eps)
     pf, pb = packed[:, :p], packed[:, p:]
-    t = {
-        "assign_partial": time_ms(torch, lambda: K._assign_partial_launch(
-            fts, fg, bg, ctr, p), flush),
-        "assign_partial_plain": time_ms(torch, lambda: K.plain_assign_partial(
-            fts, fg, bg, ctr, p), flush),
-        "assign_reduce": time_ms(torch, lambda: K._assign_reduce_launch(
-            part, b, s, plain.ASSIGN_EPS), flush),
-        "assign_reduce_plain": time_ms(torch, lambda: K.plain_assign_reduce(
-            part, b, s, plain.ASSIGN_EPS), flush),
-        "assign": time_ms(torch, lambda: K._assign_launch(
-            fts, fg, bg, ctr, p, plain.ASSIGN_EPS), flush),
-        "assign_plain": time_ms(torch, lambda: plain.meta_prototype_assign(
-            fts[:, :s], fg, bg, ctr, p), flush),
+    t.update({
         "match": time_ms(torch, lambda: K._match_launch(
             fts, s, packed, p, scale, False), flush),
         "match_plain": time_ms(torch, lambda: plain.prototype_predictions(
@@ -295,18 +313,26 @@ def kernel_phase(torch, K, plain):
         "chain_plain": time_ms(torch, lambda: plain.prototype_predictions(
             fts[:, s:], *plain.meta_prototype_assign(
                 fts[:, :s], fg, bg, ctr, p), scale), flush),
-    }
-    bounds = {k: bound_ms(*v)
-              for k, v in work(b, s, q, n, c, p, 2, K.TILE).items()}
+    })
+    w = work(b, s, q, n, c, p, 2)
+    bounds.update({k: bound_ms(*w[k]) for k in ("match", "chain")})
     emit({"phase": "kernels", "cases": results, "timing_shapes": {
-        "B": b, "S": s, "Q": q, "n": n, "c": c, "p": p, "dtype": "bfloat16"},
-        "ms": t, "bound_ms": {k: v[0] for k, v in bounds.items()},
+        "B": [8, 4], "S": s, "Q": q, "n": n, "c": c, "p": p,
+        "dtype": "bfloat16"},
+        "assign_grid": {tag: K.assign_grid(n, imgs, slots)
+                        for tag, imgs in (("eval", 8), ("train", 4),
+                                          ("eval_s4", 32))},
+        "assign_marginal_bytes_per_s": marginal,
+        "ms": t, "ms_before": MS_BEFORE,
+        "bound_ms": {k: v[0] for k, v in bounds.items()},
         "bound_by": {k: v[1] for k, v in bounds.items()},
         "tolerance": {"proto_rtol": PROTO_RTOL, "logit_atol": LOGIT_ATOL,
                       "index_margin": MARGIN},
-        "note": "assign = assign_partial + assign_reduce (K1); chain = "
-                "K1 then match on the packed tensor (K3), no launch of "
-                "its own"})
+        "note": "assign = K1, one launch (B=8 eval, _train B=4, _s4 B=8 "
+                "with 4 shots); assign_marginal_bytes_per_s = the extra "
+                "bytes of 4 shots over 1 by the extra time; chain = K1 "
+                "then match on the packed tensor (K3), no launch of its "
+                "own"})
     return t, bounds, worst
 
 
@@ -406,7 +432,7 @@ def profile_batch(torch, model, t):
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
     total = sum(dev_us(e) for e in events)
-    mpm = sum(dev_us(e) for e in events if "assign" in e.key
+    mpm = sum(dev_us(e) for e in events if "assign_kernel" in e.key
               or "match_kernel" in e.key)
     top = sorted(events, key=dev_us, reverse=True)[:10]
     return {"device_us_total": total, "mpm_kernels_us": mpm,
@@ -469,6 +495,12 @@ def minplus_phase(torch):
     empty[2] = False                      # one map with no boundary at all
     phases("one_empty_401_b4", empty)
     phases("other_473_b8", edt.boundary_map(synth_labels(torch, 473, 473, 8)))
+    # any fp32 input, not only the EDT's integers: random non-integers of
+    # both signs, K off the chunk (16) and the split (4 slices)
+    for k in (1, 31, 33, 473):
+        a = torch.randn(401, k, generator=g, device="cuda") * 1e3
+        b = torch.randn(3, k, 401, generator=g, device="cuda") * 1e-2 - 0.5
+        check(f"nonint_401x{k}x401_b3", a, b)
     # the squared EDT bit for bit across devices; the distances after
     # PyTorch's sqrt (its own elementwise kernel on each device) within
     # EDT_SQRT_RTOL
@@ -496,6 +528,12 @@ def minplus_phase(torch):
     # phase 1: [H, H] shared x [B, H, W]; phase 2: one [B*H, W] x [W, W]
     bounds = {"phase1": minplus_bound(1, b, h, h, w),
               "phase2": minplus_bound(1, 1, b * h, w, w)}
+    # the kernel's sustained rate on a product large enough that edges and
+    # waves do not count (no plain version at this size)
+    big = torch.randn(2, 2048, 2048, generator=g, device="cuda")
+    t["large_2048"] = time_ms(torch, lambda: M._minplus_launch(big[0], big[1]),
+                              flush)
+    bounds["large_2048"] = minplus_bound(1, 1, 2048, 2048, 2048)
     emit({"phase": "minplus", "cases": cases,
           "edt2_card_bit_equals_cpu": edt2_equal,
           "edt_card_vs_cpu_max_rel_err": sqrt_rel,
@@ -503,6 +541,9 @@ def minplus_phase(torch):
           "timing_shapes": {"B": b, "H": h, "W": w}, "ms": t,
           "bound_ms": {k: v[0] for k, v in bounds.items()},
           "bound_by": {k: v[1] for k, v in bounds.items()},
+          "ms_before": {k: MS_BEFORE[f"minplus_{k}"]
+                        for k in ("phase1", "phase2")},
+          "share_of_bound": {k: bounds[k][0] / t[k] for k in bounds},
           "tolerance": "bit-equal (torch.equal)"})
     return t, bounds
 
@@ -560,16 +601,18 @@ def mpm_backward_phase(torch, K, plain):
     return times, bound, worst
 
 
-def device_profile(torch, fn, names):
+def device_profile(torch, fn, names, by_shape=()):
     """Device time of one call of ``fn`` by kernel (torch.profiler): the
     total, the share of each group in ``names`` ({group: [substrings]})
-    and the top 10."""
+    and the top 10. For each kernel whose name holds a substring of
+    ``by_shape``, its time grouped by the convolution op that launched it
+    and that op's input shapes (``record_shapes``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=bool(by_shape)) as prof:
         fn()
         torch.cuda.synchronize()
 
@@ -586,6 +629,23 @@ def device_profile(torch, fn, names):
         out[f"{group}_share"] = us / total if total else 0.0
     out["top"] = [{"kernel": e.key[:90], "us": dev_us(e), "calls": e.count}
                   for e in sorted(events, key=dev_us, reverse=True)[:10]]
+    if by_shape:
+        groups = {}
+        for e in prof.events():
+            for k in getattr(e, "kernels", ()):
+                if not any(sub in k.name for sub in by_shape):
+                    continue
+                op = e
+                while op.cpu_parent is not None and "conv" not in op.name:
+                    op = op.cpu_parent
+                key = (k.name[:60], op.name, str(op.input_shapes))
+                us, calls = groups.get(key, (0.0, 0))
+                groups[key] = (us + k.duration, calls + 1)
+        out["by_input_shape"] = [
+            {"kernel": kn, "op": op, "input_shapes": shapes, "us": us,
+             "calls": calls}
+            for (kn, op, shapes), (us, calls) in sorted(
+                groups.items(), key=lambda kv: -kv[1][0])]
     return out
 
 
@@ -621,9 +681,8 @@ def train_path_phase(torch, K, M):
     losses = result["train"]["losses"]
     steps = len(losses)
     evals = 2 * -(-cfg.data.test_n // cfg.data.test_bs) * cfg.te.epochs
-    want = {"assign_partial": steps + evals, "assign_reduce": steps + evals,
-            "match": steps + evals, "minplus": 2 * steps,
-            "mpm_backward": steps}
+    want = {"assign": steps + evals, "match": steps + evals,
+            "minplus": 2 * steps, "mpm_backward": steps}
     if steps != cfg.data.train_n // cfg.data.bs or not all(
             math.isfinite(x) for x in losses):
         raise AssertionError(f"train losses {losses}")
@@ -668,8 +727,8 @@ def train_path_phase(torch, K, M):
         step_s.append(time.perf_counter() - t0)
     step_ms = statistics.median(step_s) * 1e3
     prof = device_profile(torch, lambda: trainer.train_step(batch), {
-        "mpm_kernels": ["assign_partial", "assign_reduce", "match_kernel"],
-        "minplus_kernel": ["minplus_kernel"]})
+        "mpm_kernels": ["assign_kernel", "match_kernel"],
+        "minplus_kernel": ["minplus_kernel"]}, CONV_FALLBACK)
     del trainer, opt, params, model
 
     # one f32 step twice (TF32 off): kernels vs the plain mpm chain
@@ -771,8 +830,7 @@ def main() -> int:
     # and bound_ms add both phases at the train shapes). mpm_backward is
     # the K4 backward: PyTorch ops on the card, as the JAX package's is
     # jnp; its launches are the training path's backward passes.
-    rows = [("assign_partial", "pemp_tpu/ops/pallas/mpm.py:119"),
-            ("assign_reduce", "pemp_tpu/ops/pallas/mpm.py:119"),
+    rows = [("assign", "pemp_tpu/ops/pallas/mpm.py:119"),
             ("match", "pemp_tpu/ops/pallas/mpm.py:249")]
     table = [
         {"name": name, "route": "cuda",
@@ -781,7 +839,8 @@ def main() -> int:
          "train_path_launches": train_launches[name],
          "max_abs_err": worst[name], "ms": times[name],
          "plain_ms": times[f"{name}_plain"], "bound_ms": bounds[name][0],
-         "bound_by": bounds[name][1], "library_ms": None}
+         "bound_by": bounds[name][1], "library_ms": None,
+         "ms_before": MS_BEFORE[name]}
         for name, replaces in rows]
     table.append({
         "name": "minplus", "route": "cuda",
@@ -792,6 +851,7 @@ def main() -> int:
         "plain_ms": mp_times["phase1_plain"] + mp_times["phase2_plain"],
         "bound_ms": mp_bounds["phase1"][0] + mp_bounds["phase2"][0],
         "bound_by": "operations", "library_ms": None,
+        "ms_before": MS_BEFORE["minplus"],
         "library_note": "no PyTorch call computes a min-plus product"})
     table.append({
         "name": "mpm_backward", "route": "cuda",
@@ -801,6 +861,7 @@ def main() -> int:
         "max_abs_err": bw_worst, "ms": bw_times["bfloat16"],
         "plain_ms": bw_times["bfloat16_plain"], "bound_ms": bw_bound[0],
         "bound_by": bw_bound[1], "library_ms": None,
+        "ms_before": MS_BEFORE["mpm_backward"],
         "note": "MPMChainPacked.backward: PyTorch ops, no kernel of its own"})
     emit({"kernels": table})
     print(smi, flush=True)

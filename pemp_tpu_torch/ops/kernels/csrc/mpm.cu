@@ -9,31 +9,38 @@
 // kernel does ~8p+2 flops per feature element (f.ctr, a^T f, |f|^2) and
 // the match kernel ~4p+2, i.e. ~13 flops per bf16 byte at p=3, far below
 // the ~295 flops/byte where the tensor cores would matter and under the
-// 67 TFLOP/s fp32 CUDA-core rate's own break-even (~20 flops/byte). So
-// both kernels use fp32 CUDA cores (no wgmma, no TMA) and are designed to
-// read each feature row from device memory once:
-//   - one warp per pixel row, 16-byte vector loads (8 bf16 / 4 f32 per
-//     lane), |f|^2 and the 2p dot products reduced with warp shuffles;
-//   - the assign kernel stages its tile of rows in shared memory in the
-//     input type, so the a^T f reduction re-reads shared memory, not HBM;
-//   - the centers / prototypes sit in shared memory, read as float4.
-// Determinism: the assign kernel's per-tile partial sums go to a scratch
-// buffer and a second launch reduces them over tiles in a fixed order --
-// no atomics, so the prototypes (and K2's first-occurrence argmax that
-// reads them) are bit-identical from run to run.
-// Rows >= n of the boundary tile are never loaded (a select on the row
-// index, not a multiply by zero: 0 * NaN would poison the sums).
+// 67 TFLOP/s fp32 CUDA-core rate's own break-even (~20 flops/byte). The
+// centers are fp32 and the contractions are pinned at full fp32 (lower
+// precision flips argmax near ties), so both kernels use fp32 CUDA cores
+// (no wgmma) and read each feature row from device memory once.
+//   - K1 (assign_kernel) streams its rows through a cp.async ring, keeps
+//     each lane on fixed columns so the center table is read once per
+//     group of rows, reduces the per-row sums with one butterfly, and
+//     accumulates a^T f in registers; the last block of each episode sums
+//     the blocks' partials in a fixed order. One launch.
+//   - K2 (match_kernel): one warp per pixel row, 16-byte vector loads,
+//     |f|^2 and the 2p dot products reduced with warp shuffles, the
+//     prototypes in shared memory read as float4.
+// Determinism: no atomics on any sum, so the prototypes (and K2's
+// first-occurrence argmax that reads them) are bit-identical run to run.
+// Rows >= n are never loaded (K1 zero-fills them and drops their
+// assignment with a select; K2 never visits them).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "async_copy.cuh"
+
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kMaxProtos = 8;          // p <= 8 (2p <= 16 columns)
 constexpr int kMaxK2 = 2 * kMaxProtos;
-constexpr int kTile = 64;              // pixel rows per block
+constexpr int kTile = 64;              // pixel rows per match block
 constexpr int kThreads = 256;          // 8 warps
 constexpr int kWarps = kThreads / 32;
 
@@ -119,129 +126,395 @@ __device__ void table_norms_sq(const float* table, float* out, int c, int k2) {
 }
 
 // ---------------------------------------------------------------------------
-// K1, launch 1: per (support image, pixel tile) partial sums
-//   part[i, t, k, 0:c] = sum_rows a[row, k] * f[row, :],  part[i, t, k, c] = sum_rows a[row, k]
+// K1: soft assignment and adaptive prototypes, one launch.
+//
+//   protos[b, k, :] = mean_s( sum_rows a[row, k] f[row, :] / (sum_rows a[row, k] + eps) )
+//
 // with a = per-class softmax over the class's own p centers of
-// -(|f|^2 - 2 f.ctr + |ctr|^2), times the class mask.
+// -(|f|^2 - 2 f.ctr + |ctr|^2), times the class mask. Grid (T, B*S): block
+// t of support image i takes `rows` consecutive pixel rows.
+//   - The rows stream through a ring of NS shared-memory stages of
+//     kStageRows rows, filled by 16-byte cp.async (rows >= n are never
+//     read: the copy zero-fills them), NS-1 stages in flight while one is
+//     computed.
+//   - Each warp takes kRowsPerWarp rows of a stage, R at a time; each lane
+//     owns the same 16-byte column chunks (q = lane + 32 j) for the whole
+//     kernel, so it reads its slice of the [2p][c] center table once per R
+//     rows, not once per row.
+//   - The R*(2p+1) partial sums (2p dots and |f|^2 per row) are reduced
+//     with one reduce-scatter butterfly (31 shuffles): lane l ends with
+//     value l, and the softmax of R rows runs on R*2p lanes at once.
+//   - a^T f and sum a accumulate in registers on the lane's own columns;
+//     at the end the warps add theirs in a fixed tree through shared
+//     memory.
+//   - The kCluster blocks of a cluster (consecutive t of one image) add
+//     their partials over distributed shared memory in rank order, each
+//     block one slice, and write one [2p][c] num and [2p] den partial to
+//     scratch; each block then fences and takes a ticket of its episode.
+//     The block that draws the episode's last ticket sums the partials in
+//     fixed (s, t) order, writes protos[b] and resets the ticket to 0 for
+//     the next launch. No atomics touch a sum, so the prototypes are
+//     bit-identical run to run.
 // ---------------------------------------------------------------------------
+constexpr int kStageRows = 32;                     // pixel rows per ring stage
+constexpr int kRowsPerWarp = kStageRows / kWarps;  // 4
+constexpr int kMaxCols = 512;                      // channels: 16 per lane
+constexpr int kCluster = 2;                        // blocks of an image per cluster
+
+template <int P>
+struct AssignShape {
+  static constexpr int K2 = 2 * P;
+  static constexpr int W = 2 * P + 1;              // sums per row: 2p dots, |f|^2
+  static constexpr int R = 4 * W <= 32 ? 4 : 2 * W <= 32 ? 2 : 1;   // rows per group
+};
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-assign_partial_kernel(const T* __restrict__ fts, const float* __restrict__ fg,
-                      const float* __restrict__ bg, const float* __restrict__ ctr,
-                      float* __restrict__ part, int S, int SQ, int n, int c, int p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int k2 = 2 * p;
-  float* ctr_s = reinterpret_cast<float*>(smem_raw);       // [k2][c]
-  float* a_s = ctr_s + k2 * c;                              // [kTile][k2]
-  T* tile_s = reinterpret_cast<T*>(a_s + kTile * k2);       // [kTile][c]
-  __shared__ float csq_s[kMaxK2];
+struct AssignRing {
+  static constexpr int NS = sizeof(T) == 2 ? 4 : 3;   // stages: 128 KB bf16, 192 KB f32
+};
 
-  const int i = blockIdx.x;                     // support image in [0, B*S)
-  const int t = blockIdx.y;                     // pixel tile
-  const int tiles = gridDim.y;
-  const int img = (i / S) * SQ + i % S;         // packed support row
-  const int row0 = t * kTile;
-  const int rows = min(kTile, n - row0);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-
-  for (int idx = threadIdx.x; idx < c * k2; idx += kThreads)
-    ctr_s[(idx % k2) * c + idx / k2] = ctr[idx];            // [c,k2] -> [k2,c]
-  __syncthreads();
-  table_norms_sq(ctr_s, csq_s, c, k2);
-  __syncthreads();
-
-  const T* base = fts + ((size_t)img * n + row0) * c;
-  const float* mfg = fg + (size_t)i * n + row0;
-  const float* mbg = bg + (size_t)i * n + row0;
-  for (int r = warp; r < rows; r += kWarps) {
-    float fsq, dot[kMaxK2];
-    row_dots<T>(base + (size_t)r * c, ctr_s, tile_s + (size_t)r * c, c, k2, fsq, dot);
-    if (lane == 0) {
-      float dist[kMaxK2];
-#pragma unroll
-      for (int k = 0; k < kMaxK2; ++k)
-        if (k < k2) dist[k] = -(fsq - 2.f * dot[k] + csq_s[k]);
-      // softmax over each class's own p columns: no exp of the other
-      // class's distances, so no overflow when the classes sit far apart
-      float mx_f = -INFINITY, mx_b = -INFINITY;
-#pragma unroll
-      for (int k = 0; k < kMaxProtos; ++k) {
-        if (k < p) {
-          mx_f = fmaxf(mx_f, dist[k]);
-          mx_b = fmaxf(mx_b, dist[p + k]);
-        }
-      }
-      float e[kMaxK2];
-      float sum_f = 0.f, sum_b = 0.f;
-#pragma unroll
-      for (int k = 0; k < kMaxProtos; ++k) {
-        if (k < p) {
-          e[k] = expf(dist[k] - mx_f);
-          e[p + k] = expf(dist[p + k] - mx_b);
-          sum_f += e[k];
-          sum_b += e[p + k];
-        }
-      }
-      const float wf = mfg[r] / fmaxf(sum_f, 1e-30f);
-      const float wb = mbg[r] / fmaxf(sum_b, 1e-30f);
-#pragma unroll
-      for (int k = 0; k < kMaxProtos; ++k) {
-        if (k < p) {
-          a_s[r * k2 + k] = e[k] * wf;
-          a_s[r * k2 + p + k] = e[p + k] * wb;
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  // a^T f over the staged tile: one thread per column, rows in order
-  float* out = part + ((size_t)i * tiles + t) * k2 * (c + 1);
-  for (int j = threadIdx.x; j < c; j += kThreads) {
-    float acc[kMaxK2];
-#pragma unroll
-    for (int k = 0; k < kMaxK2; ++k) acc[k] = 0.f;
-    for (int r = 0; r < rows; ++r) {
-      float x;
-      if constexpr (sizeof(T) == 2) x = __bfloat162float(tile_s[(size_t)r * c + j]);
-      else x = tile_s[(size_t)r * c + j];
-#pragma unroll
-      for (int k = 0; k < kMaxK2; ++k)
-        if (k < k2) acc[k] += a_s[r * k2 + k] * x;
-    }
-#pragma unroll
-    for (int k = 0; k < kMaxK2; ++k)
-      if (k < k2) out[(size_t)k * (c + 1) + j] = acc[k];
-  }
-  if (threadIdx.x < k2) {
-    float den = 0.f;
-    for (int r = 0; r < rows; ++r) den += a_s[r * k2 + threadIdx.x];
-    out[(size_t)threadIdx.x * (c + 1) + c] = den;
-  }
+constexpr size_t assign_smem_bytes(int c, int p, int esize, int ns) {
+  return (size_t)2 * p * c * 4 + (size_t)ns * 2 * kStageRows * 4 +
+         (size_t)ns * kStageRows * c * esize;
 }
 
-// ---------------------------------------------------------------------------
-// K1, launch 2: fixed-order reduction over tiles, num/(den+eps), mean over S
-//   protos[b, k, j] = mean_s( sum_t num[b*S+s, t, k, j] / (sum_t den[b*S+s, t, k] + eps) )
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-assign_reduce_kernel(const float* __restrict__ part, float* __restrict__ protos,
-                     int S, int tiles, int c, int k2, float eps) {
-  const int b = blockIdx.x;
-  const int idx = blockIdx.y * kThreads + threadIdx.x;
-  if (idx >= k2 * c) return;
-  const int k = idx / c, j = idx % c;
-  float acc = 0.f;
-  for (int s = 0; s < S; ++s) {
-    const float* src = part + ((size_t)(b * S + s) * tiles) * k2 * (c + 1) + (size_t)k * (c + 1);
-    float num = 0.f, den = 0.f;
-    for (int t = 0; t < tiles; ++t) {
-      num += src[(size_t)t * k2 * (c + 1) + j];
-      den += src[(size_t)t * k2 * (c + 1) + c];
-    }
-    acc += num / (den + eps);
+// One step of a reduce-scatter butterfly over the warp: a lane keeps the
+// half of v[0, 2*HALF) on its side of bit HALF, adds its partner's sums
+// of that half into v[0, HALF), and recurses. Lane l ends with the
+// warp-wide sum of v[l] in v[0] (31 shuffles for 32 sums); a template so
+// every index is a constant and v stays in registers.
+template <int HALF>
+__device__ __forceinline__ void reduce_scatter(float (&v)[32], int lane) {
+  const bool upper = lane & HALF;
+#pragma unroll
+  for (int j = 0; j < HALF; ++j) {
+    const float send = upper ? v[j] : v[j + HALF];
+    const float keep = upper ? v[j + HALF] : v[j];
+    v[j] = keep + __shfl_xor_sync(0xffffffffu, send, HALF);
   }
-  protos[((size_t)b * k2 + k) * c + j] = acc / (float)S;
+  if constexpr (HALF > 1) reduce_scatter<HALF / 2>(v, lane);
+}
+
+template <typename T, int P>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
+assign_kernel(const T* __restrict__ fts, const float* __restrict__ fg,
+              const float* __restrict__ bg, const float* __restrict__ ctr,
+              float* __restrict__ num_part, float* __restrict__ den_part,
+              int* __restrict__ tickets, float* __restrict__ protos, int S, int SQ,
+              int n, int c, int rows, float eps) {
+  using Shape = AssignShape<P>;
+  constexpr int K2 = Shape::K2, W = Shape::W, R = Shape::R;
+  constexpr int V = Vec<T>::N;
+  constexpr int NCH = kMaxCols / (32 * V);          // 16-byte chunks per lane
+  constexpr int NS = AssignRing<T>::NS;
+  const unsigned full = 0xffffffffu;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ctr_s = reinterpret_cast<float*>(smem_raw);           // [K2][c]
+  float* mask_s = ctr_s + K2 * c;                               // [NS][2][kStageRows]
+  T* ring = reinterpret_cast<T*>(mask_s + NS * 2 * kStageRows);  // [NS][kStageRows][c]
+  __shared__ float csq_s[kMaxK2];
+  __shared__ float den_s[kWarps][32];
+  __shared__ float den_red_s[kMaxK2];
+  __shared__ int last_s;
+
+  const int t = blockIdx.x, tiles = gridDim.x;
+  const int i = blockIdx.y;                     // support image in [0, B*S)
+  const int b = i / S;
+  const int img = b * SQ + i % S;               // packed support row
+  const int row0 = t * rows;
+  const int nrows = min(rows, n - row0);
+  const int stages = (nrows + kStageRows - 1) / kStageRows;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int cv = c / V;                         // 16-byte chunks per row
+  const T* src = fts + ((size_t)img * n + row0) * c;
+  const float* mfg = fg + (size_t)i * n + row0;
+  const float* mbg = bg + (size_t)i * n + row0;
+
+  // stage st -> ring slot st % NS (rows past the block's last are zero-filled)
+  auto issue = [&](int st) {
+    if (st < stages) {
+      const int r0 = st * kStageRows;
+      T* dst = ring + (size_t)(st % NS) * kStageRows * c;
+      for (int r = warp; r < kStageRows; r += kWarps) {
+        const bool live = r0 + r < nrows;
+        for (int q = lane; q < cv; q += 32)
+          pemp::cp_async16(dst + (size_t)r * c + q * V,
+                           live ? src + (size_t)(r0 + r) * c + q * V : src, live ? 16 : 0);
+      }
+      if (threadIdx.x < 2 * kStageRows) {
+        const int cls = threadIdx.x / kStageRows, r = threadIdx.x % kStageRows;
+        const bool live = r0 + r < nrows;
+        pemp::cp_async4(mask_s + ((st % NS) * 2 + cls) * kStageRows + r,
+                        (cls ? mbg : mfg) + (live ? r0 + r : 0), live ? 4 : 0);
+      }
+    }
+    pemp::cp_async_commit();
+  };
+
+  // ctr [c][K2] is read before the ring's first stages are asked for, so
+  // its (L2-resident) lines are not queued behind them; it is stored
+  // k-major, row k holding the V columns of chunk q as V/4 float4
+  // quarters h at [h][q], so a warp's float4 reads of a quarter are
+  // consecutive
+  constexpr int kCtr = K2 * kMaxCols / 4 / kThreads;        // float4 a thread
+  float4 cv4[kCtr];
+#pragma unroll
+  for (int j = 0; j < kCtr; ++j) {
+    const int idx = threadIdx.x + j * kThreads;
+    if (idx < c * K2 / 4) cv4[j] = __ldg(reinterpret_cast<const float4*>(ctr) + idx);
+  }
+#pragma unroll
+  for (int st = 0; st < NS - 1; ++st) issue(st);
+#pragma unroll
+  for (int j = 0; j < kCtr; ++j) {
+    const int idx = threadIdx.x + j * kThreads;
+    if (idx < c * K2 / 4) {
+      const float x[4] = {cv4[j].x, cv4[j].y, cv4[j].z, cv4[j].w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = (4 * idx + e) / K2, k = (4 * idx + e) % K2;
+        ctr_s[k * c + (col % V) / 4 * cv * 4 + col / V * 4 + col % 4] = x[e];
+      }
+    }
+  }
+  __syncthreads();
+  table_norms_sq(ctr_s, csq_s, c, K2);                      // read after the loop's sync
+
+  float acc[K2][NCH * V];
+#pragma unroll
+  for (int k = 0; k < K2; ++k)
+#pragma unroll
+    for (int j = 0; j < NCH * V; ++j) acc[k][j] = 0.f;
+  float den = 0.f;
+  // the sum lane `lane` holds after the butterfly: row my_r, column my_k
+  const int my_r = lane / W, my_k = lane % W;
+  const int kk = min(my_k, K2 - 1);
+  const int cls = kk / P;
+
+  for (int st = 0; st < stages; ++st) {
+    issue(st + NS - 1);
+    pemp::cp_async_wait<NS - 1>();
+    __syncthreads();
+    const T* tile = ring + (size_t)(st % NS) * kStageRows * c;
+    const float* mk = mask_s + (st % NS) * 2 * kStageRows + cls * kStageRows;
+    const int live_rows = min(kStageRows, nrows - st * kStageRows);
+#pragma unroll
+    for (int gi = 0; gi < kRowsPerWarp / R; ++gi) {
+      const int g = warp * kRowsPerWarp + gi * R;
+      if (g >= live_rows) break;                               // warp-uniform
+      // per-lane partial dots and |f|^2 of rows g .. g+R-1
+      float v[32];
+#pragma unroll
+      for (int j = 0; j < 32; ++j) v[j] = 0.f;
+#pragma unroll
+      for (int j = 0; j < NCH; ++j) {
+        const int q = lane + 32 * j;
+        if (q < cv) {
+          float x[R][V];
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            Vec<T>::unpack(*reinterpret_cast<const uint4*>(tile + (size_t)(g + r) * c + q * V), x[r]);
+#pragma unroll
+            for (int e = 0; e < V; ++e) v[r * W + K2] = fmaf(x[r][e], x[r][e], v[r * W + K2]);
+          }
+#pragma unroll
+          for (int k = 0; k < K2; ++k) {
+#pragma unroll
+            for (int h = 0; h < V / 4; ++h) {
+              const float4 w = *reinterpret_cast<const float4*>(ctr_s + k * c + h * cv * 4 + q * 4);
+#pragma unroll
+              for (int r = 0; r < R; ++r) {
+                float& d = v[r * W + k];
+                d = fmaf(x[r][4 * h], w.x, d);
+                d = fmaf(x[r][4 * h + 1], w.y, d);
+                d = fmaf(x[r][4 * h + 2], w.z, d);
+                d = fmaf(x[r][4 * h + 3], w.w, d);
+              }
+            }
+          }
+        }
+      }
+      reduce_scatter<16>(v, lane);
+      const float tot = v[0];
+      // softmax over each class's own p columns, R*2p lanes at once
+      const int rbase = my_r * W;
+      const float sq = __shfl_sync(full, tot, (rbase + K2) & 31);
+      const float dist = -(sq - 2.f * tot + csq_s[kk]);
+      const int cbase = rbase + cls * P;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < P; ++j) mx = fmaxf(mx, __shfl_sync(full, dist, (cbase + j) & 31));
+      const float ex = expf(dist - mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < P; ++j) sum += __shfl_sync(full, ex, (cbase + j) & 31);
+      const int row = g + my_r;
+      const bool live = my_r < R && my_k < K2 && row < live_rows;
+      const float a = live ? ex * (mk[min(row, kStageRows - 1)] / fmaxf(sum, 1e-30f)) : 0.f;
+      den += a;
+      // a^T f on the lane's own columns
+      float ar[R][K2];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int k = 0; k < K2; ++k) ar[r][k] = __shfl_sync(full, a, r * W + k);
+#pragma unroll
+      for (int j = 0; j < NCH; ++j) {
+        const int q = lane + 32 * j;
+        if (q < cv) {
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            float x[V];
+            Vec<T>::unpack(*reinterpret_cast<const uint4*>(tile + (size_t)(g + r) * c + q * V), x);
+#pragma unroll
+            for (int k = 0; k < K2; ++k)
+#pragma unroll
+              for (int e = 0; e < V; ++e) acc[k][j * V + e] += ar[r][k] * x[e];
+          }
+        }
+      }
+    }
+    __syncthreads();                     // slot st % NS is refilled next iteration
+  }
+  pemp::cp_async_wait<0>();
+
+  // the block's partial in a fixed order: a tree over the warps through
+  // shared memory (the ring, as kWarps/2 slots of [K2][c]); warp w adds
+  // warp w+h's sums for h = 4, 2, 1, and warp 0 writes the result
+  float* slots = reinterpret_cast<float*>(ring);
+  den_s[warp][lane] = den;
+#pragma unroll
+  for (int h = kWarps / 2; h > 0; h >>= 1) {
+    if (warp >= h && warp < 2 * h) {
+      float* o = slots + (size_t)(warp - h) * K2 * c;
+#pragma unroll
+      for (int j = 0; j < NCH; ++j) {
+        const int q = lane + 32 * j;
+        if (q < cv) {
+#pragma unroll
+          for (int k = 0; k < K2; ++k)
+#pragma unroll
+            for (int e = 0; e < V; e += 4)
+              *reinterpret_cast<float4*>(o + k * c + q * V + e) =
+                  make_float4(acc[k][j * V + e], acc[k][j * V + e + 1],
+                              acc[k][j * V + e + 2], acc[k][j * V + e + 3]);
+        }
+      }
+    }
+    __syncthreads();
+    if (warp < h) {
+      const float* o = slots + (size_t)warp * K2 * c;
+#pragma unroll
+      for (int j = 0; j < NCH; ++j) {
+        const int q = lane + 32 * j;
+        if (q < cv) {
+#pragma unroll
+          for (int k = 0; k < K2; ++k)
+#pragma unroll
+            for (int e = 0; e < V; e += 4) {
+              const float4 y = *reinterpret_cast<const float4*>(o + k * c + q * V + e);
+              acc[k][j * V + e] += y.x;
+              acc[k][j * V + e + 1] += y.y;
+              acc[k][j * V + e + 2] += y.z;
+              acc[k][j * V + e + 3] += y.w;
+            }
+        }
+      }
+    }
+    __syncthreads();
+  }
+  // the cluster's partial: each block puts its own in shared memory, and
+  // block `rank` sums slice `rank` of the kCluster partials in rank order
+  // (distributed shared memory) into the scratch
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  float* red_s = reinterpret_cast<float*>(ring);             // [K2][c]
+  if (warp == 0) {
+#pragma unroll
+    for (int j = 0; j < NCH; ++j) {
+      const int q = lane + 32 * j;
+      if (q < cv) {
+#pragma unroll
+        for (int k = 0; k < K2; ++k)
+#pragma unroll
+          for (int e = 0; e < V; e += 4)
+            *reinterpret_cast<float4*>(red_s + k * c + q * V + e) =
+                make_float4(acc[k][j * V + e], acc[k][j * V + e + 1],
+                            acc[k][j * V + e + 2], acc[k][j * V + e + 3]);
+      }
+    }
+    if (lane < K2) {
+      float d = 0.f;
+      for (int w = 0; w < kWarps; ++w)
+        for (int l = lane; l < R * W; l += W) d += den_s[w][l];
+      den_red_s[lane] = d;
+    }
+  }
+  cluster.sync();
+  const int cparts = tiles / kCluster;                       // cluster partials per image
+  const size_t part = (size_t)i * cparts + t / kCluster;
+  const int n_all = K2 * c;                                  // a multiple of 16
+  const int n4 = n_all / 4;
+  for (int idx = n4 * rank / kCluster + threadIdx.x; idx < n4 * (rank + 1) / kCluster;
+       idx += kThreads) {
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int r = 0; r < kCluster; ++r) {
+      const float4 y = reinterpret_cast<const float4*>(cluster.map_shared_rank(red_s, r))[idx];
+      x.x += y.x; x.y += y.y; x.z += y.z; x.w += y.w;
+    }
+    reinterpret_cast<float4*>(num_part + part * n_all)[idx] = x;
+  }
+  if (rank == 0 && threadIdx.x < K2) {
+    float d = 0.f;
+#pragma unroll
+    for (int r = 0; r < kCluster; ++r) d += cluster.map_shared_rank(den_red_s, r)[threadIdx.x];
+    den_part[part * K2 + threadIdx.x] = d;
+  }
+  cluster.sync();                          // the others' reads are done
+
+  // the last block of episode b finishes it from the S * cparts partials
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last_s = atomicAdd(&tickets[b], 1) == S * tiles - 1;
+  __syncthreads();
+  if (!last_s) return;
+  __threadfence();
+  // loads of kBatch partials are issued together, then summed in order
+  constexpr int kBatch = 8;
+  for (int idx = threadIdx.x; idx < n4; idx += kThreads) {
+    const int k = idx * 4 / c;
+    float4 out = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s = 0; s < S; ++s) {
+      const size_t p0 = (size_t)(b * S + s) * cparts;
+      float4 nm = make_float4(0.f, 0.f, 0.f, 0.f);
+      float dn = 0.f;
+      for (int u0 = 0; u0 < cparts; u0 += kBatch) {
+        float4 xs[kBatch];
+        float ds[kBatch];
+#pragma unroll
+        for (int j = 0; j < kBatch; ++j) {
+          if (u0 + j < cparts) {
+            xs[j] = __ldcg(reinterpret_cast<const float4*>(num_part + (p0 + u0 + j) * n_all) + idx);
+            ds[j] = __ldcg(den_part + (p0 + u0 + j) * K2 + k);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kBatch; ++j) {
+          if (u0 + j < cparts) {
+            nm.x += xs[j].x; nm.y += xs[j].y; nm.z += xs[j].z; nm.w += xs[j].w;
+            dn += ds[j];
+          }
+        }
+      }
+      dn += eps;
+      out.x += nm.x / dn; out.y += nm.y / dn; out.z += nm.z / dn; out.w += nm.w / dn;
+    }
+    out.x /= (float)S; out.y /= (float)S; out.z /= (float)S; out.w /= (float)S;
+    reinterpret_cast<float4*>(protos + (size_t)b * n_all)[idx] = out;
+  }
+  if (threadIdx.x == 0) atomicExch(&tickets[b], 0);
 }
 
 // ---------------------------------------------------------------------------
@@ -303,63 +576,98 @@ cudaError_t launch_config(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+template <typename T>
+using AssignFn = void (*)(const T*, const float*, const float*, const float*, float*, float*,
+                          int*, float*, int, int, int, int, int, float);
+
+// the assign kernel instance for p (p is a template parameter: the
+// accumulators are registers)
+template <typename T>
+AssignFn<T> assign_kernel_for(int p) {
+  switch (p) {
+    case 1: return assign_kernel<T, 1>;
+    case 2: return assign_kernel<T, 2>;
+    case 3: return assign_kernel<T, 3>;
+    case 4: return assign_kernel<T, 4>;
+    case 5: return assign_kernel<T, 5>;
+    case 6: return assign_kernel<T, 6>;
+    case 7: return assign_kernel<T, 7>;
+    case 8: return assign_kernel<T, 8>;
+    default: return nullptr;
+  }
+}
+
+template <typename T>
+int assign_slots(int c, int p) {
+  const AssignFn<T> kernel = assign_kernel_for<T>(p);
+  if (kernel == nullptr) return -(int)cudaErrorInvalidValue;
+  const size_t smem = assign_smem_bytes(c, p, sizeof(T), AssignRing<T>::NS);
+  cudaError_t e = launch_config(kernel, smem);
+  int dev = 0, sms = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  // blocks of whole clusters the device holds at once
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster * sms, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  int clusters = 0;
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  return e == cudaSuccess ? clusters * kCluster : -(int)e;
+}
+
+template <typename T>
+int assign_launch(const void* fts, const void* fg, const void* bg, const void* ctr, void* num,
+                  void* den, void* tickets, void* protos, int B, int S, int Q, int n, int c,
+                  int p, int rows, int tiles, float eps, void* stream) {
+  const AssignFn<T> kernel = assign_kernel_for<T>(p);
+  if (kernel == nullptr) return cudaErrorInvalidValue;
+  const size_t smem = assign_smem_bytes(c, p, sizeof(T), AssignRing<T>::NS);
+  const cudaError_t e = launch_config(kernel, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3(tiles, B * S), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(fts), static_cast<const float*>(fg), static_cast<const float*>(bg),
+      static_cast<const float*>(ctr), static_cast<float*>(num), static_cast<float*>(den),
+      static_cast<int*>(tickets), static_cast<float*>(protos), S, S + Q, n, c, rows, eps);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 int pemp_mpm_max_protos() { return kMaxProtos; }
 int pemp_mpm_tile() { return kTile; }
+int pemp_mpm_stage_rows() { return kStageRows; }
+int pemp_mpm_cluster() { return kCluster; }
+int pemp_mpm_max_channels() { return kMaxCols; }
 
 const char* pemp_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Dynamic shared memory of the assign kernel (the wrapper checks it
-// against the card's per-block limit before launching).
-size_t pemp_mpm_assign_smem(int c, int p, int is_bf16) {
-  return (size_t)2 * p * c * 4 + (size_t)kTile * 2 * p * 4 + (size_t)kTile * c * (is_bf16 ? 2 : 4);
-}
-
 size_t pemp_mpm_match_smem(int c, int p) { return (size_t)2 * p * c * 4; }
 
-// K1, launch 1. fts [B, S+Q, n, c] (f32 or bf16), fg/bg [B*S, n] f32,
-// ctr [c, 2p] f32, part [B*S, tiles, 2p, c+1] f32 out.
-// Returns cudaGetLastError().
-int pemp_mpm_assign_partial(const void* fts, int is_bf16, const void* fg, const void* bg,
-                            const void* ctr, void* part, int B, int S, int Q, int n,
-                            int c, int p, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int tiles = (n + kTile - 1) / kTile;
-  const size_t smem = pemp_mpm_assign_smem(c, p, is_bf16);
-  const dim3 grid(B * S, tiles);
-  cudaError_t e;
-  if (is_bf16) {
-    e = launch_config(assign_partial_kernel<__nv_bfloat16>, smem);
-    if (e != cudaSuccess) return e;
-    assign_partial_kernel<__nv_bfloat16><<<grid, kThreads, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(fts), static_cast<const float*>(fg),
-        static_cast<const float*>(bg), static_cast<const float*>(ctr),
-        static_cast<float*>(part), S, S + Q, n, c, p);
-  } else {
-    e = launch_config(assign_partial_kernel<float>, smem);
-    if (e != cudaSuccess) return e;
-    assign_partial_kernel<float><<<grid, kThreads, smem, st>>>(
-        static_cast<const float*>(fts), static_cast<const float*>(fg),
-        static_cast<const float*>(bg), static_cast<const float*>(ctr),
-        static_cast<float*>(part), S, S + Q, n, c, p);
-  }
-  return cudaGetLastError();
+// Blocks of the assign kernel the current device holds at once (SMs x
+// blocks per SM), or minus a CUDA error code.
+int pemp_mpm_assign_slots(int c, int p, int is_bf16) {
+  return is_bf16 ? assign_slots<__nv_bfloat16>(c, p) : assign_slots<float>(c, p);
 }
 
-// K1, launch 2. part [B*S, tiles, 2p, c+1] f32, protos [B, 2p, c] f32 out
-// (fg prototypes first, then bg). Returns cudaGetLastError().
-int pemp_mpm_assign_reduce(const void* part, void* protos, int B, int S, int tiles,
-                           int c, int p, float eps, void* stream) {
-  const int k2 = 2 * p;
-  const dim3 grid(B, (k2 * c + kThreads - 1) / kThreads);
-  assign_reduce_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(part), static_cast<float*>(protos), S, tiles, c, k2, eps);
-  return cudaGetLastError();
+// K1. fts [B, S+Q, n, c] (f32 or bf16), fg/bg [B*S, n] f32, ctr [c, 2p]
+// f32; scratch num [B*S, tiles, 2p, c] and den [B*S, tiles, 2p] f32;
+// tickets [B] int32, zero before the launch and after it; protos
+// [B, 2p, c] f32 out (fg prototypes first, then bg). Block t of a support
+// image takes pixel rows [t*rows, min(n, (t+1)*rows)), tiles = cdiv(n,
+// rows). Returns cudaGetLastError().
+int pemp_mpm_assign(const void* fts, int is_bf16, const void* fg, const void* bg,
+                    const void* ctr, void* num, void* den, void* tickets, void* protos,
+                    int B, int S, int Q, int n, int c, int p, int rows, int tiles,
+                    float eps, void* stream) {
+  return is_bf16 ? assign_launch<__nv_bfloat16>(fts, fg, bg, ctr, num, den, tickets, protos,
+                                                B, S, Q, n, c, p, rows, tiles, eps, stream)
+                 : assign_launch<float>(fts, fg, bg, ctr, num, den, tickets, protos, B, S,
+                                        Q, n, c, p, rows, tiles, eps, stream);
 }
 
 // fts [B, S+Q, n, c] (f32 or bf16), protos [B, 2p, c] f32 (fg then bg),

@@ -11,9 +11,10 @@ kernel). For tensors on the CPU it runs ``plain_minplus``; for CUDA
 tensors it launches the kernel or raises. ``launches["minplus"]`` counts
 each launch on CUDA, at the launch.
 
-The inputs of the EDT are integer-valued float32 below 2^24 or the 1e12
-sentinel, so every ``a + b`` rounds the same way in any order and ``min``
-is exact: the kernel and the plain version agree bit for bit.
+Every term is one float32 add, which rounds the same way in any order,
+and ``min`` is exact and order-free, so the kernel and the plain version
+agree bit for bit for any non-NaN float32 input (the EDT's are integers
+below 2^24 or the 1e12 sentinel).
 """
 
 from __future__ import annotations
@@ -25,7 +26,9 @@ import torch
 
 from pemp_tpu_torch.ops.kernels.build import load_library
 
-TILE = 64                   # csrc/minplus.cu kTm (output rows per block)
+TILE = 64                   # csrc/minplus.cu kTile (output tile per block)
+SPLIT = 2                   # csrc/minplus.cu kSplit (K slices per tile)
+MAX_BATCH = 65535 // SPLIT  # the grid's z walks batch x slice
 PLAIN_CHUNK = 1 << 24       # elements of the plain version's temporary
 
 launches: Dict[str, int] = {"minplus": 0}
@@ -49,11 +52,13 @@ def _lib():
         lib.pemp_minplus.restype = _I
         lib.pemp_minplus_error_string.argtypes = [_I]
         lib.pemp_minplus_error_string.restype = ctypes.c_char_p
-        lib.pemp_minplus_tile.restype = _I
-        if lib.pemp_minplus_tile() != TILE:
-            raise RuntimeError(f"pemp_minplus_tile() = "
-                               f"{lib.pemp_minplus_tile()} != {TILE}: the "
-                               "wrapper and csrc/minplus.cu disagree")
+        for name, want in (("pemp_minplus_tile", TILE),
+                           ("pemp_minplus_split", SPLIT)):
+            fn = getattr(lib, name)
+            fn.restype = _I
+            if fn() != want:
+                raise RuntimeError(f"{name}() = {fn()} != {want}: the "
+                                   "wrapper and csrc/minplus.cu disagree")
         _bound = lib
     return _bound
 
@@ -88,8 +93,9 @@ def _minplus_launch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             raise ValueError(f"{name} must be contiguous")
     if a.device != b.device:
         raise ValueError(f"a on {a.device}, b on {b.device}")
-    if z > 65535:
-        raise ValueError(f"batch {z} exceeds the grid's z limit 65535")
+    if z > MAX_BATCH:
+        raise ValueError(f"batch {z} exceeds {MAX_BATCH} (the grid's z "
+                         f"limit 65535 over {SPLIT} K slices)")
     out = torch.empty((z, m, n), dtype=torch.float32, device=a.device)
     sa = m * k if a.ndim == 3 else 0
     sb = k * n if b.ndim == 3 else 0

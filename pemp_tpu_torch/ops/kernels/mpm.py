@@ -4,8 +4,9 @@ Replaces the TPU kernels of ``pemp_tpu/ops/pallas/mpm.py``:
 
 - ``mpm_assign``  <- ``_assign_kernel`` / ``meta_prototype_assign_pallas``
   (K1): soft assignment of the support pixels to the learned centers and
-  the per-episode adaptive prototypes (two launches: per-tile partial
-  sums, then a fixed-order reduction over tiles);
+  the per-episode adaptive prototypes, one launch (block partials summed
+  per cluster of blocks, then the last block of each episode sums the
+  cluster partials in a fixed order);
 - ``mpm_match``   <- ``_match_kernel`` / ``prototype_match_pallas`` (K2):
   cosine matching against the prototypes, per-class max and
   first-occurrence argmax;
@@ -19,12 +20,15 @@ Replaces the TPU kernels of ``pemp_tpu/ops/pallas/mpm.py``:
 For a tensor on the CPU each wrapper runs the plain version
 (``pemp_tpu_torch.ops.prototypes``); for a CUDA tensor it launches its
 kernels or raises. ``launches`` counts each ``__global__`` kernel's
-launches on CUDA, one at the site that launches it: ``assign_partial``
-and ``assign_reduce`` (K1's two launches) and ``match`` (K2). The chain
-launches nothing of its own. ``plain_assign_partial`` and
-``plain_assign_reduce`` are the plain versions of K1's two launches.
+launches on CUDA, one at the site that launches it: ``assign`` (K1) and
+``match`` (K2). The chain launches nothing of its own.
+``plain_assign_blocks`` and ``plain_assign_finish`` are the plain
+versions of K1's two stages (the partial sums of each cluster of blocks,
+``CLUSTER`` times ``assign_grid``'s rows per block, and the fixed-order
+finish of an episode).
 ``backward_calls`` counts ``MPMChainPacked`` backward passes (torch ops,
-no kernel of their own).
+no kernel of their own). The assign kernel's tickets are kept per device
+and stream: launches of one stream run in order and leave them at zero.
 """
 
 from __future__ import annotations
@@ -43,17 +47,21 @@ from pemp_tpu_torch.ops.prototypes import (
 )
 
 MAX_PROTOS = 8           # csrc/mpm.cu kMaxProtos
-TILE = 64                # csrc/mpm.cu kTile (pixel rows per block)
+TILE = 64                # csrc/mpm.cu kTile (pixel rows per match block)
+STAGE_ROWS = 32          # csrc/mpm.cu kStageRows (rows per assign ring stage)
+CLUSTER = 2              # csrc/mpm.cu kCluster (assign blocks per cluster)
+MAX_CHANNELS = 512       # csrc/mpm.cu kMaxCols (assign: 16 per lane)
 SMEM_LIMIT = 232448      # dynamic shared memory a block may use on sm_90
 
-launches: Dict[str, int] = {"assign_partial": 0, "assign_reduce": 0,
-                            "match": 0}
+launches: Dict[str, int] = {"assign": 0, "match": 0}
 backward_calls: Dict[str, int] = {"mpm_backward": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _bound = None
+_slots: Dict[tuple, int] = {}            # assign blocks the card holds at once
+_ticket_bufs: Dict[tuple, torch.Tensor] = {}
 
 
 def reset_launches() -> None:
@@ -66,23 +74,24 @@ def _lib():
     global _bound
     if _bound is None:
         lib = load_library("mpm")
-        lib.pemp_mpm_assign_partial.argtypes = [_P, _I, _P, _P, _P, _P, _I,
-                                                _I, _I, _I, _I, _I, _P]
-        lib.pemp_mpm_assign_partial.restype = _I
-        lib.pemp_mpm_assign_reduce.argtypes = [_P, _P, _I, _I, _I, _I, _I, _F,
-                                               _P]
-        lib.pemp_mpm_assign_reduce.restype = _I
+        lib.pemp_mpm_assign.argtypes = [_P, _I, _P, _P, _P, _P, _P, _P, _P,
+                                        _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                                        _P]
+        lib.pemp_mpm_assign.restype = _I
+        lib.pemp_mpm_assign_slots.argtypes = [_I, _I, _I]
+        lib.pemp_mpm_assign_slots.restype = _I
         lib.pemp_mpm_match.argtypes = [_P, _I, _P, _P, _P, _I, _I, _I, _I,
                                        _I, _I, _F, _F, _P]
         lib.pemp_mpm_match.restype = _I
-        lib.pemp_mpm_assign_smem.argtypes = [_I, _I, _I]
-        lib.pemp_mpm_assign_smem.restype = ctypes.c_size_t
         lib.pemp_mpm_match_smem.argtypes = [_I, _I]
         lib.pemp_mpm_match_smem.restype = ctypes.c_size_t
         lib.pemp_cuda_error_string.argtypes = [_I]
         lib.pemp_cuda_error_string.restype = ctypes.c_char_p
         for name, want in (("pemp_mpm_max_protos", MAX_PROTOS),
-                           ("pemp_mpm_tile", TILE)):
+                           ("pemp_mpm_tile", TILE),
+                           ("pemp_mpm_stage_rows", STAGE_ROWS),
+                           ("pemp_mpm_cluster", CLUSTER),
+                           ("pemp_mpm_max_channels", MAX_CHANNELS)):
             fn = getattr(lib, name)
             fn.restype = _I
             if fn() != want:
@@ -125,85 +134,104 @@ def _f32_on(x: torch.Tensor, device, shape, what: str) -> torch.Tensor:
     return x.to(torch.float32).contiguous()
 
 
-def _assign_partial_launch(fts, sup_fg, sup_bg, ctr, protos: int):
-    """K1 launch 1 on CUDA -> per-tile partial sums [B*S, tiles, 2p, c+1]
-    (``num`` in [..., :c], ``den`` in [..., c])."""
+def assign_grid(n: int, images: int, slots: int) -> Tuple[int, int]:
+    """(blocks per support image, pixel rows per block) of the assign
+    kernel: the blocks the card holds at once (``slots``, whole clusters)
+    split evenly over the support images in whole clusters of CLUSTER
+    blocks, each block at least one ring stage of rows; blocks past n
+    (to fill the last cluster) take no rows. At n=2601 on 128 slots: 16
+    blocks of 163 rows for 8 images, 32 of 82 for 4."""
+    per_image = max(1, slots // images // CLUSTER) * CLUSTER
+    rows = max(STAGE_ROWS, -(-n // per_image))
+    blocks = -(-n // rows)
+    return -(-blocks // CLUSTER) * CLUSTER, rows
+
+
+def _assign_slots(lib, device, c: int, protos: int, is_bf16: int) -> int:
+    key = (device, c, protos, is_bf16)
+    if key not in _slots:
+        with torch.cuda.device(device):
+            slots = lib.pemp_mpm_assign_slots(c, protos, is_bf16)
+        _check_rc(lib, -min(slots, 0), "assign occupancy")
+        if slots == 0:
+            raise RuntimeError(f"no assign block (c={c}, p={protos}) fits "
+                               "on an SM")
+        _slots[key] = slots
+    return _slots[key]
+
+
+def _tickets(device, stream: int, episodes: int) -> torch.Tensor:
+    """The assign kernel's per-episode tickets on (device, stream): zeroed
+    once, left at zero by every launch."""
+    key = (device, stream)
+    t = _ticket_bufs.get(key)
+    if t is None or t.numel() < episodes:
+        t = torch.zeros(episodes, dtype=torch.int32, device=device)
+        _ticket_bufs[key] = t
+    return t
+
+
+def _assign_launch(fts, sup_fg, sup_bg, ctr, protos: int, eps: float):
+    """K1 on CUDA, one launch -> packed prototypes [B, 2p, c] (fg first,
+    then bg)."""
     _check_features(fts, protos)
     b, sq, n, c = fts.shape
     s = sup_fg.shape[1]
     if not 1 <= s <= sq:
         raise ValueError(f"{s} support images in a packed axis of {sq}")
+    if c > MAX_CHANNELS:
+        raise ValueError(f"c={c}: the assign kernel holds at most "
+                         f"{MAX_CHANNELS} channels in registers")
     fg = _f32_on(sup_fg, fts.device, (b, s, n), "sup_fg")
     bg = _f32_on(sup_bg, fts.device, (b, s, n), "sup_bg")
     ctr = _f32_on(ctr, fts.device, (c, 2 * protos), "ctr")
+    if ctr.data_ptr() % 16:                   # the kernel copies it in 16 B
+        ctr = ctr.clone()
     lib = _lib()
     is_bf16 = int(fts.dtype == torch.bfloat16)
-    smem = lib.pemp_mpm_assign_smem(c, protos, is_bf16)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"c={c}, p={protos} needs {smem} bytes of shared "
-                         f"memory per block (limit {SMEM_LIMIT})")
-    part = torch.empty((b * s, -(-n // TILE), 2 * protos, c + 1),
-                       dtype=torch.float32, device=fts.device)
+    tiles, rows = assign_grid(
+        n, b * s, _assign_slots(lib, fts.device, c, protos, is_bf16))
+    k2 = 2 * protos
+    num = torch.empty((b * s, tiles // CLUSTER, k2, c), dtype=torch.float32,
+                      device=fts.device)
+    den = torch.empty((b * s, tiles // CLUSTER, k2), dtype=torch.float32,
+                      device=fts.device)
+    out = torch.empty((b, k2, c), dtype=torch.float32, device=fts.device)
     stream = torch.cuda.current_stream(fts.device).cuda_stream
-    rc = lib.pemp_mpm_assign_partial(fts.data_ptr(), is_bf16, fg.data_ptr(),
-                                     bg.data_ptr(), ctr.data_ptr(),
-                                     part.data_ptr(), b, s, sq - s, n, c,
-                                     protos, stream)
-    _check_rc(lib, rc, "assign_partial")
-    launches["assign_partial"] += 1
-    return part
-
-
-def _assign_reduce_launch(part, b: int, s: int, eps: float):
-    """K1 launch 2 on CUDA: partial sums [B*S, tiles, 2p, c+1] -> packed
-    prototypes [B, 2p, c] (fg first, then bg)."""
-    if (part.device.type != "cuda" or part.dtype != torch.float32
-            or part.ndim != 4 or part.shape[0] != b * s
-            or not part.is_contiguous()):
-        raise ValueError(f"partial sums {part.dtype} {tuple(part.shape)} on "
-                         f"{part.device}: expected contiguous float32 "
-                         f"[{b * s}, tiles, 2p, c+1] on cuda")
-    _, tiles, k2, c1 = part.shape
-    out = torch.empty((b, k2, c1 - 1), dtype=torch.float32,
-                      device=part.device)
-    lib = _lib()
-    stream = torch.cuda.current_stream(part.device).cuda_stream
-    rc = lib.pemp_mpm_assign_reduce(part.data_ptr(), out.data_ptr(), b, s,
-                                    tiles, c1 - 1, k2 // 2, float(eps),
-                                    stream)
-    _check_rc(lib, rc, "assign_reduce")
-    launches["assign_reduce"] += 1
+    tickets = _tickets(fts.device, stream, b)
+    rc = lib.pemp_mpm_assign(fts.data_ptr(), is_bf16, fg.data_ptr(),
+                             bg.data_ptr(), ctr.data_ptr(), num.data_ptr(),
+                             den.data_ptr(), tickets.data_ptr(),
+                             out.data_ptr(), b, s, sq - s, n, c, protos,
+                             rows, tiles, float(eps), stream)
+    _check_rc(lib, rc, "assign")
+    launches["assign"] += 1
     return out
 
 
-def _assign_launch(fts, sup_fg, sup_bg, ctr, protos: int, eps: float):
-    """K1 on CUDA (both launches) -> packed prototypes [B, 2p, c]."""
-    part = _assign_partial_launch(fts, sup_fg, sup_bg, ctr, protos)
-    return _assign_reduce_launch(part, fts.shape[0], sup_fg.shape[1], eps)
-
-
-def plain_assign_partial(fts, sup_fg, sup_bg, ctr, protos: int):
-    """Plain version of K1's first launch: for each support image and
-    TILE-row pixel tile, ``num = a^T f`` [2p, c] and ``den = sum a`` [2p]
-    of the soft assignment ``a``. Returns [B*S, tiles, 2p, c+1] float32."""
+def plain_assign_blocks(fts, sup_fg, sup_bg, ctr, protos: int, rows: int):
+    """Plain version of the assign kernel's cluster partials: for each
+    support image and run of ``rows`` pixel rows (a cluster's: CLUSTER
+    times the rows per block), ``num = a^T f`` [2p, c] and ``den = sum a``
+    [2p] of the soft assignment ``a``. Returns num [B*S, T, 2p, c] and den
+    [B*S, T, 2p] float32, T = cdiv(n, rows)."""
     s = sup_fg.shape[1]
     f = fts[:, :s].float()
     b, _, n, c = f.shape
     a = soft_assignment(f, sup_fg, sup_bg, ctr, protos)
-    pad = -(-n // TILE) * TILE - n
+    pad = -(-n // rows) * rows - n
     f = F.pad(f.reshape(b * s, n, c), (0, 0, 0, pad))
     a = F.pad(a.reshape(b * s, n, 2 * protos), (0, 0, 0, pad))
-    f = f.reshape(b * s, -1, TILE, c)
-    a = a.reshape(b * s, -1, TILE, 2 * protos)
-    num = torch.einsum("itrk,itrc->itkc", a, f)
-    return torch.cat([num, a.sum(dim=2)[..., None]], dim=-1)
+    f = f.reshape(b * s, -1, rows, c)
+    a = a.reshape(b * s, -1, rows, 2 * protos)
+    return torch.einsum("itrk,itrc->itkc", a, f), a.sum(dim=2)
 
 
-def plain_assign_reduce(part, b: int, s: int, eps: float = ASSIGN_EPS):
-    """Plain version of K1's second launch: sum the partials over tiles,
-    ``num / (den + eps)``, mean over the S shots -> [B, 2p, c]."""
-    tot = part.sum(dim=1)                                   # [B*S, 2p, c+1]
-    proto = tot[..., :-1] / (tot[..., -1:] + eps)
+def plain_assign_finish(num, den, b: int, s: int, eps: float = ASSIGN_EPS):
+    """Plain version of the assign kernel's last block of an episode: sum
+    the cluster partials in order, ``num / (den + eps)``, mean over the S
+    shots -> [B, 2p, c]."""
+    proto = num.sum(dim=1) / (den.sum(dim=1)[..., None] + eps)
     return proto.reshape(b, s, *proto.shape[1:]).mean(dim=1)
 
 

@@ -74,24 +74,40 @@ def test_cpu_path_launches_no_kernel():
     K.reset_launches()
     fts, fg, bg, ctr = _inputs(1, 1, 1, 49, seed=8)
     K.mpm_chain_packed(*[torch.from_numpy(a) for a in (fts, fg, bg, ctr)], P)
-    assert K.launches == {"assign_partial": 0, "assign_reduce": 0,
-                          "match": 0}
+    assert K.launches == {"assign": 0, "match": 0}
 
 
 @pytest.mark.parametrize("n,s", [(49, 1), (1030, 2)])
-def test_plain_assign_launches_compose_to_the_jax_prototypes(n, s):
-    """The plain versions of K1's two launches (per-tile partial sums,
-    then the reduction over tiles) give the JAX prototypes: rtol 1e-4,
-    atol 1e-5. The tiles cover n with a partial last tile."""
+def test_plain_assign_stages_compose_to_the_jax_prototypes(n, s):
+    """The plain versions of the assign kernel's two stages (the partial
+    sums of each cluster of blocks at the kernel's rows per block for a
+    132-SM card, then the fixed-order finish) give the JAX prototypes:
+    rtol 1e-4, atol 1e-5. The partials cover n with a partial last one."""
     fts, fg, bg, ctr = _inputs(2, s, 1, n, seed=n * s)
     _, _, ref_f, ref_b = mpm_chain_packed_pallas(
         jnp.asarray(fts), jnp.asarray(fg), jnp.asarray(bg), jnp.asarray(ctr),
         P, SCALE, return_residuals=True, interpret=True)
     t = [torch.from_numpy(a) for a in (fts, fg, bg, ctr)]
-    part = K.plain_assign_partial(*t, P)
-    assert part.shape == (2 * s, -(-n // K.TILE), 2 * P, C + 1)
-    protos = K.plain_assign_reduce(part, 2, s)
+    tiles, rows = K.assign_grid(n, 2 * s, 132)
+    num, den = K.plain_assign_blocks(*t, P, K.CLUSTER * rows)
+    assert num.shape == (2 * s, tiles // K.CLUSTER, 2 * P, C)
+    assert den.shape == (2 * s, tiles // K.CLUSTER, 2 * P)
+    protos = K.plain_assign_finish(num, den, 2, s)
     np.testing.assert_allclose(protos[:, :P].numpy(), np.asarray(ref_f),
                                rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(protos[:, P:].numpy(), np.asarray(ref_b),
                                rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("n,images,slots,want", [
+    (2601, 8, 128, (16, 163)),        # eval: 128 blocks, one wave
+    (2601, 4, 128, (32, 82)),         # train: 128 blocks, one wave
+    (49, 4, 128, (2, 32)),            # at least one ring stage a block
+    (1030, 300, 128, (2, 515)),       # more images than slots
+    (990, 4, 132, (32, 32)),          # a last cluster with one empty block
+])
+def test_assign_grid_fills_the_card(n, images, slots, want):
+    tiles, rows = K.assign_grid(n, images, slots)
+    assert (tiles, rows) == want
+    assert tiles % K.CLUSTER == 0
+    assert -(-n // rows) <= tiles < -(-n // rows) + K.CLUSTER
