@@ -17,8 +17,9 @@ and checks that each path went through the kernels and agrees with the
 plain version. The phases ``minplus`` (the EDT kernel, bit-exact, also on
 non-integer input) and ``mpm_backward`` (the mpm autograd Function
 against autograd of the plain composition) hold the training slice's
-pieces on their own. ``kernels`` times the assign kernel at the eval and
-train shapes and, with four shots, its cost per extra row; ``minplus``
+pieces on their own. ``kernels`` also holds the assign kernel above 512
+channels (column passes) and times it at the eval and train shapes, at
+p=8 and, with four shots, its cost per extra row; ``minplus``
 also times one 2048^3 product (the kernel's sustained rate); the train
 profile names the convolutions behind cuDNN's fallback kernels by input
 shape.
@@ -69,15 +70,6 @@ TRAIN_LOSS_RTOL = 1e-5
 # bit-equal; the float32 square roots may differ by one ulp (2^-23)
 EDT_SQRT_RTOL = 2.0 ** -23
 TRAIN_GRAD_RTOL = 1e-3
-# each kernel's time before its redesign: PERF.md section 6, chip run 3 of
-# the training slice (NVIDIA H100 80GB HBM3, 700.00 W); assign = the old
-# assign_partial + assign_reduce launches, minplus = both EDT phases
-MS_BEFORE = {"assign": 0.10273599997162819 + 0.026847999542951584,
-             "match": 0.04809600114822388,
-             "minplus": 0.07449600100517273 + 0.07574400305747986,
-             "minplus_phase1": 0.07449600100517273,
-             "minplus_phase2": 0.07574400305747986,
-             "mpm_backward": 3.9860960245132446}
 
 # cuDNN's fallback convolution kernels at the top of the train step's
 # profile, whose convolutions the profile names by input shape
@@ -106,18 +98,20 @@ def nvidia_smi() -> str:
     return out.stdout.strip()
 
 
-def time_ms(torch, fn, flush) -> float:
+def time_ms(torch, fn, flush, spin: bool = True) -> float:
     """Median CUDA-event time of ``fn`` over TIMING_ITERS launches, each
-    after a write of ``flush`` (> L2) so the inputs come from HBM, and a
-    device-side spin of SPIN_CYCLES so the device is still busy when the
-    host has enqueued ``fn``: the events time the device's work, not the
-    host's dispatch of it."""
+    after a write of ``flush`` (> L2) so the inputs come from HBM. With
+    ``spin``, a device-side spin of SPIN_CYCLES keeps the device busy
+    until the host has enqueued ``fn``: the events time the device's
+    work, not the host's dispatch of it. Without, they time what a caller
+    waits when the device is idle, dispatch included."""
     fn()
     torch.cuda.synchronize()
     pairs = []
     for _ in range(TIMING_ITERS):
         flush.zero_()
-        torch.cuda._sleep(SPIN_CYCLES)
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -215,26 +209,30 @@ def top2_margin(torch, fts_q, fg, bg, scale):
 
 def kernel_phase(torch, K, plain):
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    c, scale, eps = 512, 20.0, plain.ASSIGN_EPS
+    scale, eps = 20.0, plain.ASSIGN_EPS
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [
-        # (name, B, S, Q, n, p, dtype, far)
-        ("main_bf16", 8, 1, 1, 2601, 3, bf16, False),
-        ("main_f32", 8, 1, 1, 2601, 3, f32, False),
-        ("train_bf16", 4, 1, 1, 2601, 3, bf16, False),
-        ("shot5_bf16", 8, 5, 1, 2601, 3, bf16, False),
-        ("shot5_f32", 8, 5, 1, 2601, 3, f32, False),
-        ("n1030_bf16", 8, 1, 1, 1030, 3, bf16, False),
-        ("n1030_f32", 8, 2, 1, 1030, 3, f32, False),
-        ("far_ctr_f32", 2, 1, 1, 2601, 3, f32, True),
-        ("far_ctr_bf16", 2, 1, 1, 1030, 3, bf16, True),
-        ("p1_bf16", 8, 1, 1, 2601, 1, bf16, False),
-        ("p8_bf16", 8, 1, 1, 2601, 8, bf16, False),
-        ("p8_f32", 4, 2, 1, 1030, 8, f32, False),
+        # (name, B, S, Q, n, c, p, dtype, far)
+        ("main_bf16", 8, 1, 1, 2601, 512, 3, bf16, False),
+        ("main_f32", 8, 1, 1, 2601, 512, 3, f32, False),
+        ("train_bf16", 4, 1, 1, 2601, 512, 3, bf16, False),
+        ("shot5_bf16", 8, 5, 1, 2601, 512, 3, bf16, False),
+        ("shot5_f32", 8, 5, 1, 2601, 512, 3, f32, False),
+        ("n1030_bf16", 8, 1, 1, 1030, 512, 3, bf16, False),
+        ("n1030_f32", 8, 2, 1, 1030, 512, 3, f32, False),
+        ("far_ctr_f32", 2, 1, 1, 2601, 512, 3, f32, True),
+        ("far_ctr_bf16", 2, 1, 1, 1030, 512, 3, bf16, True),
+        ("p1_bf16", 8, 1, 1, 2601, 512, 1, bf16, False),
+        ("p8_bf16", 8, 1, 1, 2601, 512, 8, bf16, False),
+        ("p8_f32", 4, 2, 1, 1030, 512, 8, f32, False),
+        # more than 512 channels: column passes (1512 bf16 at two stages)
+        ("c1024_bf16", 4, 1, 1, 2601, 1024, 3, bf16, False),
+        ("c768_f32", 2, 2, 1, 1030, 768, 3, f32, False),
+        ("c1512_bf16", 2, 1, 1, 1030, 1512, 3, bf16, False),
     ]
     results = []
     worst = {"assign": 0.0, "match": 0.0, "chain": 0.0}
-    for name, b, s, q, n, p, dtype, far in cases:
+    for name, b, s, q, n, c, p, dtype, far in cases:
         fts, fg, bg, ctr = make_inputs(torch, b, s, q, n, c, p, dtype, far)
         # K1: one launch against the plain prototypes
         kf, kb = K.mpm_assign(fts, fg, bg, ctr, p)
@@ -274,10 +272,15 @@ def kernel_phase(torch, K, plain):
         if not ok:
             emit({"phase": "kernels", "failed": row})
             raise AssertionError(f"kernel case {name} disagrees with plain")
+    # every launch left its episode tickets at zero
+    torch.cuda.synchronize()
+    tickets = sum(int(t.abs().sum()) for t in K._ticket_bufs.values())
+    if tickets:
+        raise AssertionError(f"assign tickets not reset: sum {tickets}")
 
     # timings, bf16 features (what the model feeds): the eval shapes (B=8)
-    # and, for assign, the train shapes (B=4)
-    s, q, n, p = 1, 1, 2601, 3
+    # and, for assign, the train shapes (B=4) and p=8
+    c, s, q, n, p = 512, 1, 1, 2601, 3
     t, bounds = {}, {}
     for b, tag in ((8, ""), (4, "_train")):
         fts, fg, bg, ctr = make_inputs(torch, b, s, q, n, c, p, bf16)
@@ -287,6 +290,12 @@ def kernel_phase(torch, K, plain):
             torch, lambda: plain.meta_prototype_assign(
                 fts[:, :s], fg, bg, ctr, p), flush)
         bounds[f"assign{tag}"] = bound_ms(*work(b, s, q, n, c, p, 2)["assign"])
+    fts, fg, bg, ctr = make_inputs(torch, 8, s, q, n, c, 8, bf16)
+    t["assign_p8"] = time_ms(torch, lambda: K._assign_launch(
+        fts, fg, bg, ctr, 8, eps), flush)
+    t["assign_p8_plain"] = time_ms(torch, lambda: plain.meta_prototype_assign(
+        fts[:, :s], fg, bg, ctr, 8), flush)
+    bounds["assign_p8"] = bound_ms(*work(8, s, q, n, c, 8, 2)["assign"])
     # four shots: the same 128 blocks with four times the rows each, so
     # the difference to one shot is the kernel's cost per extra row
     fts, fg, bg, ctr = make_inputs(torch, 8, 4, q, n, c, p, bf16)
@@ -300,7 +309,7 @@ def kernel_phase(torch, K, plain):
     marginal = extra / ((t["assign_s4"] - t["assign"]) * 1e-3)
     b = 8
     fts, fg, bg, ctr = make_inputs(torch, b, s, q, n, c, p, bf16)
-    slots = K._assign_slots(K._lib(), fts.device, c, p, 1)
+    slots = K._assign_plan(K._lib(), fts.device, c, p, 1)[1]
     packed = K._assign_launch(fts, fg, bg, ctr, p, eps)
     pf, pb = packed[:, :p], packed[:, p:]
     t.update({
@@ -323,13 +332,14 @@ def kernel_phase(torch, K, plain):
                         for tag, imgs in (("eval", 8), ("train", 4),
                                           ("eval_s4", 32))},
         "assign_marginal_bytes_per_s": marginal,
-        "ms": t, "ms_before": MS_BEFORE,
+        "ms": t,
         "bound_ms": {k: v[0] for k, v in bounds.items()},
         "bound_by": {k: v[1] for k, v in bounds.items()},
         "tolerance": {"proto_rtol": PROTO_RTOL, "logit_atol": LOGIT_ATOL,
                       "index_margin": MARGIN},
         "note": "assign = K1, one launch (B=8 eval, _train B=4, _s4 B=8 "
-                "with 4 shots); assign_marginal_bytes_per_s = the extra "
+                "with 4 shots, _p8 B=8 at p=8); "
+                "assign_marginal_bytes_per_s = the extra "
                 "bytes of 4 shots over 1 by the extra time; chain = K1 "
                 "then match on the packed tensor (K3), no launch of its "
                 "own"})
@@ -541,8 +551,6 @@ def minplus_phase(torch):
           "timing_shapes": {"B": b, "H": h, "W": w}, "ms": t,
           "bound_ms": {k: v[0] for k, v in bounds.items()},
           "bound_by": {k: v[1] for k, v in bounds.items()},
-          "ms_before": {k: MS_BEFORE[f"minplus_{k}"]
-                        for k in ("phase1", "phase2")},
           "share_of_bound": {k: bounds[k][0] / t[k] for k in bounds},
           "tolerance": "bit-equal (torch.equal)"})
     return t, bounds
@@ -588,13 +596,19 @@ def mpm_backward_phase(torch, K, plain):
         if not ok:
             emit({"phase": "mpm_backward", "failed": row})
             raise AssertionError(f"mpm backward ({name}) disagrees with plain")
-        times[name] = time_ms(torch, lambda: torch.autograd.grad(
-            lk, (fk, ck), g, retain_graph=True), flush)
-        times[f"{name}_plain"] = time_ms(torch, lambda: torch.autograd.grad(
-            lp, (fp, cp), g, retain_graph=True), flush)
+        # host-bound: without the spin (what the train step waits, the
+        # dispatch of its ops included) and with it (the device's work)
+        for spin, tag in ((False, ""), (True, "_device")):
+            times[f"{name}{tag}"] = time_ms(torch, lambda: torch.autograd.grad(
+                lk, (fk, ck), g, retain_graph=True), flush, spin)
+            times[f"{name}_plain{tag}"] = time_ms(
+                torch, lambda: torch.autograd.grad(
+                    lp, (fp, cp), g, retain_graph=True), flush, spin)
     bound = bound_ms(*mpm_backward_work(b, s, q, n, c, p, 2))
     emit({"phase": "mpm_backward", "cases": rows, "timing_shapes": {
         "B": b, "S": s, "Q": q, "n": n, "c": c, "p": p}, "ms": times,
+        "note": "ms without the device spin (host dispatch included, what "
+                "the step waits); _device with it",
         "bound_ms_bf16": bound[0], "bound_by": bound[1],
         "tolerance": {"grad_rtol": GRAD_RTOL, "bf16_fts_grad_rtol":
                       GRAD_RTOL_BF16, "index_margin": MARGIN}})
@@ -839,8 +853,7 @@ def main() -> int:
          "train_path_launches": train_launches[name],
          "max_abs_err": worst[name], "ms": times[name],
          "plain_ms": times[f"{name}_plain"], "bound_ms": bounds[name][0],
-         "bound_by": bounds[name][1], "library_ms": None,
-         "ms_before": MS_BEFORE[name]}
+         "bound_by": bounds[name][1], "library_ms": None}
         for name, replaces in rows]
     table.append({
         "name": "minplus", "route": "cuda",
@@ -851,7 +864,6 @@ def main() -> int:
         "plain_ms": mp_times["phase1_plain"] + mp_times["phase2_plain"],
         "bound_ms": mp_bounds["phase1"][0] + mp_bounds["phase2"][0],
         "bound_by": "operations", "library_ms": None,
-        "ms_before": MS_BEFORE["minplus"],
         "library_note": "no PyTorch call computes a min-plus product"})
     table.append({
         "name": "mpm_backward", "route": "cuda",
@@ -861,8 +873,10 @@ def main() -> int:
         "max_abs_err": bw_worst, "ms": bw_times["bfloat16"],
         "plain_ms": bw_times["bfloat16_plain"], "bound_ms": bw_bound[0],
         "bound_by": bw_bound[1], "library_ms": None,
-        "ms_before": MS_BEFORE["mpm_backward"],
-        "note": "MPMChainPacked.backward: PyTorch ops, no kernel of its own"})
+        "device_ms": bw_times["bfloat16_device"],
+        "note": "MPMChainPacked.backward: PyTorch ops, no kernel of its "
+                "own; ms and plain_ms include the host's dispatch, "
+                "device_ms is the device's work alone"})
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

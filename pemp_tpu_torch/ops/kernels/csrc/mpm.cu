@@ -12,7 +12,8 @@
 // 67 TFLOP/s fp32 CUDA-core rate's own break-even (~20 flops/byte). The
 // centers are fp32 and the contractions are pinned at full fp32 (lower
 // precision flips argmax near ties), so both kernels use fp32 CUDA cores
-// (no wgmma) and read each feature row from device memory once.
+// (no wgmma) and read each feature row from device memory once (K1:
+// once per 512-channel pass).
 //   - K1 (assign_kernel) streams its rows through a cp.async ring, keeps
 //     each lane on fixed columns so the center table is read once per
 //     group of rows, reduces the per-row sums with one butterfly, and
@@ -26,15 +27,12 @@
 // Rows >= n are never loaded (K1 zero-fills them and drops their
 // assignment with a select; K2 never visits them).
 
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "async_copy.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -131,12 +129,15 @@ __device__ void table_norms_sq(const float* table, float* out, int c, int k2) {
 //   protos[b, k, :] = mean_s( sum_rows a[row, k] f[row, :] / (sum_rows a[row, k] + eps) )
 //
 // with a = per-class softmax over the class's own p centers of
-// -(|f|^2 - 2 f.ctr + |ctr|^2), times the class mask. Grid (T, B*S): block
-// t of support image i takes `rows` consecutive pixel rows.
-//   - The rows stream through a ring of NS shared-memory stages of
-//     kStageRows rows, filled by 16-byte cp.async (rows >= n are never
-//     read: the copy zero-fills them), NS-1 stages in flight while one is
-//     computed.
+// -(|f|^2 - 2 f.ctr + |ctr|^2), times the class mask. Grid (T, B*S, Z):
+// block t of support image i takes `rows` consecutive pixel rows, and
+// column pass z sums a^T f over channels [z*kPassCols, (z+1)*kPassCols)
+// (one pass up to 512 channels; each pass computes the rows' whole dot
+// products, so the assignment is the same in every pass).
+//   - The rows stream through a ring of `ns` shared-memory stages of
+//     kStageRows rows (as many as fit, at most NS), filled by 16-byte
+//     cp.async (rows >= n are never read: the copy zero-fills them),
+//     ns-1 stages in flight while one is computed.
 //   - Each warp takes kRowsPerWarp rows of a stage, R at a time; each lane
 //     owns the same 16-byte column chunks (q = lane + 32 j) for the whole
 //     kernel, so it reads its slice of the [2p][c] center table once per R
@@ -144,22 +145,19 @@ __device__ void table_norms_sq(const float* table, float* out, int c, int k2) {
 //   - The R*(2p+1) partial sums (2p dots and |f|^2 per row) are reduced
 //     with one reduce-scatter butterfly (31 shuffles): lane l ends with
 //     value l, and the softmax of R rows runs on R*2p lanes at once.
-//   - a^T f and sum a accumulate in registers on the lane's own columns;
-//     at the end the warps add theirs in a fixed tree through shared
-//     memory.
-//   - The kCluster blocks of a cluster (consecutive t of one image) add
-//     their partials over distributed shared memory in rank order, each
-//     block one slice, and write one [2p][c] num and [2p] den partial to
-//     scratch; each block then fences and takes a ticket of its episode.
-//     The block that draws the episode's last ticket sums the partials in
-//     fixed (s, t) order, writes protos[b] and resets the ticket to 0 for
-//     the next launch. No atomics touch a sum, so the prototypes are
-//     bit-identical run to run.
+//   - a^T f and sum a accumulate in registers on the lane's own columns of
+//     the pass; at the end the warps add theirs in a fixed tree through
+//     shared memory and the block writes one [2p][c-slice] num and (pass
+//     0) one [2p] den partial to scratch, fences and takes a ticket of
+//     its episode. The block that draws the episode's last ticket sums
+//     the partials in fixed (s, t) order, writes protos[b] and resets the
+//     ticket to 0 for the next launch. No atomics touch a sum, so the
+//     prototypes are bit-identical run to run.
 // ---------------------------------------------------------------------------
 constexpr int kStageRows = 32;                     // pixel rows per ring stage
 constexpr int kRowsPerWarp = kStageRows / kWarps;  // 4
-constexpr int kMaxCols = 512;                      // channels: 16 per lane
-constexpr int kCluster = 2;                        // blocks of an image per cluster
+constexpr int kPassCols = 512;                     // channels a pass: 16 per lane
+constexpr int kMinStages = 2;
 
 template <int P>
 struct AssignShape {
@@ -170,12 +168,24 @@ struct AssignShape {
 
 template <typename T>
 struct AssignRing {
-  static constexpr int NS = sizeof(T) == 2 ? 4 : 3;   // stages: 128 KB bf16, 192 KB f32
+  static constexpr int NS = sizeof(T) == 2 ? 4 : 3;   // most stages: 128 KB bf16, 192 KB f32
 };
 
+// dynamic shared memory at `ns` stages: the center table, the mask ring,
+// and the feature ring, which the warps' tree (kWarps/2 slots of
+// [2p][min(c, kPassCols)]) reuses at the end
 constexpr size_t assign_smem_bytes(int c, int p, int esize, int ns) {
-  return (size_t)2 * p * c * 4 + (size_t)ns * 2 * kStageRows * 4 +
-         (size_t)ns * kStageRows * c * esize;
+  const size_t ring = (size_t)ns * kStageRows * c * esize;
+  const size_t tree = (size_t)kWarps / 2 * 2 * p * (c < kPassCols ? c : kPassCols) * 4;
+  return (size_t)2 * p * c * 4 + (size_t)ns * 2 * kStageRows * 4 + (ring > tree ? ring : tree);
+}
+
+// wait until at most ns-1 stages are in flight, so the oldest has landed
+// (ns is 2..4)
+__device__ __forceinline__ void wait_ring(int ns) {
+  if (ns >= 4) pemp::cp_async_wait<3>();
+  else if (ns == 3) pemp::cp_async_wait<2>();
+  else pemp::cp_async_wait<1>();
 }
 
 // One step of a reduce-scatter butterfly over the warp: a lane keeps the
@@ -196,30 +206,29 @@ __device__ __forceinline__ void reduce_scatter(float (&v)[32], int lane) {
 }
 
 template <typename T, int P>
-__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreads, 1)
 assign_kernel(const T* __restrict__ fts, const float* __restrict__ fg,
               const float* __restrict__ bg, const float* __restrict__ ctr,
               float* __restrict__ num_part, float* __restrict__ den_part,
               int* __restrict__ tickets, float* __restrict__ protos, int S, int SQ,
-              int n, int c, int rows, float eps) {
+              int n, int c, int rows, int ns, float eps) {
   using Shape = AssignShape<P>;
   constexpr int K2 = Shape::K2, W = Shape::W, R = Shape::R;
   constexpr int V = Vec<T>::N;
-  constexpr int NCH = kMaxCols / (32 * V);          // 16-byte chunks per lane
-  constexpr int NS = AssignRing<T>::NS;
+  constexpr int NCH = kPassCols / (32 * V);         // 16-byte chunks per lane and pass
   const unsigned full = 0xffffffffu;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* ctr_s = reinterpret_cast<float*>(smem_raw);           // [K2][c]
-  float* mask_s = ctr_s + K2 * c;                               // [NS][2][kStageRows]
-  T* ring = reinterpret_cast<T*>(mask_s + NS * 2 * kStageRows);  // [NS][kStageRows][c]
+  float* mask_s = ctr_s + K2 * c;                               // [ns][2][kStageRows]
+  T* ring = reinterpret_cast<T*>(mask_s + ns * 2 * kStageRows);  // [ns][kStageRows][c]
   __shared__ float csq_s[kMaxK2];
   __shared__ float den_s[kWarps][32];
-  __shared__ float den_red_s[kMaxK2];
   __shared__ int last_s;
 
   const int t = blockIdx.x, tiles = gridDim.x;
   const int i = blockIdx.y;                     // support image in [0, B*S)
+  const int z = blockIdx.z, passes = gridDim.z;  // column pass
   const int b = i / S;
   const int img = b * SQ + i % S;               // packed support row
   const int row0 = t * rows;
@@ -227,15 +236,17 @@ assign_kernel(const T* __restrict__ fts, const float* __restrict__ fg,
   const int stages = (nrows + kStageRows - 1) / kStageRows;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int cv = c / V;                         // 16-byte chunks per row
+  const int qz = z * 32 * NCH;                  // first chunk of the pass
+  const int pc = min(c, kPassCols);             // tree slot stride
   const T* src = fts + ((size_t)img * n + row0) * c;
   const float* mfg = fg + (size_t)i * n + row0;
   const float* mbg = bg + (size_t)i * n + row0;
 
-  // stage st -> ring slot st % NS (rows past the block's last are zero-filled)
+  // stage st -> ring slot st % ns (rows past the block's last are zero-filled)
   auto issue = [&](int st) {
     if (st < stages) {
       const int r0 = st * kStageRows;
-      T* dst = ring + (size_t)(st % NS) * kStageRows * c;
+      T* dst = ring + (size_t)(st % ns) * kStageRows * c;
       for (int r = warp; r < kStageRows; r += kWarps) {
         const bool live = r0 + r < nrows;
         for (int q = lane; q < cv; q += 32)
@@ -245,39 +256,42 @@ assign_kernel(const T* __restrict__ fts, const float* __restrict__ fg,
       if (threadIdx.x < 2 * kStageRows) {
         const int cls = threadIdx.x / kStageRows, r = threadIdx.x % kStageRows;
         const bool live = r0 + r < nrows;
-        pemp::cp_async4(mask_s + ((st % NS) * 2 + cls) * kStageRows + r,
+        pemp::cp_async4(mask_s + ((st % ns) * 2 + cls) * kStageRows + r,
                         (cls ? mbg : mfg) + (live ? r0 + r : 0), live ? 4 : 0);
       }
     }
     pemp::cp_async_commit();
   };
 
-  // ctr [c][K2] is read before the ring's first stages are asked for, so
-  // its (L2-resident) lines are not queued behind them; it is stored
-  // k-major, row k holding the V columns of chunk q as V/4 float4
-  // quarters h at [h][q], so a warp's float4 reads of a quarter are
-  // consecutive
-  constexpr int kCtr = K2 * kMaxCols / 4 / kThreads;        // float4 a thread
+  // ctr [c][K2] is stored k-major, row k holding the V columns of chunk q
+  // as V/4 float4 quarters h at [h][q], so a warp's float4 reads of a
+  // quarter are consecutive. Its first kPassCols columns' (L2-resident)
+  // lines are read before the ring's first stages are asked for, so they
+  // are not queued behind them.
+  auto put_ctr = [&](int idx, float4 v) {
+    const float x[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = (4 * idx + e) / K2, k = (4 * idx + e) % K2;
+      ctr_s[k * c + (col % V) / 4 * cv * 4 + col / V * 4 + col % 4] = x[e];
+    }
+  };
+  const int n_ctr4 = c * K2 / 4;
+  constexpr int kCtr = K2 * kPassCols / 4 / kThreads;       // float4 a thread
   float4 cv4[kCtr];
 #pragma unroll
   for (int j = 0; j < kCtr; ++j) {
     const int idx = threadIdx.x + j * kThreads;
-    if (idx < c * K2 / 4) cv4[j] = __ldg(reinterpret_cast<const float4*>(ctr) + idx);
+    if (idx < n_ctr4) cv4[j] = __ldg(reinterpret_cast<const float4*>(ctr) + idx);
   }
-#pragma unroll
-  for (int st = 0; st < NS - 1; ++st) issue(st);
+  for (int st = 0; st < ns - 1; ++st) issue(st);
 #pragma unroll
   for (int j = 0; j < kCtr; ++j) {
     const int idx = threadIdx.x + j * kThreads;
-    if (idx < c * K2 / 4) {
-      const float x[4] = {cv4[j].x, cv4[j].y, cv4[j].z, cv4[j].w};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = (4 * idx + e) / K2, k = (4 * idx + e) % K2;
-        ctr_s[k * c + (col % V) / 4 * cv * 4 + col / V * 4 + col % 4] = x[e];
-      }
-    }
+    if (idx < n_ctr4) put_ctr(idx, cv4[j]);
   }
+  for (int idx = threadIdx.x + kCtr * kThreads; idx < n_ctr4; idx += kThreads)
+    put_ctr(idx, __ldg(reinterpret_cast<const float4*>(ctr) + idx));
   __syncthreads();
   table_norms_sq(ctr_s, csq_s, c, K2);                      // read after the loop's sync
 
@@ -293,43 +307,45 @@ assign_kernel(const T* __restrict__ fts, const float* __restrict__ fg,
   const int cls = kk / P;
 
   for (int st = 0; st < stages; ++st) {
-    issue(st + NS - 1);
-    pemp::cp_async_wait<NS - 1>();
+    issue(st + ns - 1);
+    wait_ring(ns);
     __syncthreads();
-    const T* tile = ring + (size_t)(st % NS) * kStageRows * c;
-    const float* mk = mask_s + (st % NS) * 2 * kStageRows + cls * kStageRows;
+    const T* tile = ring + (size_t)(st % ns) * kStageRows * c;
+    const float* mk = mask_s + (st % ns) * 2 * kStageRows + cls * kStageRows;
     const int live_rows = min(kStageRows, nrows - st * kStageRows);
 #pragma unroll
     for (int gi = 0; gi < kRowsPerWarp / R; ++gi) {
       const int g = warp * kRowsPerWarp + gi * R;
       if (g >= live_rows) break;                               // warp-uniform
-      // per-lane partial dots and |f|^2 of rows g .. g+R-1
+      // per-lane partial dots and |f|^2 of rows g .. g+R-1, over all columns
       float v[32];
 #pragma unroll
       for (int j = 0; j < 32; ++j) v[j] = 0.f;
+      for (int q0 = 0; q0 < cv; q0 += 32 * NCH) {
 #pragma unroll
-      for (int j = 0; j < NCH; ++j) {
-        const int q = lane + 32 * j;
-        if (q < cv) {
-          float x[R][V];
+        for (int j = 0; j < NCH; ++j) {
+          const int q = q0 + lane + 32 * j;
+          if (q < cv) {
+            float x[R][V];
 #pragma unroll
-          for (int r = 0; r < R; ++r) {
-            Vec<T>::unpack(*reinterpret_cast<const uint4*>(tile + (size_t)(g + r) * c + q * V), x[r]);
+            for (int r = 0; r < R; ++r) {
+              Vec<T>::unpack(*reinterpret_cast<const uint4*>(tile + (size_t)(g + r) * c + q * V), x[r]);
 #pragma unroll
-            for (int e = 0; e < V; ++e) v[r * W + K2] = fmaf(x[r][e], x[r][e], v[r * W + K2]);
-          }
+              for (int e = 0; e < V; ++e) v[r * W + K2] = fmaf(x[r][e], x[r][e], v[r * W + K2]);
+            }
 #pragma unroll
-          for (int k = 0; k < K2; ++k) {
+            for (int k = 0; k < K2; ++k) {
 #pragma unroll
-            for (int h = 0; h < V / 4; ++h) {
-              const float4 w = *reinterpret_cast<const float4*>(ctr_s + k * c + h * cv * 4 + q * 4);
+              for (int h = 0; h < V / 4; ++h) {
+                const float4 w = *reinterpret_cast<const float4*>(ctr_s + k * c + h * cv * 4 + q * 4);
 #pragma unroll
-              for (int r = 0; r < R; ++r) {
-                float& d = v[r * W + k];
-                d = fmaf(x[r][4 * h], w.x, d);
-                d = fmaf(x[r][4 * h + 1], w.y, d);
-                d = fmaf(x[r][4 * h + 2], w.z, d);
-                d = fmaf(x[r][4 * h + 3], w.w, d);
+                for (int r = 0; r < R; ++r) {
+                  float& d = v[r * W + k];
+                  d = fmaf(x[r][4 * h], w.x, d);
+                  d = fmaf(x[r][4 * h + 1], w.y, d);
+                  d = fmaf(x[r][4 * h + 2], w.z, d);
+                  d = fmaf(x[r][4 * h + 3], w.w, d);
+                }
               }
             }
           }
@@ -353,7 +369,7 @@ assign_kernel(const T* __restrict__ fts, const float* __restrict__ fg,
       const bool live = my_r < R && my_k < K2 && row < live_rows;
       const float a = live ? ex * (mk[min(row, kStageRows - 1)] / fmaxf(sum, 1e-30f)) : 0.f;
       den += a;
-      // a^T f on the lane's own columns
+      // a^T f on the lane's own columns of the pass
       float ar[R][K2];
 #pragma unroll
       for (int r = 0; r < R; ++r)
@@ -361,7 +377,7 @@ assign_kernel(const T* __restrict__ fts, const float* __restrict__ fg,
         for (int k = 0; k < K2; ++k) ar[r][k] = __shfl_sync(full, a, r * W + k);
 #pragma unroll
       for (int j = 0; j < NCH; ++j) {
-        const int q = lane + 32 * j;
+        const int q = qz + lane + 32 * j;
         if (q < cv) {
 #pragma unroll
           for (int r = 0; r < R; ++r) {
@@ -375,28 +391,28 @@ assign_kernel(const T* __restrict__ fts, const float* __restrict__ fg,
         }
       }
     }
-    __syncthreads();                     // slot st % NS is refilled next iteration
+    __syncthreads();                     // slot st % ns is refilled next iteration
   }
   pemp::cp_async_wait<0>();
 
   // the block's partial in a fixed order: a tree over the warps through
-  // shared memory (the ring, as kWarps/2 slots of [K2][c]); warp w adds
+  // shared memory (the ring, as kWarps/2 slots of [K2][pc]); warp w adds
   // warp w+h's sums for h = 4, 2, 1, and warp 0 writes the result
   float* slots = reinterpret_cast<float*>(ring);
   den_s[warp][lane] = den;
 #pragma unroll
   for (int h = kWarps / 2; h > 0; h >>= 1) {
     if (warp >= h && warp < 2 * h) {
-      float* o = slots + (size_t)(warp - h) * K2 * c;
+      float* o = slots + (size_t)(warp - h) * K2 * pc;
 #pragma unroll
       for (int j = 0; j < NCH; ++j) {
-        const int q = lane + 32 * j;
+        const int q = qz + lane + 32 * j;
         if (q < cv) {
 #pragma unroll
           for (int k = 0; k < K2; ++k)
 #pragma unroll
             for (int e = 0; e < V; e += 4)
-              *reinterpret_cast<float4*>(o + k * c + q * V + e) =
+              *reinterpret_cast<float4*>(o + k * pc + (q - qz) * V + e) =
                   make_float4(acc[k][j * V + e], acc[k][j * V + e + 1],
                               acc[k][j * V + e + 2], acc[k][j * V + e + 3]);
         }
@@ -404,16 +420,16 @@ assign_kernel(const T* __restrict__ fts, const float* __restrict__ fg,
     }
     __syncthreads();
     if (warp < h) {
-      const float* o = slots + (size_t)warp * K2 * c;
+      const float* o = slots + (size_t)warp * K2 * pc;
 #pragma unroll
       for (int j = 0; j < NCH; ++j) {
-        const int q = lane + 32 * j;
+        const int q = qz + lane + 32 * j;
         if (q < cv) {
 #pragma unroll
           for (int k = 0; k < K2; ++k)
 #pragma unroll
             for (int e = 0; e < V; e += 4) {
-              const float4 y = *reinterpret_cast<const float4*>(o + k * c + q * V + e);
+              const float4 y = *reinterpret_cast<const float4*>(o + k * pc + (q - qz) * V + e);
               acc[k][j * V + e] += y.x;
               acc[k][j * V + e + 1] += y.y;
               acc[k][j * V + e + 2] += y.z;
@@ -424,85 +440,59 @@ assign_kernel(const T* __restrict__ fts, const float* __restrict__ fg,
     }
     __syncthreads();
   }
-  // the cluster's partial: each block puts its own in shared memory, and
-  // block `rank` sums slice `rank` of the kCluster partials in rank order
-  // (distributed shared memory) into the scratch
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
-  float* red_s = reinterpret_cast<float*>(ring);             // [K2][c]
+  const size_t part = (size_t)i * tiles + t;
+  const int n_all = K2 * c;                                  // a multiple of 16
   if (warp == 0) {
 #pragma unroll
     for (int j = 0; j < NCH; ++j) {
-      const int q = lane + 32 * j;
+      const int q = qz + lane + 32 * j;
       if (q < cv) {
 #pragma unroll
         for (int k = 0; k < K2; ++k)
 #pragma unroll
           for (int e = 0; e < V; e += 4)
-            *reinterpret_cast<float4*>(red_s + k * c + q * V + e) =
+            *reinterpret_cast<float4*>(num_part + part * n_all + k * c + q * V + e) =
                 make_float4(acc[k][j * V + e], acc[k][j * V + e + 1],
                             acc[k][j * V + e + 2], acc[k][j * V + e + 3]);
       }
     }
-    if (lane < K2) {
+    if (z == 0 && lane < K2) {
       float d = 0.f;
       for (int w = 0; w < kWarps; ++w)
         for (int l = lane; l < R * W; l += W) d += den_s[w][l];
-      den_red_s[lane] = d;
+      den_part[part * K2 + lane] = d;
     }
   }
-  cluster.sync();
-  const int cparts = tiles / kCluster;                       // cluster partials per image
-  const size_t part = (size_t)i * cparts + t / kCluster;
-  const int n_all = K2 * c;                                  // a multiple of 16
-  const int n4 = n_all / 4;
-  for (int idx = n4 * rank / kCluster + threadIdx.x; idx < n4 * (rank + 1) / kCluster;
-       idx += kThreads) {
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-    for (int r = 0; r < kCluster; ++r) {
-      const float4 y = reinterpret_cast<const float4*>(cluster.map_shared_rank(red_s, r))[idx];
-      x.x += y.x; x.y += y.y; x.z += y.z; x.w += y.w;
-    }
-    reinterpret_cast<float4*>(num_part + part * n_all)[idx] = x;
-  }
-  if (rank == 0 && threadIdx.x < K2) {
-    float d = 0.f;
-#pragma unroll
-    for (int r = 0; r < kCluster; ++r) d += cluster.map_shared_rank(den_red_s, r)[threadIdx.x];
-    den_part[part * K2 + threadIdx.x] = d;
-  }
-  cluster.sync();                          // the others' reads are done
 
-  // the last block of episode b finishes it from the S * cparts partials
+  // the last block of episode b finishes it from the S * tiles partials
   __threadfence();
   __syncthreads();
-  if (threadIdx.x == 0) last_s = atomicAdd(&tickets[b], 1) == S * tiles - 1;
+  if (threadIdx.x == 0) last_s = atomicAdd(&tickets[b], 1) == S * tiles * passes - 1;
   __syncthreads();
   if (!last_s) return;
   __threadfence();
   // loads of kBatch partials are issued together, then summed in order
   constexpr int kBatch = 8;
-  for (int idx = threadIdx.x; idx < n4; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < n_all / 4; idx += kThreads) {
     const int k = idx * 4 / c;
     float4 out = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int s = 0; s < S; ++s) {
-      const size_t p0 = (size_t)(b * S + s) * cparts;
+      const size_t p0 = (size_t)(b * S + s) * tiles;
       float4 nm = make_float4(0.f, 0.f, 0.f, 0.f);
       float dn = 0.f;
-      for (int u0 = 0; u0 < cparts; u0 += kBatch) {
+      for (int u0 = 0; u0 < tiles; u0 += kBatch) {
         float4 xs[kBatch];
         float ds[kBatch];
 #pragma unroll
         for (int j = 0; j < kBatch; ++j) {
-          if (u0 + j < cparts) {
+          if (u0 + j < tiles) {
             xs[j] = __ldcg(reinterpret_cast<const float4*>(num_part + (p0 + u0 + j) * n_all) + idx);
             ds[j] = __ldcg(den_part + (p0 + u0 + j) * K2 + k);
           }
         }
 #pragma unroll
         for (int j = 0; j < kBatch; ++j) {
-          if (u0 + j < cparts) {
+          if (u0 + j < tiles) {
             nm.x += xs[j].x; nm.y += xs[j].y; nm.z += xs[j].z; nm.w += xs[j].w;
             dn += ds[j];
           }
@@ -578,7 +568,7 @@ cudaError_t launch_config(Kernel kernel, size_t smem) {
 
 template <typename T>
 using AssignFn = void (*)(const T*, const float*, const float*, const float*, float*, float*,
-                          int*, float*, int, int, int, int, int, float);
+                          int*, float*, int, int, int, int, int, int, float);
 
 // the assign kernel instance for p (p is a template parameter: the
 // accumulators are registers)
@@ -597,38 +587,52 @@ AssignFn<T> assign_kernel_for(int p) {
   }
 }
 
+// ring stages of the assign kernel for (c, p): as many as fit in a
+// block's shared memory (beside its static shared memory) on the current
+// device, at most NS; 0 when not even kMinStages fit (or on a CUDA error)
+template <typename T>
+int assign_stages(int c, int p) {
+  const AssignFn<T> kernel = assign_kernel_for<T>(p);
+  int dev = 0, limit = 0;
+  cudaFuncAttributes attr;
+  if (kernel == nullptr || cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess ||
+      cudaFuncGetAttributes(&attr, kernel) != cudaSuccess)
+    return 0;
+  for (int ns = AssignRing<T>::NS; ns >= kMinStages; --ns)
+    if (assign_smem_bytes(c, p, sizeof(T), ns) + attr.sharedSizeBytes <= (size_t)limit) return ns;
+  return 0;
+}
+
 template <typename T>
 int assign_slots(int c, int p) {
   const AssignFn<T> kernel = assign_kernel_for<T>(p);
-  if (kernel == nullptr) return -(int)cudaErrorInvalidValue;
-  const size_t smem = assign_smem_bytes(c, p, sizeof(T), AssignRing<T>::NS);
+  const int ns = assign_stages<T>(c, p);
+  if (kernel == nullptr || ns == 0) return -(int)cudaErrorInvalidValue;
+  const size_t smem = assign_smem_bytes(c, p, sizeof(T), ns);
   cudaError_t e = launch_config(kernel, smem);
-  int dev = 0, sms = 0;
+  int dev = 0, sms = 0, per_sm = 0;
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  // blocks of whole clusters the device holds at once
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kCluster * sms, 1, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  int clusters = 0;
-  if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
-  return e == cudaSuccess ? clusters * kCluster : -(int)e;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  return e == cudaSuccess ? per_sm * sms : -(int)e;
 }
 
 template <typename T>
 int assign_launch(const void* fts, const void* fg, const void* bg, const void* ctr, void* num,
                   void* den, void* tickets, void* protos, int B, int S, int Q, int n, int c,
-                  int p, int rows, int tiles, float eps, void* stream) {
+                  int p, int rows, int tiles, int ns, float eps, void* stream) {
   const AssignFn<T> kernel = assign_kernel_for<T>(p);
-  if (kernel == nullptr) return cudaErrorInvalidValue;
-  const size_t smem = assign_smem_bytes(c, p, sizeof(T), AssignRing<T>::NS);
+  if (kernel == nullptr || ns < kMinStages || ns > AssignRing<T>::NS) return cudaErrorInvalidValue;
+  const size_t smem = assign_smem_bytes(c, p, sizeof(T), ns);
   const cudaError_t e = launch_config(kernel, smem);
   if (e != cudaSuccess) return e;
-  kernel<<<dim3(tiles, B * S), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid(tiles, B * S, (c + kPassCols - 1) / kPassCols);
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(fts), static_cast<const float*>(fg), static_cast<const float*>(bg),
       static_cast<const float*>(ctr), static_cast<float*>(num), static_cast<float*>(den),
-      static_cast<int*>(tickets), static_cast<float*>(protos), S, S + Q, n, c, rows, eps);
+      static_cast<int*>(tickets), static_cast<float*>(protos), S, S + Q, n, c, rows, ns, eps);
   return cudaGetLastError();
 }
 
@@ -639,14 +643,19 @@ extern "C" {
 int pemp_mpm_max_protos() { return kMaxProtos; }
 int pemp_mpm_tile() { return kTile; }
 int pemp_mpm_stage_rows() { return kStageRows; }
-int pemp_mpm_cluster() { return kCluster; }
-int pemp_mpm_max_channels() { return kMaxCols; }
+int pemp_mpm_pass_channels() { return kPassCols; }
 
 const char* pemp_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 size_t pemp_mpm_match_smem(int c, int p) { return (size_t)2 * p * c * 4; }
+
+// Ring stages the assign kernel takes for (c, p) on the current device;
+// 0 when its shared memory does not fit a block even at the fewest.
+int pemp_mpm_assign_stages(int c, int p, int is_bf16) {
+  return is_bf16 ? assign_stages<__nv_bfloat16>(c, p) : assign_stages<float>(c, p);
+}
 
 // Blocks of the assign kernel the current device holds at once (SMs x
 // blocks per SM), or minus a CUDA error code.
@@ -659,15 +668,16 @@ int pemp_mpm_assign_slots(int c, int p, int is_bf16) {
 // tickets [B] int32, zero before the launch and after it; protos
 // [B, 2p, c] f32 out (fg prototypes first, then bg). Block t of a support
 // image takes pixel rows [t*rows, min(n, (t+1)*rows)), tiles = cdiv(n,
-// rows). Returns cudaGetLastError().
+// rows), in cdiv(c, 512) column passes, with `ns` ring stages
+// (pemp_mpm_assign_stages). Returns cudaGetLastError().
 int pemp_mpm_assign(const void* fts, int is_bf16, const void* fg, const void* bg,
                     const void* ctr, void* num, void* den, void* tickets, void* protos,
-                    int B, int S, int Q, int n, int c, int p, int rows, int tiles,
+                    int B, int S, int Q, int n, int c, int p, int rows, int tiles, int ns,
                     float eps, void* stream) {
   return is_bf16 ? assign_launch<__nv_bfloat16>(fts, fg, bg, ctr, num, den, tickets, protos,
-                                                B, S, Q, n, c, p, rows, tiles, eps, stream)
+                                                B, S, Q, n, c, p, rows, tiles, ns, eps, stream)
                  : assign_launch<float>(fts, fg, bg, ctr, num, den, tickets, protos, B, S,
-                                        Q, n, c, p, rows, tiles, eps, stream);
+                                        Q, n, c, p, rows, tiles, ns, eps, stream);
 }
 
 // fts [B, S+Q, n, c] (f32 or bf16), protos [B, 2p, c] f32 (fg then bg),

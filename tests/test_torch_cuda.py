@@ -88,6 +88,26 @@ def test_assign_tickets_reset_between_launches(cuda, p):
     ref = torch.cat(plain.meta_prototype_assign(fts[:, :1], fg, 1.0 - fg,
                                                 ctr, p), 1)
     assert (runs[0] - ref).abs().max() <= 1e-3 * ref.abs().max()
+    torch.cuda.synchronize()
+    assert all(int(t.abs().sum()) == 0 for t in K._ticket_bufs.values())
+
+
+@pytest.mark.parametrize("c,dtype", [(1024, torch.bfloat16),
+                                     (768, torch.float32),
+                                     (1512, torch.bfloat16)])
+def test_assign_takes_more_than_one_column_pass(cuda, c, dtype):
+    """c > 512 channels run in column passes of 512 (1512 bf16 also at
+    the fewest ring stages): within 1e-3 of plain, bit-identical twice,
+    and the tickets back at zero."""
+    fts, fg, bg, ctr = _inputs(cuda, 2, 2, 1, 1030, c, dtype, seed=c)
+    K.reset_launches()
+    runs = [torch.cat(K.mpm_assign(fts, fg, bg, ctr, P), 1) for _ in range(2)]
+    assert K.launches == {"assign": 2, "match": 0}
+    assert torch.equal(runs[0], runs[1])
+    ref = torch.cat(plain.meta_prototype_assign(fts[:, :2], fg, bg, ctr, P), 1)
+    assert (runs[0] - ref).abs().max() <= 1e-3 * ref.abs().max()
+    torch.cuda.synchronize()
+    assert all(int(t.abs().sum()) == 0 for t in K._ticket_bufs.values())
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -102,6 +122,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         K.mpm_chain_packed(fts, fg, bg, torch.rand(64, 18, device=cuda), 9)
     with pytest.raises(ValueError):
         K.mpm_chain_packed(fts, fg.cpu(), bg, ctr, P)
+    # more shared memory than a block may have, at the fewest ring stages
+    fts, fg, bg, ctr = _inputs(cuda, 1, 1, 1, 49, 1600, torch.bfloat16)
+    with pytest.raises(ValueError):
+        K.mpm_chain_packed(fts, fg, bg, ctr, P)
 
 
 @pytest.mark.parametrize("m,k,n,z", [(40, 37, 53, 0), (33, 401, 65, 0),
