@@ -17,8 +17,9 @@
 //   - K1 (assign_kernel) streams its rows through a cp.async ring, keeps
 //     each lane on fixed columns so the center table is read once per
 //     group of rows, reduces the per-row sums with one butterfly, and
-//     accumulates a^T f in registers; the last block of each episode sums
-//     the blocks' partials in a fixed order. One launch.
+//     accumulates a^T f in registers; 2-block clusters add their partials
+//     over distributed shared memory and the last block of each episode
+//     sums the cluster partials in a fixed order. One launch.
 //   - K2 (match_kernel): one warp per pixel row, 16-byte vector loads,
 //     |f|^2 and the 2p dot products reduced with warp shuffles, the
 //     prototypes in shared memory read as float4.
@@ -27,12 +28,15 @@
 // Rows >= n are never loaded (K1 zero-fills them and drops their
 // assignment with a select; K2 never visits them).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "async_copy.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -147,17 +151,21 @@ __device__ void table_norms_sq(const float* table, float* out, int c, int k2) {
 //     value l, and the softmax of R rows runs on R*2p lanes at once.
 //   - a^T f and sum a accumulate in registers on the lane's own columns of
 //     the pass; at the end the warps add theirs in a fixed tree through
-//     shared memory and the block writes one [2p][c-slice] num and (pass
-//     0) one [2p] den partial to scratch, fences and takes a ticket of
-//     its episode. The block that draws the episode's last ticket sums
-//     the partials in fixed (s, t) order, writes protos[b] and resets the
-//     ticket to 0 for the next launch. No atomics touch a sum, so the
-//     prototypes are bit-identical run to run.
+//     shared memory.
+//   - The kCluster blocks of a cluster (consecutive t of one image) add
+//     their partials over distributed shared memory in rank order, each
+//     block one slice, and write one [2p][pass columns] num and (pass 0)
+//     one [2p] den partial to scratch; each block then fences and takes a
+//     ticket of its episode. The block that draws the episode's last
+//     ticket sums the cluster partials in fixed (s, t) order, writes
+//     protos[b] and resets the ticket to 0 for the next launch. No atomics
+//     touch a sum, so the prototypes are bit-identical run to run.
 // ---------------------------------------------------------------------------
 constexpr int kStageRows = 32;                     // pixel rows per ring stage
 constexpr int kRowsPerWarp = kStageRows / kWarps;  // 4
 constexpr int kPassCols = 512;                     // channels a pass: 16 per lane
 constexpr int kMinStages = 2;
+constexpr int kCluster = 2;                        // blocks of an image per cluster
 
 template <int P>
 struct AssignShape {
@@ -206,7 +214,7 @@ __device__ __forceinline__ void reduce_scatter(float (&v)[32], int lane) {
 }
 
 template <typename T, int P>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
 assign_kernel(const T* __restrict__ fts, const float* __restrict__ fg,
               const float* __restrict__ bg, const float* __restrict__ ctr,
               float* __restrict__ num_part, float* __restrict__ den_part,
@@ -224,6 +232,7 @@ assign_kernel(const T* __restrict__ fts, const float* __restrict__ fg,
   T* ring = reinterpret_cast<T*>(mask_s + ns * 2 * kStageRows);  // [ns][kStageRows][c]
   __shared__ float csq_s[kMaxK2];
   __shared__ float den_s[kWarps][32];
+  __shared__ float den_red_s[kMaxK2];
   __shared__ int last_s;
 
   const int t = blockIdx.x, tiles = gridDim.x;
@@ -440,8 +449,12 @@ assign_kernel(const T* __restrict__ fts, const float* __restrict__ fg,
     }
     __syncthreads();
   }
-  const size_t part = (size_t)i * tiles + t;
-  const int n_all = K2 * c;                                  // a multiple of 16
+  // the cluster's partial: each block puts its own in shared memory, and
+  // block `rank` sums slice `rank` of the kCluster partials in rank order
+  // (distributed shared memory) into the scratch
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  float* red_s = reinterpret_cast<float*>(ring);             // [K2][pc]
   if (warp == 0) {
 #pragma unroll
     for (int j = 0; j < NCH; ++j) {
@@ -451,20 +464,45 @@ assign_kernel(const T* __restrict__ fts, const float* __restrict__ fg,
         for (int k = 0; k < K2; ++k)
 #pragma unroll
           for (int e = 0; e < V; e += 4)
-            *reinterpret_cast<float4*>(num_part + part * n_all + k * c + q * V + e) =
+            *reinterpret_cast<float4*>(red_s + k * pc + (q - qz) * V + e) =
                 make_float4(acc[k][j * V + e], acc[k][j * V + e + 1],
                             acc[k][j * V + e + 2], acc[k][j * V + e + 3]);
       }
     }
-    if (z == 0 && lane < K2) {
+    if (lane < K2) {
       float d = 0.f;
       for (int w = 0; w < kWarps; ++w)
         for (int l = lane; l < R * W; l += W) d += den_s[w][l];
-      den_part[part * K2 + lane] = d;
+      den_red_s[lane] = d;
     }
   }
+  cluster.sync();
+  const int cparts = tiles / kCluster;                       // cluster partials per image
+  const size_t part = (size_t)i * cparts + t / kCluster;
+  const int n_all = K2 * c;                                  // a multiple of 16
+  const int pc4 = min(kPassCols, c - z * kPassCols) / 4;     // float4 columns of the pass
+  const int n4 = K2 * pc4;
+  for (int idx = n4 * rank / kCluster + threadIdx.x; idx < n4 * (rank + 1) / kCluster;
+       idx += kThreads) {
+    const int k = idx / pc4, col = idx % pc4 * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int r = 0; r < kCluster; ++r) {
+      const float4 y = *reinterpret_cast<const float4*>(
+          cluster.map_shared_rank(red_s, r) + k * pc + col);
+      x.x += y.x; x.y += y.y; x.z += y.z; x.w += y.w;
+    }
+    *reinterpret_cast<float4*>(num_part + part * n_all + k * c + z * kPassCols + col) = x;
+  }
+  if (z == 0 && rank == 0 && threadIdx.x < K2) {
+    float d = 0.f;
+#pragma unroll
+    for (int r = 0; r < kCluster; ++r) d += cluster.map_shared_rank(den_red_s, r)[threadIdx.x];
+    den_part[part * K2 + threadIdx.x] = d;
+  }
+  cluster.sync();                          // the others' reads are done
 
-  // the last block of episode b finishes it from the S * tiles partials
+  // the last block of episode b finishes it from the S * cparts partials
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0) last_s = atomicAdd(&tickets[b], 1) == S * tiles * passes - 1;
@@ -477,22 +515,22 @@ assign_kernel(const T* __restrict__ fts, const float* __restrict__ fg,
     const int k = idx * 4 / c;
     float4 out = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int s = 0; s < S; ++s) {
-      const size_t p0 = (size_t)(b * S + s) * tiles;
+      const size_t p0 = (size_t)(b * S + s) * cparts;
       float4 nm = make_float4(0.f, 0.f, 0.f, 0.f);
       float dn = 0.f;
-      for (int u0 = 0; u0 < tiles; u0 += kBatch) {
+      for (int u0 = 0; u0 < cparts; u0 += kBatch) {
         float4 xs[kBatch];
         float ds[kBatch];
 #pragma unroll
         for (int j = 0; j < kBatch; ++j) {
-          if (u0 + j < tiles) {
+          if (u0 + j < cparts) {
             xs[j] = __ldcg(reinterpret_cast<const float4*>(num_part + (p0 + u0 + j) * n_all) + idx);
             ds[j] = __ldcg(den_part + (p0 + u0 + j) * K2 + k);
           }
         }
 #pragma unroll
         for (int j = 0; j < kBatch; ++j) {
-          if (u0 + j < tiles) {
+          if (u0 + j < cparts) {
             nm.x += xs[j].x; nm.y += xs[j].y; nm.z += xs[j].z; nm.w += xs[j].w;
             dn += ds[j];
           }
@@ -611,12 +649,17 @@ int assign_slots(int c, int p) {
   if (kernel == nullptr || ns == 0) return -(int)cudaErrorInvalidValue;
   const size_t smem = assign_smem_bytes(c, p, sizeof(T), ns);
   cudaError_t e = launch_config(kernel, smem);
-  int dev = 0, sms = 0, per_sm = 0;
+  int dev = 0, sms = 0;
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
-  return e == cudaSuccess ? per_sm * sms : -(int)e;
+  // blocks of whole clusters the device holds at once
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster * sms, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  int clusters = 0;
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  return e == cudaSuccess ? clusters * kCluster : -(int)e;
 }
 
 template <typename T>
@@ -643,6 +686,7 @@ extern "C" {
 int pemp_mpm_max_protos() { return kMaxProtos; }
 int pemp_mpm_tile() { return kTile; }
 int pemp_mpm_stage_rows() { return kStageRows; }
+int pemp_mpm_cluster() { return kCluster; }
 int pemp_mpm_pass_channels() { return kPassCols; }
 
 const char* pemp_cuda_error_string(int code) {
@@ -664,11 +708,13 @@ int pemp_mpm_assign_slots(int c, int p, int is_bf16) {
 }
 
 // K1. fts [B, S+Q, n, c] (f32 or bf16), fg/bg [B*S, n] f32, ctr [c, 2p]
-// f32; scratch num [B*S, tiles, 2p, c] and den [B*S, tiles, 2p] f32;
+// f32; scratch num [B*S, tiles/2, 2p, c] and den [B*S, tiles/2, 2p] f32
+// (one partial per 2-block cluster);
 // tickets [B] int32, zero before the launch and after it; protos
 // [B, 2p, c] f32 out (fg prototypes first, then bg). Block t of a support
 // image takes pixel rows [t*rows, min(n, (t+1)*rows)), tiles = cdiv(n,
-// rows), in cdiv(c, 512) column passes, with `ns` ring stages
+// rows) rounded up to whole clusters, in cdiv(c, 512) column passes,
+// with `ns` ring stages
 // (pemp_mpm_assign_stages). Returns cudaGetLastError().
 int pemp_mpm_assign(const void* fts, int is_bf16, const void* fg, const void* bg,
                     const void* ctr, void* num, void* den, void* tickets, void* protos,

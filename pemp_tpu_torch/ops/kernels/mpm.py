@@ -4,9 +4,9 @@ Replaces the TPU kernels of ``pemp_tpu/ops/pallas/mpm.py``:
 
 - ``mpm_assign``  <- ``_assign_kernel`` / ``meta_prototype_assign_pallas``
   (K1): soft assignment of the support pixels to the learned centers and
-  the per-episode adaptive prototypes, one launch (each block writes its
-  partial sums, then the last block of each episode sums them in a fixed
-  order);
+  the per-episode adaptive prototypes, one launch (block partials summed
+  per cluster of blocks, then the last block of each episode sums the
+  cluster partials in a fixed order);
 - ``mpm_match``   <- ``_match_kernel`` / ``prototype_match_pallas`` (K2):
   cosine matching against the prototypes, per-class max and
   first-occurrence argmax;
@@ -23,9 +23,9 @@ kernels or raises. ``launches`` counts each ``__global__`` kernel's
 launches on CUDA, one at the site that launches it: ``assign`` (K1) and
 ``match`` (K2). The chain launches nothing of its own.
 ``plain_assign_blocks`` and ``plain_assign_finish`` are the plain
-versions of K1's two stages (the partial sums of each block, at
-``assign_grid``'s rows per block, and the fixed-order finish of an
-episode).
+versions of K1's two stages (the partial sums of each cluster of blocks,
+``CLUSTER`` times ``assign_grid``'s rows per block, and the fixed-order
+finish of an episode).
 ``backward_calls`` counts ``MPMChainPacked`` backward passes (torch ops,
 no kernel of their own). The assign kernel's tickets are kept per device
 and stream: launches of one stream run in order and leave them at zero.
@@ -49,6 +49,7 @@ from pemp_tpu_torch.ops.prototypes import (
 MAX_PROTOS = 8           # csrc/mpm.cu kMaxProtos
 TILE = 64                # csrc/mpm.cu kTile (pixel rows per match block)
 STAGE_ROWS = 32          # csrc/mpm.cu kStageRows (rows per assign ring stage)
+CLUSTER = 2              # csrc/mpm.cu kCluster (assign blocks per cluster)
 PASS_CHANNELS = 512      # csrc/mpm.cu kPassCols (assign: channels a pass)
 SMEM_LIMIT = 232448      # dynamic shared memory a block may use on sm_90
 
@@ -91,6 +92,7 @@ def _lib():
         for name, want in (("pemp_mpm_max_protos", MAX_PROTOS),
                            ("pemp_mpm_tile", TILE),
                            ("pemp_mpm_stage_rows", STAGE_ROWS),
+                           ("pemp_mpm_cluster", CLUSTER),
                            ("pemp_mpm_pass_channels", PASS_CHANNELS)):
             fn = getattr(lib, name)
             fn.restype = _I
@@ -136,12 +138,16 @@ def _f32_on(x: torch.Tensor, device, shape, what: str) -> torch.Tensor:
 
 def assign_grid(n: int, images: int, slots: int) -> Tuple[int, int]:
     """(blocks per support image, pixel rows per block) of the assign
-    kernel: the blocks the card holds at once (``slots``) split evenly
-    over the ``images`` (support images times column passes), each block
-    at least one ring stage of rows. At n=2601 on 132 slots: 16 blocks of
-    163 rows for 8 images, 33 of 79 for 4."""
-    rows = max(STAGE_ROWS, -(-n // max(1, slots // images)))
-    return -(-n // rows), rows
+    kernel: the blocks the card holds at once (``slots``, whole clusters)
+    split evenly over the ``images`` (support images times column passes)
+    in whole clusters of CLUSTER blocks, each block at least one ring
+    stage of rows; blocks past n (to fill the last cluster) take no rows.
+    At n=2601 on 128 slots: 16 blocks of 163 rows for 8 images, 32 of 82
+    for 4."""
+    per_image = max(1, slots // images // CLUSTER) * CLUSTER
+    rows = max(STAGE_ROWS, -(-n // per_image))
+    blocks = -(-n // rows)
+    return -(-blocks // CLUSTER) * CLUSTER, rows
 
 
 def _assign_plan(lib, device, c: int, protos: int, is_bf16: int):
@@ -193,9 +199,9 @@ def _assign_launch(fts, sup_fg, sup_bg, ctr, protos: int, eps: float):
     stages, slots = _assign_plan(lib, fts.device, c, protos, is_bf16)
     tiles, rows = assign_grid(n, b * s * -(-c // PASS_CHANNELS), slots)
     k2 = 2 * protos
-    num = torch.empty((b * s, tiles, k2, c), dtype=torch.float32,
+    num = torch.empty((b * s, tiles // CLUSTER, k2, c), dtype=torch.float32,
                       device=fts.device)
-    den = torch.empty((b * s, tiles, k2), dtype=torch.float32,
+    den = torch.empty((b * s, tiles // CLUSTER, k2), dtype=torch.float32,
                       device=fts.device)
     out = torch.empty((b, k2, c), dtype=torch.float32, device=fts.device)
     stream = torch.cuda.current_stream(fts.device).cuda_stream
@@ -211,9 +217,10 @@ def _assign_launch(fts, sup_fg, sup_bg, ctr, protos: int, eps: float):
 
 
 def plain_assign_blocks(fts, sup_fg, sup_bg, ctr, protos: int, rows: int):
-    """Plain version of the assign kernel's block partials: for each
-    support image and block of ``rows`` pixel rows, ``num = a^T f``
-    [2p, c] and ``den = sum a`` [2p] of the soft assignment ``a``. Returns num [B*S, T, 2p, c] and den
+    """Plain version of the assign kernel's cluster partials: for each
+    support image and run of ``rows`` pixel rows (a cluster's: CLUSTER
+    times the rows per block), ``num = a^T f`` [2p, c] and ``den = sum a``
+    [2p] of the soft assignment ``a``. Returns num [B*S, T, 2p, c] and den
     [B*S, T, 2p] float32, T = cdiv(n, rows)."""
     s = sup_fg.shape[1]
     f = fts[:, :s].float()
@@ -229,7 +236,7 @@ def plain_assign_blocks(fts, sup_fg, sup_bg, ctr, protos: int, rows: int):
 
 def plain_assign_finish(num, den, b: int, s: int, eps: float = ASSIGN_EPS):
     """Plain version of the assign kernel's last block of an episode: sum
-    the block partials in order, ``num / (den + eps)``, mean over the S
+    the cluster partials in order, ``num / (den + eps)``, mean over the S
     shots -> [B, 2p, c]."""
     proto = num.sum(dim=1) / (den.sum(dim=1)[..., None] + eps)
     return proto.reshape(b, s, *proto.shape[1:]).mean(dim=1)

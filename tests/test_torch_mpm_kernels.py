@@ -80,18 +80,18 @@ def test_cpu_path_launches_no_kernel():
 @pytest.mark.parametrize("n,s", [(49, 1), (1030, 2)])
 def test_plain_assign_stages_compose_to_the_jax_prototypes(n, s):
     """The plain versions of the assign kernel's two stages (the partial
-    sums of each block at the kernel's rows per block for a 132-SM card,
-    then the fixed-order finish) give the JAX prototypes: rtol 1e-4,
-    atol 1e-5. The blocks cover n with a partial last one."""
+    sums of each cluster of blocks at the kernel's rows per block for a
+    132-SM card, then the fixed-order finish) give the JAX prototypes:
+    rtol 1e-4, atol 1e-5. The partials cover n with a partial last one."""
     fts, fg, bg, ctr = _inputs(2, s, 1, n, seed=n * s)
     _, _, ref_f, ref_b = mpm_chain_packed_pallas(
         jnp.asarray(fts), jnp.asarray(fg), jnp.asarray(bg), jnp.asarray(ctr),
         P, SCALE, return_residuals=True, interpret=True)
     t = [torch.from_numpy(a) for a in (fts, fg, bg, ctr)]
     tiles, rows = K.assign_grid(n, 2 * s, 132)
-    num, den = K.plain_assign_blocks(*t, P, rows)
-    assert num.shape == (2 * s, tiles, 2 * P, C)
-    assert den.shape == (2 * s, tiles, 2 * P)
+    num, den = K.plain_assign_blocks(*t, P, K.CLUSTER * rows)
+    assert num.shape == (2 * s, tiles // K.CLUSTER, 2 * P, C)
+    assert den.shape == (2 * s, tiles // K.CLUSTER, 2 * P)
     protos = K.plain_assign_finish(num, den, 2, s)
     np.testing.assert_allclose(protos[:, :P].numpy(), np.asarray(ref_f),
                                rtol=1e-4, atol=1e-5)
@@ -100,15 +100,15 @@ def test_plain_assign_stages_compose_to_the_jax_prototypes(n, s):
 
 
 @pytest.mark.parametrize("n,images,slots,want", [
-    (2601, 8, 132, (16, 163)),        # eval: 128 blocks, one wave
-    (2601, 4, 132, (33, 79)),         # train: 132 blocks, one wave
-    (49, 4, 132, (2, 32)),            # at least one ring stage a block
-    (1030, 300, 132, (1, 1030)),      # more images than slots
-    (990, 4, 132, (31, 32)),          # the last block takes fewer rows
-    (2601, 16, 132, (8, 326)),        # 8 images, c=1024: two column passes
+    (2601, 8, 128, (16, 163)),        # eval: 128 blocks, one wave
+    (2601, 4, 128, (32, 82)),         # train: 128 blocks, one wave
+    (49, 4, 128, (2, 32)),            # at least one ring stage a block
+    (1030, 300, 128, (2, 515)),       # more images than slots
+    (990, 4, 132, (32, 32)),          # a last cluster with one empty block
+    (2601, 16, 128, (8, 326)),        # 8 images, c=1024: two column passes
 ])
 def test_assign_grid_fills_the_card(n, images, slots, want):
     tiles, rows = K.assign_grid(n, images, slots)
     assert (tiles, rows) == want
-    assert tiles * images <= max(slots, images)
-    assert (tiles - 1) * rows < n <= tiles * rows
+    assert tiles % K.CLUSTER == 0
+    assert -(-n // rows) <= tiles < -(-n // rows) + K.CLUSTER
