@@ -596,19 +596,18 @@ def mpm_backward_phase(torch, K, plain):
         if not ok:
             emit({"phase": "mpm_backward", "failed": row})
             raise AssertionError(f"mpm backward ({name}) disagrees with plain")
-        # host-bound: without the spin (what the train step waits, the
-        # dispatch of its ops included) and with it (the device's work)
-        for spin, tag in ((False, ""), (True, "_device")):
-            times[f"{name}{tag}"] = time_ms(torch, lambda: torch.autograd.grad(
-                lk, (fk, ck), g, retain_graph=True), flush, spin)
-            times[f"{name}_plain{tag}"] = time_ms(
-                torch, lambda: torch.autograd.grad(
-                    lp, (fp, cp), g, retain_graph=True), flush, spin)
+        # host-bound (its ~100 ops take the host longer to enqueue than
+        # the spin lasts): timed without the spin, so the events hold
+        # what the train step waits, the dispatch of its ops included
+        times[name] = time_ms(torch, lambda: torch.autograd.grad(
+            lk, (fk, ck), g, retain_graph=True), flush, spin=False)
+        times[f"{name}_plain"] = time_ms(torch, lambda: torch.autograd.grad(
+            lp, (fp, cp), g, retain_graph=True), flush, spin=False)
     bound = bound_ms(*mpm_backward_work(b, s, q, n, c, p, 2))
     emit({"phase": "mpm_backward", "cases": rows, "timing_shapes": {
         "B": b, "S": s, "Q": q, "n": n, "c": c, "p": p}, "ms": times,
-        "note": "ms without the device spin (host dispatch included, what "
-                "the step waits); _device with it",
+        "note": "ms without the device spin: host dispatch included, what "
+                "the step waits",
         "bound_ms_bf16": bound[0], "bound_by": bound[1],
         "tolerance": {"grad_rtol": GRAD_RTOL, "bf16_fts_grad_rtol":
                       GRAD_RTOL_BF16, "index_margin": MARGIN}})
@@ -873,10 +872,8 @@ def main() -> int:
         "max_abs_err": bw_worst, "ms": bw_times["bfloat16"],
         "plain_ms": bw_times["bfloat16_plain"], "bound_ms": bw_bound[0],
         "bound_by": bw_bound[1], "library_ms": None,
-        "device_ms": bw_times["bfloat16_device"],
         "note": "MPMChainPacked.backward: PyTorch ops, no kernel of its "
-                "own; ms and plain_ms include the host's dispatch, "
-                "device_ms is the device's work alone"})
+                "own; ms and plain_ms include the host's dispatch"})
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

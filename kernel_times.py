@@ -7,8 +7,10 @@ Imports ``pemp_tpu_torch`` from DIR (default: this script's checkout),
 builds its CUDA kernels there, and times each call on one GPU with
 ``chip_smoke.py``'s timer (CUDA events, median of 30, an L2 flush before
 each), twice: with the timer's device-side spin (``device_ms``: the
-device's work alone) and without (``host_ms``: what a caller waits on an
-idle device, the wrapper's dispatch included). The calls, at the shapes
+device's work alone, for a call the host enqueues within the spin's
+~0.2 ms; ``mpm_backward``'s ~100 ops take longer, so both its times
+include their dispatch) and without (``host_ms``: what a caller waits on
+an idle device, the wrapper's dispatch included). The calls, at the shapes
 of the port's paths (bf16 features, n=2601, c=512, p=3 unless named):
 
 - ``assign_eval`` / ``assign_train``: ``mpm_assign`` at B=8 / B=4;
