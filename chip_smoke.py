@@ -15,14 +15,15 @@ and drives the port's two paths at full width (PEMP stage 1, ResNet-50,
 
 and checks that each path went through the kernels and agrees with the
 plain version. The phases ``minplus`` (the EDT kernel, bit-exact, also on
-non-integer input) and ``mpm_backward`` (the mpm autograd Function
-against autograd of the plain composition) hold the training slice's
-pieces on their own. ``kernels`` also holds the assign kernel above 512
-channels (column passes) and times it at the eval and train shapes, at
-p=8 and, with four shots, its cost per extra row; ``minplus``
-also times one 2048^3 product (the kernel's sustained rate); the train
-profile names the convolutions behind cuDNN's fallback kernels by input
-shape.
+non-integer input) and ``mpm_backward`` (the mpm autograd Function's two
+backward kernels against the plain backward on the card and against
+autograd of the plain composition) hold the training slice's pieces on
+their own. ``kernels`` also holds the assign kernel above 512 channels
+(column passes) and the match kernel where no row ring fits (c=4096), and
+times the assign kernel at the eval and train shapes, at p=8 and, with
+four shots, its cost per extra row; ``minplus`` also times one 2048^3
+product (the kernel's sustained rate); the train profile names the
+convolutions behind cuDNN's fallback kernels by input shape.
 
 Each phase prints one JSON line; then the kernel table, the card's name
 and power limit, and as the last line
@@ -36,6 +37,7 @@ from __future__ import annotations
 import copy
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -52,6 +54,9 @@ FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 FP32_INSTR_PER_S = FP32_FLOPS_PER_S / 2
 TIMING_ITERS = 30                # CUDA-event samples per timing (median)
 SPIN_CYCLES = 400_000            # ~0.2 ms at 1.98 GHz: covers the host's enqueue
+# ~2 ms: covers the enqueue of a call of many ops (the mpm backward and its
+# plain versions), so the events time its device work alone
+LONG_SPIN_CYCLES = 4_000_000
 # kernel vs plain tolerances (fp32 accumulation in another order):
 PROTO_RTOL = 1e-3    # prototypes: max abs err <= PROTO_RTOL * max |plain|
 LOGIT_ATOL = 2e-3    # logits (cosine x 20): max abs err
@@ -98,10 +103,32 @@ def nvidia_smi() -> str:
     return out.stdout.strip()
 
 
-def time_ms(torch, fn, flush, spin: bool = True) -> float:
+def ptxas_summary(log: str):
+    """One line per kernel instance from nvcc's ``-Xptxas -v`` log: its
+    name and template arguments (from the mangled name), registers and
+    spills."""
+    out, name, spill = [], None, ""
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            k = re.search(r"([a-z][a-z_]*_kernel)(?:I(\w+?)(?:Li(\d+)E)?E)?",
+                          m.group(1))
+            name = (f"{k.group(1)}<{k.group(2) or ''},{k.group(3) or ''}>"
+                    if k else m.group(1)[:60])
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif "Used" in ln and "registers" in ln and name:
+            regs = re.search(r"Used (\d+) registers", ln).group(1)
+            out.append(f"{name}: {regs} registers; {spill}")
+            name = None
+    return out
+
+
+def time_ms(torch, fn, flush, spin: bool = True,
+            spin_cycles: int = SPIN_CYCLES) -> float:
     """Median CUDA-event time of ``fn`` over TIMING_ITERS launches, each
     after a write of ``flush`` (> L2) so the inputs come from HBM. With
-    ``spin``, a device-side spin of SPIN_CYCLES keeps the device busy
+    ``spin``, a device-side spin of ``spin_cycles`` keeps the device busy
     until the host has enqueued ``fn``: the events time the device's
     work, not the host's dispatch of it. Without, they time what a caller
     waits when the device is idle, dispatch included."""
@@ -111,7 +138,7 @@ def time_ms(torch, fn, flush, spin: bool = True) -> float:
     for _ in range(TIMING_ITERS):
         flush.zero_()
         if spin:
-            torch.cuda._sleep(SPIN_CYCLES)
+            torch.cuda._sleep(spin_cycles)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -139,15 +166,17 @@ def minplus_bound(za, zb, m, k, n):
     return bound_ms(nbytes, 2 * z * m * n * k, FP32_INSTR_PER_S)
 
 
-def mpm_backward_work(b, s, q, n, c, p, esize):
+def mpm_backward_work(b, s, q, n, c, p, esize, partial_bytes=0):
     """(bytes, flops) of MPMChainPacked's backward for fts and ctr: reads
-    fts, the masks, ctr, the packed prototypes, the int32 indices and the
-    logit cotangent once, writes the fts and ctr cotangents once; flops of
-    its contractions (assign side: six [n,c]x[c,2p]-sized products per
-    support image; match side: three [n,c]x[c,p]-sized per class and
-    query image) and its elementwise passes over [n, c]."""
+    fts, the masks, ctr, the packed prototypes, the int32 indices, the
+    logit cotangent and the forward's saved assign partials
+    (``partial_bytes``) once, writes the fts and ctr cotangents once;
+    flops of its contractions (assign side: six [n,c]x[c,2p]-sized
+    products per support image; match side: three [n,c]x[c,p]-sized per
+    class and query image) and its elementwise passes over [n, c]."""
     nbytes = (2 * b * (s + q) * n * c * esize + 2 * b * s * n * 4
-              + 2 * c * 2 * p * 4 + b * 2 * p * c * 4 + 2 * b * q * n * 2 * 4)
+              + 2 * c * 2 * p * 4 + b * 2 * p * c * 4 + 2 * b * q * n * 2 * 4
+              + partial_bytes)
     flops = (b * s * (6 * 2 * n * c * 2 * p + 6 * n * c)
              + b * q * (2 * 3 * 2 * n * c * p + 6 * n * c))
     return nbytes, flops
@@ -272,7 +301,28 @@ def kernel_phase(torch, K, plain):
         if not ok:
             emit({"phase": "kernels", "failed": row})
             raise AssertionError(f"kernel case {name} disagrees with plain")
-    # every launch left its episode tickets at zero
+    # the match kernel where no row ring fits beside its table (c=4096):
+    # each lane reads its chunks from device memory
+    for name, b, s, q, n, c, p, dtype in (
+            ("match_c4096_bf16", 4, 1, 1, 1030, 4096, 3, bf16),):
+        fts, fg, bg, ctr = make_inputs(torch, b, s, q, n, c, p, dtype)
+        pf, pb = plain.meta_prototype_assign(fts[:, :s], fg, bg, ctr, p)
+        kl, ki = K.mpm_match(fts, s, pf, pb, scale, return_indices=True)
+        pl, pi = plain.prototype_predictions(fts[:, s:], pf, pb, scale, True)
+        err2 = (kl - pl).abs().max().item()
+        agree2, sure2 = index_agreement(
+            ki, pi, top2_margin(torch, fts[:, s:], pf, pb, scale))
+        row = {"case": name, "B": b, "S": s, "Q": q, "n": n, "c": c, "p": p,
+               "dtype": str(dtype).replace("torch.", ""),
+               "match_max_abs_err": err2, "match_index_agreement": agree2,
+               "match_plan": K._plans[("match", fts.device, c, p, 1)],
+               "ok": err2 <= LOGIT_ATOL and sure2}
+        results.append(row)
+        worst["match"] = max(worst["match"], err2)
+        if not row["ok"]:
+            emit({"phase": "kernels", "failed": row})
+            raise AssertionError(f"kernel case {name} disagrees with plain")
+    # every launch left its tickets at zero
     torch.cuda.synchronize()
     tickets = sum(int(t.abs().sum()) for t in K._ticket_bufs.values())
     if tickets:
@@ -331,6 +381,7 @@ def kernel_phase(torch, K, plain):
         "assign_grid": {tag: K.assign_grid(n, imgs, slots)
                         for tag, imgs in (("eval", 8), ("train", 4),
                                           ("eval_s4", 32))},
+        "match_plan_eval": K._plans[("match", fts.device, c, p, 1)],
         "assign_marginal_bytes_per_s": marginal,
         "ms": t,
         "bound_ms": {k: v[0] for k, v in bounds.items()},
@@ -367,8 +418,9 @@ def main_path_phase(torch, K):
     launches = dict(K.launches)
     if not math.isfinite(result["miou"]) or not math.isfinite(result["loss"]):
         raise AssertionError(f"main path result not finite: {result}")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"main path skipped a kernel: {launches}")
+    if (min(launches["assign"], launches["match"]) <= 0
+            or launches["match_bwd"] or launches["assign_bwd"]):
+        raise AssertionError(f"main path launches {launches}")
 
     # one batch through the model twice: kernels vs plain mpm
     cfg = entry.ex.assemble("test", dict(a.split("=", 1)
@@ -557,57 +609,125 @@ def minplus_phase(torch):
 
 
 def mpm_backward_phase(torch, K, plain):
-    """MPMChainPacked's cotangents of fts and ctr (kernels forward,
-    analytic backward) against autograd of the plain chain, at the train
-    shapes; both backwards timed."""
+    """MPMChainPacked's backward (the match_bwd and assign_bwd kernels)
+    against the plain backward on the card (``_match_backward`` then
+    ``_assign_backward``, PyTorch ops, from the forward's prototypes and
+    indices) and against autograd of the plain chain: at the train shapes
+    in bf16 and f32, with S=Q=2 at n=1030 (a partial last stage) and at
+    c=1024 (two column passes); two calls bit-identical, each launching
+    both kernels once, the tickets back at 0. Timed at the train shapes
+    with a long device spin (LONG_SPIN_CYCLES: its device work, however
+    long the host takes to enqueue it) and without (what the step waits),
+    beside the plain backward and autograd of the plain chain."""
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    b, s, q, n, c, p, scale = 4, 1, 1, 2601, 512, 3, 20.0
-    rows, times, worst = [], {}, 0.0
-    for dtype in (torch.bfloat16, torch.float32):
+    scale, eps = 20.0, plain.ASSIGN_EPS
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [
+        # (name, B, S, Q, n, c, p, dtype)
+        ("train_bf16", 4, 1, 1, 2601, 512, 3, bf16),
+        ("train_f32", 4, 1, 1, 2601, 512, 3, f32),
+        ("s2q2_n1030_bf16", 4, 2, 2, 1030, 512, 3, bf16),
+        ("s2q2_n1030_f32", 4, 2, 2, 1030, 512, 3, f32),
+        ("c1024_bf16", 4, 1, 1, 2601, 1024, 3, bf16),
+    ]
+    rows, times, calls, worst = [], {}, {}, 0.0
+    for name, b, s, q, n, c, p, dtype in cases:
         fts, fg, bg, ctr = make_inputs(torch, b, s, q, n, c, p, dtype, seed=3)
         g = torch.randn(b, q, n, 2, device="cuda",
                         generator=torch.Generator(device="cuda").manual_seed(4))
         fk, ck = fts.clone().requires_grad_(), ctr.clone().requires_grad_()
+        lk = K.MPMChainPacked.apply(fk, fg, bg, ck, p, scale, eps)
+        before = dict(K.launches)
+        runs = [torch.autograd.grad(lk, (fk, ck), g, retain_graph=True)
+                for _ in range(2)]
+        launched = all(K.launches[k] - before[k] == 2
+                       for k in ("match_bwd", "assign_bwd"))
+        bitwise = all(torch.equal(x, y) for x, y in zip(*runs))
+        gk = runs[0]
+        # the plain backward from the forward's own prototypes and indices
+        with torch.no_grad():
+            packed = torch.cat(K.mpm_assign(fts, fg, bg, ctr, p), 1)
+            _, inds = K.mpm_match(fts, s, packed[:, :p], packed[:, p:], scale,
+                                  return_indices=True)
+
+        def plain_backward(fts=fts, fg=fg, bg=bg, ctr=ctr, packed=packed,
+                           inds=inds, g=g, s=s, p=p):
+            gq, gpk = K._match_backward(fts[:, s:], packed, inds, g, p, scale)
+            gs, _, _, gc = K._assign_backward(fts[:, :s], fg, bg, ctr, gpk,
+                                              p, eps)
+            return torch.cat([gs, gq], 1).to(fts.dtype), gc
+
+        with torch.no_grad():
+            gr = plain_backward()
         fp, cp = fts.clone().requires_grad_(), ctr.clone().requires_grad_()
-        lk = K.MPMChainPacked.apply(fk, fg, bg, ck, p, scale, plain.ASSIGN_EPS)
         pf, pb = plain.meta_prototype_assign(fp[:, :s], fg, bg, cp, p)
         lp = plain.prototype_predictions(fp[:, s:], pf, pb, scale)
-        gk = torch.autograd.grad(lk, (fk, ck), g, retain_graph=True)
-        gp = torch.autograd.grad(lp, (fp, cp), g, retain_graph=True)
-        errs = [(a.float() - b_.float()).abs().max().item() for a, b_ in
-                zip(gk, gp)]
-        rels = [e / b_.float().abs().max().item() for e, b_ in zip(errs, gp)]
+        ga = torch.autograd.grad(lp, (fp, cp), g, retain_graph=True)
+
+        def rel(x, y):
+            e = (x.float() - y.float()).abs().max().item()
+            return e, e / y.float().abs().max().item()
+
+        fts_tol = GRAD_RTOL_BF16 if dtype == bf16 else GRAD_RTOL
+        vs_plain = [rel(x, y) for x, y in zip(gk, gr)]
+        vs_autograd = [rel(x, y) for x, y in zip(gk, ga)]
         with torch.no_grad():
-            _, ki = K.mpm_chain_packed(fts, fg, bg, ctr, p, scale, True)
             _, pi = plain.prototype_predictions(fts[:, s:], pf.detach(),
                                                 pb.detach(), scale, True)
             margin = top2_margin(torch, fts[:, s:], pf, pb, scale)
-        agree, sure = index_agreement(ki, pi, margin)
-        name = str(dtype).replace("torch.", "")
-        ok = (rels[0] <= (GRAD_RTOL_BF16 if dtype == torch.bfloat16
-                          else GRAD_RTOL) and rels[1] <= GRAD_RTOL and sure
-              and bool(torch.isfinite(gk[0]).all()))
-        row = {"dtype": name, "fts_grad_max_abs_err": errs[0],
-               "fts_grad_max_rel_err": rels[0], "ctr_grad_max_abs_err": errs[1],
-               "ctr_grad_max_rel_err": rels[1], "index_agreement": agree,
-               "ok": ok}
+        agree, sure = index_agreement(inds, pi, margin)
+        ok = (launched and bitwise and sure
+              and all(bool(torch.isfinite(x).all()) for x in gk)
+              and all(r[0][1] <= fts_tol and r[1][1] <= GRAD_RTOL
+                      for r in (vs_plain, vs_autograd)))
+        row = {"case": name, "B": b, "S": s, "Q": q, "n": n, "c": c, "p": p,
+               "dtype": str(dtype).replace("torch.", ""),
+               "fts_grad_vs_plain_backward": vs_plain[0],
+               "ctr_grad_vs_plain_backward": vs_plain[1],
+               "fts_grad_vs_autograd_plain": vs_autograd[0],
+               "ctr_grad_vs_autograd_plain": vs_autograd[1],
+               "index_agreement": agree, "bit_identical_x2": bitwise,
+               "kernels_launched": launched, "ok": ok}
         rows.append(row)
-        worst = max(worst, *errs)
+        worst = max(worst, vs_plain[0][0], vs_plain[1][0])
         if not ok:
             emit({"phase": "mpm_backward", "failed": row})
             raise AssertionError(f"mpm backward ({name}) disagrees with plain")
-        # host-bound (its ~100 ops take the host longer to enqueue than
-        # the spin lasts): timed without the spin, so the events hold
-        # what the train step waits, the dispatch of its ops included
-        times[name] = time_ms(torch, lambda: torch.autograd.grad(
-            lk, (fk, ck), g, retain_graph=True), flush, spin=False)
-        times[f"{name}_plain"] = time_ms(torch, lambda: torch.autograd.grad(
-            lp, (fp, cp), g, retain_graph=True), flush, spin=False)
-    bound = bound_ms(*mpm_backward_work(b, s, q, n, c, p, 2))
+        if name.startswith("train"):
+            tag = str(dtype).replace("torch.", "")
+            calls[tag] = (lambda lk=lk, fk=fk, ck=ck, g=g: torch.autograd.grad(
+                lk, (fk, ck), g, retain_graph=True))
+            calls[f"{tag}_plain"] = plain_backward
+            calls[f"{tag}_autograd_plain"] = (
+                lambda lp=lp, fp=fp, cp=cp, g=g: torch.autograd.grad(
+                    lp, (fp, cp), g, retain_graph=True))
+    torch.cuda.synchronize()
+    tickets = sum(int(t.abs().sum()) for t in K._ticket_bufs.values())
+    if tickets:
+        raise AssertionError(f"tickets not reset: sum {tickets}")
+    for tag, fn in calls.items():
+        times[tag] = time_ms(torch, fn, flush, spin_cycles=LONG_SPIN_CYCLES)
+        times[f"{tag}_no_spin"] = time_ms(torch, fn, flush, spin=False)
+    # each backward kernel's device time (torch.profiler)
+    split = device_profile(torch, calls["bfloat16"], {
+        "match_bwd": ["match_bwd_kernel"], "assign_bwd": ["assign_bwd_kernel"]})
+    b, s, q, n, c, p = 4, 1, 1, 2601, 512, 3
+    fts, fg, bg, ctr = make_inputs(torch, b, s, q, n, c, p, bf16)
+    _, num, den = K._assign_launch(fts, fg, bg, ctr, p, eps, partials=True)
+    bound = bound_ms(*mpm_backward_work(
+        b, s, q, n, c, p, 2, 4 * (num.numel() + den.numel())))
     emit({"phase": "mpm_backward", "cases": rows, "timing_shapes": {
         "B": b, "S": s, "Q": q, "n": n, "c": c, "p": p}, "ms": times,
-        "note": "ms without the device spin: host dispatch included, what "
-                "the step waits",
+        "bfloat16_kernel_us": {k: split[f"{k}_us"]
+                               for k in ("match_bwd", "assign_bwd")},
+        "plans": {k[0]: v for k, v in K._plans.items()
+                  if isinstance(k[0], str) and k[0].endswith("_bwd")
+                  and k[2:] == (c, p, 1)},
+        "note": "bfloat16/float32: the kernels; *_plain: the plain "
+                "backward (torch ops); *_autograd_plain: autograd of the "
+                "plain chain; each with a ~2 ms device spin (device work) "
+                "and *_no_spin without it (dispatch included: what the "
+                "step waits)",
         "bound_ms_bf16": bound[0], "bound_by": bound[1],
         "tolerance": {"grad_rtol": GRAD_RTOL, "bf16_fts_grad_rtol":
                       GRAD_RTOL_BF16, "index_margin": MARGIN}})
@@ -695,6 +815,7 @@ def train_path_phase(torch, K, M):
     steps = len(losses)
     evals = 2 * -(-cfg.data.test_n // cfg.data.test_bs) * cfg.te.epochs
     want = {"assign": steps + evals, "match": steps + evals,
+            "match_bwd": steps, "assign_bwd": steps,
             "minplus": 2 * steps, "mpm_backward": steps}
     if steps != cfg.data.train_n // cfg.data.bs or not all(
             math.isfinite(x) for x in losses):
@@ -741,6 +862,7 @@ def train_path_phase(torch, K, M):
     step_ms = statistics.median(step_s) * 1e3
     prof = device_profile(torch, lambda: trainer.train_step(batch), {
         "mpm_kernels": ["assign_kernel", "match_kernel"],
+        "mpm_backward_kernels": ["match_bwd_kernel", "assign_bwd_kernel"],
         "minplus_kernel": ["minplus_kernel"]}, CONV_FALLBACK)
     del trainer, opt, params, model
 
@@ -771,8 +893,9 @@ def train_path_phase(torch, K, M):
     kernel_model, plain_model = base, copy.deepcopy(base)
     before = dict(K.launches)
     loss_k, grads_k = grads(kernel_model)
-    if K.launches == before:
-        raise AssertionError("the kernel train step launched no mpm kernel")
+    if any(K.launches[k] == before[k] for k in K.launches):
+        raise AssertionError(f"the kernel train step skipped an mpm kernel: "
+                             f"{before} -> {K.launches}")
     before = dict(K.launches)
     with mock.patch.object(stage1, "mpm_chain_packed", plain_chain):
         loss_p, grads_p = grads(plain_model)
@@ -823,8 +946,7 @@ def main() -> int:
     t0 = time.perf_counter()
     info = build.build()
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for rec in info.values() for ln in rec["log"].splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = [ln for rec in info.values() for ln in ptxas_summary(rec["log"])]
     emit({"phase": "device", "nvidia_smi": smi,
           "name": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -836,24 +958,50 @@ def main() -> int:
     bw_times, bw_bound, bw_worst = mpm_backward_phase(torch, K, plain)
     train_launches = train_path_phase(torch, K, M)
 
-    # one row per __global__ kernel; the chain (K3, mpm.py:342) is these
-    # launches on the packed tensor and has none of its own. The mpm rows'
-    # launches are the eval path's (their slice), train_path_launches the
-    # training path's. minplus: one EDT = its two launches (ms, plain_ms
-    # and bound_ms add both phases at the train shapes). mpm_backward is
-    # the K4 backward: PyTorch ops on the card, as the JAX package's is
-    # jnp; its launches are the training path's backward passes.
-    rows = [("assign", "pemp_tpu/ops/pallas/mpm.py:119"),
-            ("match", "pemp_tpu/ops/pallas/mpm.py:249")]
+    # one row per TPU kernel K1-K5. assign and match are one __global__
+    # each; the chain (K3, mpm.py:342) is those two launches on the packed
+    # tensor and has none of its own (its launches: its calls on the main
+    # path, one assign and one match launch each). The mpm rows' launches
+    # are the eval path's (their slice), train_path_launches the training
+    # path's. minplus: one EDT = its two launches (ms, plain_ms and
+    # bound_ms add both phases at the train shapes). mpm_backward (K4):
+    # its two kernels, match_bwd and assign_bwd, one launch each per
+    # backward pass of the training path.
+    mpm_cu = "pemp_tpu_torch/ops/kernels/csrc/mpm.cu"
     table = [
-        {"name": name, "route": "cuda",
-         "source": "pemp_tpu_torch/ops/kernels/csrc/mpm.cu",
+        {"name": name, "route": "cuda", "source": mpm_cu,
          "replaces": replaces, "launches": launches[name],
          "train_path_launches": train_launches[name],
          "max_abs_err": worst[name], "ms": times[name],
          "plain_ms": times[f"{name}_plain"], "bound_ms": bounds[name][0],
          "bound_by": bounds[name][1], "library_ms": None}
-        for name, replaces in rows]
+        for name, replaces in (("assign", "pemp_tpu/ops/pallas/mpm.py:119"),
+                               ("match", "pemp_tpu/ops/pallas/mpm.py:249"))]
+    table.append({
+        "name": "chain", "route": "cuda", "source": mpm_cu,
+        "replaces": "pemp_tpu/ops/pallas/mpm.py:342",
+        "launches": launches["match"],
+        "max_abs_err": worst["chain"], "ms": times["chain"],
+        "plain_ms": times["chain_plain"], "bound_ms": bounds["chain"][0],
+        "bound_by": bounds["chain"][1], "library_ms": None,
+        "note": "assign then match on the packed tensor, no launch of its "
+                "own: launches = its calls on the main path"})
+    table.append({
+        "name": "mpm_backward", "route": "cuda",
+        "source": "pemp_tpu_torch/ops/kernels/csrc/mpm_bwd.cu",
+        "replaces": "pemp_tpu/ops/pallas/mpm_vjp.py:216",
+        "launches": train_launches["mpm_backward"],
+        "kernel_launches": {k: train_launches[k]
+                            for k in ("match_bwd", "assign_bwd")},
+        "max_abs_err": bw_worst, "ms": bw_times["bfloat16"],
+        "ms_no_spin": bw_times["bfloat16_no_spin"],
+        "plain_ms": bw_times["bfloat16_plain"],
+        "plain_ms_no_spin": bw_times["bfloat16_plain_no_spin"],
+        "autograd_plain_ms": bw_times["bfloat16_autograd_plain"],
+        "bound_ms": bw_bound[0], "bound_by": bw_bound[1], "library_ms": None,
+        "note": "MPMChainPacked.backward: match_bwd then assign_bwd; ms "
+                "and plain_ms with a ~2 ms device spin (device work), "
+                "*_no_spin without it (host dispatch included)"})
     table.append({
         "name": "minplus", "route": "cuda",
         "source": "pemp_tpu_torch/ops/kernels/csrc/minplus.cu",
@@ -864,16 +1012,6 @@ def main() -> int:
         "bound_ms": mp_bounds["phase1"][0] + mp_bounds["phase2"][0],
         "bound_by": "operations", "library_ms": None,
         "library_note": "no PyTorch call computes a min-plus product"})
-    table.append({
-        "name": "mpm_backward", "route": "cuda",
-        "source": "pemp_tpu_torch/ops/kernels/mpm.py",
-        "replaces": "pemp_tpu/ops/pallas/mpm_vjp.py:216",
-        "launches": train_launches["mpm_backward"],
-        "max_abs_err": bw_worst, "ms": bw_times["bfloat16"],
-        "plain_ms": bw_times["bfloat16_plain"], "bound_ms": bw_bound[0],
-        "bound_by": bw_bound[1], "library_ms": None,
-        "note": "MPMChainPacked.backward: PyTorch ops, no kernel of its "
-                "own; ms and plain_ms include the host's dispatch"})
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

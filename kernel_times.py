@@ -6,12 +6,12 @@
 Imports ``pemp_tpu_torch`` from DIR (default: this script's checkout),
 builds its CUDA kernels there, and times each call on one GPU with
 ``chip_smoke.py``'s timer (CUDA events, median of 30, an L2 flush before
-each), twice: with the timer's device-side spin (``device_ms``: the
-device's work alone, for a call the host enqueues within the spin's
-~0.2 ms; ``mpm_backward``'s ~100 ops take longer, so both its times
-include their dispatch) and without (``host_ms``: what a caller waits on
-an idle device, the wrapper's dispatch included). The calls, at the shapes
-of the port's paths (bf16 features, n=2601, c=512, p=3 unless named):
+each), twice: with the timer's device-side
+spin (``device_ms``: the device's work alone; ~0.2 ms, and ~2 ms for
+``mpm_backward``, whose enqueue may take longer) and without
+(``host_ms``: what a caller waits on an idle device, the wrapper's
+dispatch included). The calls, at the shapes of the port's paths (bf16
+features, n=2601, c=512, p=3 unless named):
 
 - ``assign_eval`` / ``assign_train``: ``mpm_assign`` at B=8 / B=4;
 - ``assign_p8``: B=8 at p=8; ``assign_c1024``: B=4 at c=1024;
@@ -124,8 +124,11 @@ def main() -> int:
     for name, fn in calls.items():
         if name in args.skip:
             continue
-        out["device_ms"][name] = smoke.time_ms(torch, fn, flush, spin=True)
-        out["host_ms"][name] = smoke.time_ms(torch, fn, flush, spin=False)
+        cycles = (smoke.LONG_SPIN_CYCLES if name == "mpm_backward"
+                  else smoke.SPIN_CYCLES)
+        for key, spin in (("device_ms", True), ("host_ms", False)):
+            out[key][name] = smoke.time_ms(torch, fn, flush, spin=spin,
+                                           spin_cycles=cycles)
     print(json.dumps(out), flush=True)
     return 0
 

@@ -20,13 +20,13 @@
 //     accumulates a^T f in registers; 2-block clusters add their partials
 //     over distributed shared memory and the last block of each episode
 //     sums the cluster partials in a fixed order. One launch.
-//   - K2 (match_kernel): one warp per pixel row, 16-byte vector loads,
-//     |f|^2 and the 2p dot products reduced with warp shuffles, the
-//     prototypes in shared memory read as float4.
+//   - K2 (match_kernel) uses the same pieces (mpm_common.cuh) with a ring
+//     per warp, and finds each row's per-class max and first-occurrence
+//     argmax on the lanes that hold its sums.
 // Determinism: no atomics on any sum, so the prototypes (and K2's
 // first-occurrence argmax that reads them) are bit-identical run to run.
-// Rows >= n are never loaded (K1 zero-fills them and drops their
-// assignment with a select; K2 never visits them).
+// Rows >= n are never loaded (the ring zero-fills them; K1 drops their
+// assignment with a select, K2 writes nothing for them).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -34,98 +34,13 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "async_copy.cuh"
+#include "mpm_common.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kMaxProtos = 8;          // p <= 8 (2p <= 16 columns)
-constexpr int kMaxK2 = 2 * kMaxProtos;
-constexpr int kTile = 64;              // pixel rows per match block
-constexpr int kThreads = 256;          // 8 warps
-constexpr int kWarps = kThreads / 32;
-
-// 16-byte vector of the feature type, unpacked to fp32.
-template <typename T> struct Vec;
-
-template <> struct Vec<float> {
-  static constexpr int N = 4;
-  __device__ static void unpack(const uint4& raw, float* out) {
-    out[0] = __uint_as_float(raw.x);
-    out[1] = __uint_as_float(raw.y);
-    out[2] = __uint_as_float(raw.z);
-    out[3] = __uint_as_float(raw.w);
-  }
-};
-
-template <> struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ static void unpack(const uint4& raw, float* out) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
-  }
-};
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// |f|^2 and the k2 dot products of one row (V-chunked, lane-strided)
-// against a k-major [k2][c] fp32 table in shared memory. Optionally copies
-// the raw row into `stage` (shared memory). Results are warp-reduced, so
-// every lane holds the totals.
-template <typename T>
-__device__ __forceinline__ void row_dots(const T* __restrict__ row, const float* table,
-                                         T* stage, int c, int k2, float& sq,
-                                         float (&dot)[kMaxK2]) {
-  constexpr int V = Vec<T>::N;
-  const int lane = threadIdx.x & 31;
-  sq = 0.f;
-#pragma unroll
-  for (int k = 0; k < kMaxK2; ++k) dot[k] = 0.f;
-  for (int v = lane; v < c / V; v += 32) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(row + v * V);
-    if (stage != nullptr) *reinterpret_cast<uint4*>(stage + v * V) = raw;
-    float x[V];
-    Vec<T>::unpack(raw, x);
-#pragma unroll
-    for (int j = 0; j < V; ++j) sq += x[j] * x[j];
-#pragma unroll
-    for (int k = 0; k < kMaxK2; ++k) {
-      if (k < k2) {
-        const float4* t = reinterpret_cast<const float4*>(table + k * c + v * V);
-#pragma unroll
-        for (int q = 0; q < V / 4; ++q) {
-          const float4 w = t[q];
-          dot[k] += x[4 * q] * w.x + x[4 * q + 1] * w.y + x[4 * q + 2] * w.z + x[4 * q + 3] * w.w;
-        }
-      }
-    }
-  }
-  sq = warp_sum(sq);
-#pragma unroll
-  for (int k = 0; k < kMaxK2; ++k)
-    if (k < k2) dot[k] = warp_sum(dot[k]);
-}
-
-// squared norms of the k2 rows of a k-major [k2][c] table, one warp per row
-__device__ void table_norms_sq(const float* table, float* out, int c, int k2) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int k = warp; k < k2; k += kWarps) {
-    float s = 0.f;
-    for (int j = lane; j < c; j += 32) s += table[k * c + j] * table[k * c + j];
-    s = warp_sum(s);
-    if (lane == 0) out[k] = s;
-  }
-}
+using namespace pemp;
 
 // ---------------------------------------------------------------------------
 // K1: soft assignment and adaptive prototypes, one launch.
@@ -161,10 +76,6 @@ __device__ void table_norms_sq(const float* table, float* out, int c, int k2) {
 //     protos[b] and resets the ticket to 0 for the next launch. No atomics
 //     touch a sum, so the prototypes are bit-identical run to run.
 // ---------------------------------------------------------------------------
-constexpr int kStageRows = 32;                     // pixel rows per ring stage
-constexpr int kRowsPerWarp = kStageRows / kWarps;  // 4
-constexpr int kPassCols = 512;                     // channels a pass: 16 per lane
-constexpr int kMinStages = 2;
 constexpr int kCluster = 2;                        // blocks of an image per cluster
 
 template <int P>
@@ -174,11 +85,6 @@ struct AssignShape {
   static constexpr int R = 4 * W <= 32 ? 4 : 2 * W <= 32 ? 2 : 1;   // rows per group
 };
 
-template <typename T>
-struct AssignRing {
-  static constexpr int NS = sizeof(T) == 2 ? 4 : 3;   // most stages: 128 KB bf16, 192 KB f32
-};
-
 // dynamic shared memory at `ns` stages: the center table, the mask ring,
 // and the feature ring, which the warps' tree (kWarps/2 slots of
 // [2p][min(c, kPassCols)]) reuses at the end
@@ -186,31 +92,6 @@ constexpr size_t assign_smem_bytes(int c, int p, int esize, int ns) {
   const size_t ring = (size_t)ns * kStageRows * c * esize;
   const size_t tree = (size_t)kWarps / 2 * 2 * p * (c < kPassCols ? c : kPassCols) * 4;
   return (size_t)2 * p * c * 4 + (size_t)ns * 2 * kStageRows * 4 + (ring > tree ? ring : tree);
-}
-
-// wait until at most ns-1 stages are in flight, so the oldest has landed
-// (ns is 2..4)
-__device__ __forceinline__ void wait_ring(int ns) {
-  if (ns >= 4) pemp::cp_async_wait<3>();
-  else if (ns == 3) pemp::cp_async_wait<2>();
-  else pemp::cp_async_wait<1>();
-}
-
-// One step of a reduce-scatter butterfly over the warp: a lane keeps the
-// half of v[0, 2*HALF) on its side of bit HALF, adds its partner's sums
-// of that half into v[0, HALF), and recurses. Lane l ends with the
-// warp-wide sum of v[l] in v[0] (31 shuffles for 32 sums); a template so
-// every index is a constant and v stays in registers.
-template <int HALF>
-__device__ __forceinline__ void reduce_scatter(float (&v)[32], int lane) {
-  const bool upper = lane & HALF;
-#pragma unroll
-  for (int j = 0; j < HALF; ++j) {
-    const float send = upper ? v[j] : v[j + HALF];
-    const float keep = upper ? v[j + HALF] : v[j];
-    v[j] = keep + __shfl_xor_sync(0xffffffffu, send, HALF);
-  }
-  if constexpr (HALF > 1) reduce_scatter<HALF / 2>(v, lane);
 }
 
 template <typename T, int P>
@@ -281,8 +162,7 @@ assign_kernel(const T* __restrict__ fts, const float* __restrict__ fg,
     const float x[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int col = (4 * idx + e) / K2, k = (4 * idx + e) % K2;
-      ctr_s[k * c + (col % V) / 4 * cv * 4 + col / V * 4 + col % 4] = x[e];
+      ctr_s[tab_off<V>((4 * idx + e) % K2, (4 * idx + e) / K2, c)] = x[e];
     }
   };
   const int n_ctr4 = c * K2 / 4;
@@ -327,39 +207,11 @@ assign_kernel(const T* __restrict__ fts, const float* __restrict__ fg,
       const int g = warp * kRowsPerWarp + gi * R;
       if (g >= live_rows) break;                               // warp-uniform
       // per-lane partial dots and |f|^2 of rows g .. g+R-1, over all columns
-      float v[32];
+      // (rows past the block's are zero-filled in the ring)
+      float v[32], unused[R];
 #pragma unroll
       for (int j = 0; j < 32; ++j) v[j] = 0.f;
-      for (int q0 = 0; q0 < cv; q0 += 32 * NCH) {
-#pragma unroll
-        for (int j = 0; j < NCH; ++j) {
-          const int q = q0 + lane + 32 * j;
-          if (q < cv) {
-            float x[R][V];
-#pragma unroll
-            for (int r = 0; r < R; ++r) {
-              Vec<T>::unpack(*reinterpret_cast<const uint4*>(tile + (size_t)(g + r) * c + q * V), x[r]);
-#pragma unroll
-              for (int e = 0; e < V; ++e) v[r * W + K2] = fmaf(x[r][e], x[r][e], v[r * W + K2]);
-            }
-#pragma unroll
-            for (int k = 0; k < K2; ++k) {
-#pragma unroll
-              for (int h = 0; h < V / 4; ++h) {
-                const float4 w = *reinterpret_cast<const float4*>(ctr_s + k * c + h * cv * 4 + q * 4);
-#pragma unroll
-                for (int r = 0; r < R; ++r) {
-                  float& d = v[r * W + k];
-                  d = fmaf(x[r][4 * h], w.x, d);
-                  d = fmaf(x[r][4 * h + 1], w.y, d);
-                  d = fmaf(x[r][4 * h + 2], w.z, d);
-                  d = fmaf(x[r][4 * h + 3], w.w, d);
-                }
-              }
-            }
-          }
-        }
-      }
+      group_sums<T, K2, R, W, true>(tile, g, kStageRows, ctr_s, c, lane, v, unused);
       reduce_scatter<16>(v, lane);
       const float tot = v[0];
       // softmax over each class's own p columns, R*2p lanes at once
@@ -405,50 +257,10 @@ assign_kernel(const T* __restrict__ fts, const float* __restrict__ fg,
   pemp::cp_async_wait<0>();
 
   // the block's partial in a fixed order: a tree over the warps through
-  // shared memory (the ring, as kWarps/2 slots of [K2][pc]); warp w adds
-  // warp w+h's sums for h = 4, 2, 1, and warp 0 writes the result
-  float* slots = reinterpret_cast<float*>(ring);
+  // shared memory (the ring, as kWarps/2 slots of [K2][pc]); warp 0 ends
+  // with the result
   den_s[warp][lane] = den;
-#pragma unroll
-  for (int h = kWarps / 2; h > 0; h >>= 1) {
-    if (warp >= h && warp < 2 * h) {
-      float* o = slots + (size_t)(warp - h) * K2 * pc;
-#pragma unroll
-      for (int j = 0; j < NCH; ++j) {
-        const int q = qz + lane + 32 * j;
-        if (q < cv) {
-#pragma unroll
-          for (int k = 0; k < K2; ++k)
-#pragma unroll
-            for (int e = 0; e < V; e += 4)
-              *reinterpret_cast<float4*>(o + k * pc + (q - qz) * V + e) =
-                  make_float4(acc[k][j * V + e], acc[k][j * V + e + 1],
-                              acc[k][j * V + e + 2], acc[k][j * V + e + 3]);
-        }
-      }
-    }
-    __syncthreads();
-    if (warp < h) {
-      const float* o = slots + (size_t)warp * K2 * pc;
-#pragma unroll
-      for (int j = 0; j < NCH; ++j) {
-        const int q = qz + lane + 32 * j;
-        if (q < cv) {
-#pragma unroll
-          for (int k = 0; k < K2; ++k)
-#pragma unroll
-            for (int e = 0; e < V; e += 4) {
-              const float4 y = *reinterpret_cast<const float4*>(o + k * pc + (q - qz) * V + e);
-              acc[k][j * V + e] += y.x;
-              acc[k][j * V + e + 1] += y.y;
-              acc[k][j * V + e + 2] += y.z;
-              acc[k][j * V + e + 3] += y.w;
-            }
-        }
-      }
-    }
-    __syncthreads();
-  }
+  block_tree<K2, NCH, V>(acc, reinterpret_cast<float*>(ring), qz, cv, pc, warp, lane);
   // the cluster's partial: each block puts its own in shared memory, and
   // block `rank` sums slice `rank` of the kCluster partials in rank order
   // (distributed shared memory) into the scratch
@@ -546,62 +358,142 @@ assign_kernel(const T* __restrict__ fts, const float* __restrict__ fg,
 }
 
 // ---------------------------------------------------------------------------
-// K2: cosine matching of query rows against the 2p prototypes of the
+// K2: cosine matching of the query rows against the 2p prototypes of the
 // episode, per-class max and first-occurrence argmax, output [bg, fg].
+// Grid (T, B*Q), sized to the card: block t of query image i takes `rows`
+// consecutive pixel rows.
+//   - The episode's [2p][c] prototype table is read once per block into
+//     shared memory, permuted for lanes on fixed columns, with its norms.
+//   - Each warp streams its own rows through its own ring of `ns` stages
+//     of kRowsPerWarp rows (16-byte cp.async, ns-1 stages in flight; rows
+//     >= n are zero-filled and never written), the warps' stages
+//     interleaved over the block's rows; a warp waits for its own copies
+//     only (__syncwarp, no block barrier in the loop). Where not even two
+//     stages fit beside the table (very wide c), ns = 0 and each lane
+//     reads its chunks from device memory itself.
+//   - A warp takes its stage's rows R at a time; each lane owns the same
+//     16-byte column chunks for the whole kernel, so it reads its slice of
+//     the table once per R rows. The R*(2p+1) sums (2p
+//     dots and |q|^2 a row) meet in one reduce-scatter butterfly, and the
+//     cosines, the per-class max and the first-occurrence argmax (strict >
+//     in k order) run on the R*2p lanes that hold the dots; the lane of
+//     each row's first fg column writes its logits and indices.
+// Everything per row stays in registers (no local memory).
 // ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-match_kernel(const T* __restrict__ fts, const float* __restrict__ protos,
-             float* __restrict__ logits, int* __restrict__ inds, int S, int Q,
-             int SQ, int n, int c, int p, float dist_scalar, float cos_eps) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int k2 = 2 * p;
-  float* pr_s = reinterpret_cast<float*>(smem_raw);        // [k2][c]
-  __shared__ float pn_s[kMaxK2];
+template <int P>
+struct MatchShape {
+  static constexpr int K2 = 2 * P;
+  static constexpr int W = 2 * P + 1;              // sums per row: 2p dots, |q|^2
+  static constexpr int R = 4 * W <= 32 ? 4 : 2 * W <= 32 ? 2 : 1;   // rows per group
+};
 
-  const int i = blockIdx.x;                     // query image in [0, B*Q)
-  const int b = i / Q;
-  const int img = b * SQ + S + i % Q;           // packed query row
-  const int row0 = blockIdx.y * kTile;
-  const int rows = min(kTile, n - row0);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+constexpr int kMatchStages = 3;                    // most ring stages
 
-  const float4* src = reinterpret_cast<const float4*>(protos + (size_t)b * k2 * c);
-  for (int idx = threadIdx.x; idx < k2 * c / 4; idx += kThreads)
-    reinterpret_cast<float4*>(pr_s)[idx] = src[idx];
-  __syncthreads();
-  table_norms_sq(pr_s, pn_s, c, k2);
-  __syncthreads();
-  if (threadIdx.x < k2) pn_s[threadIdx.x] = sqrtf(pn_s[threadIdx.x]);
-  __syncthreads();
-
-  const T* base = fts + ((size_t)img * n + row0) * c;
-  for (int r = warp; r < rows; r += kWarps) {
-    float qsq, dot[kMaxK2];
-    row_dots<T>(base + (size_t)r * c, pr_s, static_cast<T*>(nullptr), c, k2, qsq, dot);
-    if (lane == 0) {
-      const float qn = sqrtf(qsq);
-      float fg_max = 0.f, bg_max = 0.f;
-      int fg_idx = 0, bg_idx = 0;
-#pragma unroll
-      for (int k = 0; k < kMaxProtos; ++k) {
-        if (k < p) {
-          const float sf = dot[k] / fmaxf(qn * pn_s[k], cos_eps) * dist_scalar;
-          const float sb = dot[p + k] / fmaxf(qn * pn_s[p + k], cos_eps) * dist_scalar;
-          if (k == 0 || sf > fg_max) { fg_max = sf; fg_idx = k; }
-          if (k == 0 || sb > bg_max) { bg_max = sb; bg_idx = k; }
-        }
-      }
-      const size_t o = (size_t)i * n + row0 + r;
-      reinterpret_cast<float2*>(logits)[o] = make_float2(bg_max, fg_max);
-      if (inds != nullptr) reinterpret_cast<int2*>(inds)[o] = make_int2(bg_idx, fg_idx);
-    }
-  }
+constexpr size_t match_smem_bytes(int c, int p, int esize, int ns) {
+  return (size_t)2 * p * c * 4 + (size_t)ns * kStageRows * c * esize;
 }
 
-template <typename Kernel>
-cudaError_t launch_config(Kernel kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <typename T, int P>
+__global__ void __launch_bounds__(kThreads, 2)
+match_kernel(const T* __restrict__ fts, const float* __restrict__ protos,
+             float* __restrict__ logits, int* __restrict__ inds, int S, int Q, int SQ, int n,
+             int c, int rows, int ns, float dist_scalar, float cos_eps) {
+  using Shape = MatchShape<P>;
+  constexpr int K2 = Shape::K2, W = Shape::W, R = Shape::R;
+  constexpr int V = Vec<T>::N;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* tab_s = reinterpret_cast<float*>(smem_raw);             // [K2][c] permuted
+  T* ring = reinterpret_cast<T*>(tab_s + K2 * c);   // per warp [ns][kRowsPerWarp][c]
+  __shared__ float pnsq_s[K2];
+
+  const int i = blockIdx.y;                     // query image in [0, B*Q)
+  const int b = i / Q;
+  const int img = b * SQ + S + i % Q;           // packed query row
+  const int row0 = blockIdx.x * rows;
+  const int nrows = min(rows, n - row0);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int cv = c / V;
+  const T* src = fts + ((size_t)img * n + row0) * c;
+  // warp stage st: the block's rows [r0, r0 + kRowsPerWarp), r0 =
+  // (st * kWarps + warp) * kRowsPerWarp, in slot st % ns of the warp's ring
+  const int bstages = (nrows + kRowsPerWarp - 1) / kRowsPerWarp;
+  const int wstages = bstages > warp ? (bstages - warp + kWarps - 1) / kWarps : 0;
+  T* wring = ring + (size_t)warp * ns * kRowsPerWarp * c;
+
+  // (rows past the block's last are zero-filled)
+  auto issue = [&](int st) {
+    if (st < wstages) {
+      const int r0 = (st * kWarps + warp) * kRowsPerWarp;
+      T* dst = wring + (size_t)(st % ns) * kRowsPerWarp * c;
+      for (int r = 0; r < kRowsPerWarp; ++r) {
+        const bool live = r0 + r < nrows;
+        for (int q = lane; q < cv; q += 32)
+          cp_async16(dst + (size_t)r * c + q * V,
+                     live ? src + (size_t)(r0 + r) * c + q * V : src, live ? 16 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+  // the table's (L2-resident) lines first, so they do not queue behind
+  // the ring's first stages
+  load_table_rows<V>(tab_s, 0, protos + (size_t)b * K2 * c, K2, c);
+  for (int st = 0; st < ns - 1; ++st) issue(st);
+  __syncthreads();
+  table_norms_sq(tab_s, pnsq_s, c, K2);
+  __syncthreads();
+
+  // the sum lane `lane` holds after the butterfly: row my_r, column my_k
+  const int my_r = lane / W, my_k = lane % W;
+  const int kk = min(my_k, K2 - 1);
+  const int cbase = my_r * W + kk / P * P;      // the lane's class: fg columns, then bg
+  const float pn = sqrtf(fmaxf(pnsq_s[kk], 1e-30f));
+  for (int st = 0; st < wstages; ++st) {
+    const int r0 = (st * kWarps + warp) * kRowsPerWarp;
+    const int live_rows = min(kRowsPerWarp, nrows - r0);
+    if (ns > 0) {
+      issue(st + ns - 1);
+      wait_ring(ns);
+      __syncwarp();                      // every lane's copies have landed
+    }
+#pragma unroll
+    for (int gi = 0; gi < kRowsPerWarp / R; ++gi) {
+      const int g = gi * R;
+      if (g >= live_rows) break;                               // warp-uniform
+      float v[32], unused[R];
+#pragma unroll
+      for (int j = 0; j < 32; ++j) v[j] = 0.f;
+      if (ns > 0)
+        group_sums<T, K2, R, W, true>(wring + (size_t)(st % ns) * kRowsPerWarp * c, g,
+                                      live_rows, tab_s, c, lane, v, unused);
+      else
+        group_sums<T, K2, R, W, true>(src + (size_t)r0 * c, g, live_rows, tab_s, c, lane, v,
+                                      unused);
+      reduce_scatter<16>(v, lane);
+      const float dot = v[0];
+      const float sq = __shfl_sync(kFull, dot, (my_r * W + K2) & 31);
+      const float sim = dot / fmaxf(sqrtf(fmaxf(sq, 1e-30f)) * pn, cos_eps) * dist_scalar;
+      float best = __shfl_sync(kFull, sim, cbase & 31);
+      int idx = 0;
+#pragma unroll
+      for (int j = 1; j < P; ++j) {
+        const float s = __shfl_sync(kFull, sim, (cbase + j) & 31);
+        if (s > best) {
+          best = s;
+          idx = j;
+        }
+      }
+      const float bg_best = __shfl_sync(kFull, best, (my_r * W + P) & 31);
+      const int bg_idx = __shfl_sync(kFull, idx, (my_r * W + P) & 31);
+      const int row = g + my_r;
+      if (my_k == 0 && my_r < R && row < live_rows) {
+        const size_t o = (size_t)i * n + row0 + r0 + row;
+        reinterpret_cast<float2*>(logits)[o] = make_float2(bg_best, best);
+        if (inds != nullptr) reinterpret_cast<int2*>(inds)[o] = make_int2(bg_idx, idx);
+      }
+    }
+    if (ns > 0) __syncwarp();            // slot st % ns is refilled next iteration
+  }
+  if (ns > 0) cp_async_wait<0>();
 }
 
 template <typename T>
@@ -637,7 +529,7 @@ int assign_stages(int c, int p) {
       cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess ||
       cudaFuncGetAttributes(&attr, kernel) != cudaSuccess)
     return 0;
-  for (int ns = AssignRing<T>::NS; ns >= kMinStages; --ns)
+  for (int ns = RingStages<T>::NS; ns >= kMinStages; --ns)
     if (assign_smem_bytes(c, p, sizeof(T), ns) + attr.sharedSizeBytes <= (size_t)limit) return ns;
   return 0;
 }
@@ -663,11 +555,54 @@ int assign_slots(int c, int p) {
 }
 
 template <typename T>
+using MatchFn = void (*)(const T*, const float*, float*, int*, int, int, int, int, int, int,
+                         int, float, float);
+
+template <typename T>
+MatchFn<T> match_kernel_for(int p) {
+  switch (p) {
+    case 1: return match_kernel<T, 1>;
+    case 2: return match_kernel<T, 2>;
+    case 3: return match_kernel<T, 3>;
+    case 4: return match_kernel<T, 4>;
+    case 5: return match_kernel<T, 5>;
+    case 6: return match_kernel<T, 6>;
+    case 7: return match_kernel<T, 7>;
+    case 8: return match_kernel<T, 8>;
+    default: return nullptr;
+  }
+}
+
+template <typename T>
+int match_plan(int c, int p, int* slots) {
+  const MatchFn<T> kernel = match_kernel_for<T>(p);
+  if (kernel == nullptr) return -1;
+  return ring_plan(
+      kernel, [=](int ns) { return match_smem_bytes(c, p, sizeof(T), ns); }, kMatchStages,
+      slots);
+}
+
+template <typename T>
+int match_launch(const void* fts, const void* protos, void* logits, void* inds, int B, int S,
+                 int Q, int n, int c, int p, int rows, int tiles, int ns, float dist_scalar,
+                 float cos_eps, void* stream) {
+  const MatchFn<T> kernel = match_kernel_for<T>(p);
+  if (kernel == nullptr || ns == 1 || ns < 0 || ns > kMatchStages) return cudaErrorInvalidValue;
+  const size_t smem = match_smem_bytes(c, p, sizeof(T), ns);
+  const cudaError_t e = launch_config(kernel, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3(tiles, B * Q), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(fts), static_cast<const float*>(protos), static_cast<float*>(logits),
+      static_cast<int*>(inds), S, Q, S + Q, n, c, rows, ns, dist_scalar, cos_eps);
+  return cudaGetLastError();
+}
+
+template <typename T>
 int assign_launch(const void* fts, const void* fg, const void* bg, const void* ctr, void* num,
                   void* den, void* tickets, void* protos, int B, int S, int Q, int n, int c,
                   int p, int rows, int tiles, int ns, float eps, void* stream) {
   const AssignFn<T> kernel = assign_kernel_for<T>(p);
-  if (kernel == nullptr || ns < kMinStages || ns > AssignRing<T>::NS) return cudaErrorInvalidValue;
+  if (kernel == nullptr || ns < kMinStages || ns > RingStages<T>::NS) return cudaErrorInvalidValue;
   const size_t smem = assign_smem_bytes(c, p, sizeof(T), ns);
   const cudaError_t e = launch_config(kernel, smem);
   if (e != cudaSuccess) return e;
@@ -684,7 +619,6 @@ int assign_launch(const void* fts, const void* fg, const void* bg, const void* c
 extern "C" {
 
 int pemp_mpm_max_protos() { return kMaxProtos; }
-int pemp_mpm_tile() { return kTile; }
 int pemp_mpm_stage_rows() { return kStageRows; }
 int pemp_mpm_cluster() { return kCluster; }
 int pemp_mpm_pass_channels() { return kPassCols; }
@@ -692,8 +626,6 @@ int pemp_mpm_pass_channels() { return kPassCols; }
 const char* pemp_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
-
-size_t pemp_mpm_match_smem(int c, int p) { return (size_t)2 * p * c * 4; }
 
 // Ring stages the assign kernel takes for (c, p) on the current device;
 // 0 when its shared memory does not fit a block even at the fewest.
@@ -726,31 +658,24 @@ int pemp_mpm_assign(const void* fts, int is_bf16, const void* fg, const void* bg
                                         Q, n, c, p, rows, tiles, ns, eps, stream);
 }
 
-// fts [B, S+Q, n, c] (f32 or bf16), protos [B, 2p, c] f32 (fg then bg),
+// Ring stages of the match kernel for (c, p) on the current device (2..3,
+// or 0: rows read from device memory) and, in *slots, the blocks the
+// device holds at once; -1 when not even its table fits a block.
+int pemp_mpm_match_plan(int c, int p, int is_bf16, int* slots) {
+  return is_bf16 ? match_plan<__nv_bfloat16>(c, p, slots) : match_plan<float>(c, p, slots);
+}
+
+// K2. fts [B, S+Q, n, c] (f32 or bf16), protos [B, 2p, c] f32 (fg then bg),
 // logits [B*Q, n, 2] f32 out ([bg, fg]), inds [B*Q, n, 2] i32 out or NULL.
-int pemp_mpm_match(const void* fts, int is_bf16, const void* protos, void* logits,
-                   void* inds, int B, int S, int Q, int n, int c, int p,
+// Block t of a query image takes pixel rows [t*rows, min(n, (t+1)*rows)),
+// tiles = cdiv(n, rows), with `ns` ring stages (pemp_mpm_match_plan).
+int pemp_mpm_match(const void* fts, int is_bf16, const void* protos, void* logits, void* inds,
+                   int B, int S, int Q, int n, int c, int p, int rows, int tiles, int ns,
                    float dist_scalar, float cos_eps, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = pemp_mpm_match_smem(c, p);
-  const dim3 grid(B * Q, (n + kTile - 1) / kTile);
-  cudaError_t e;
-  if (is_bf16) {
-    e = launch_config(match_kernel<__nv_bfloat16>, smem);
-    if (e != cudaSuccess) return e;
-    match_kernel<__nv_bfloat16><<<grid, kThreads, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(fts), static_cast<const float*>(protos),
-        static_cast<float*>(logits), static_cast<int*>(inds), S, Q, S + Q, n, c, p,
-        dist_scalar, cos_eps);
-  } else {
-    e = launch_config(match_kernel<float>, smem);
-    if (e != cudaSuccess) return e;
-    match_kernel<float><<<grid, kThreads, smem, st>>>(
-        static_cast<const float*>(fts), static_cast<const float*>(protos),
-        static_cast<float*>(logits), static_cast<int*>(inds), S, Q, S + Q, n, c, p,
-        dist_scalar, cos_eps);
-  }
-  return cudaGetLastError();
+  return is_bf16 ? match_launch<__nv_bfloat16>(fts, protos, logits, inds, B, S, Q, n, c, p,
+                                               rows, tiles, ns, dist_scalar, cos_eps, stream)
+                 : match_launch<float>(fts, protos, logits, inds, B, S, Q, n, c, p, rows,
+                                       tiles, ns, dist_scalar, cos_eps, stream);
 }
 
 }  // extern "C"

@@ -69,7 +69,8 @@ def test_kernels_match_plain(cuda, dtype, s, n):
     cl2, ci2 = K.mpm_chain_packed(fts, fg, bg, ctr, P, SCALE, True)
     assert torch.equal(cl, cl2) and torch.equal(ci, ci2)
     assert (cl - pl).abs().max() <= 2e-3
-    assert K.launches == {"assign": 3, "match": 3}
+    assert K.launches == {"assign": 3, "match": 3, "match_bwd": 0,
+                          "assign_bwd": 0}
 
 
 @pytest.mark.parametrize("p", [1, 8])
@@ -83,7 +84,8 @@ def test_assign_tickets_reset_between_launches(cuda, p):
     K.reset_launches()
     runs = [torch.cat(K.mpm_assign(fts, fg, 1.0 - fg, ctr, p), 1)
             for _ in range(3)]
-    assert K.launches == {"assign": 3, "match": 0}
+    assert K.launches == {"assign": 3, "match": 0, "match_bwd": 0,
+                          "assign_bwd": 0}
     assert all(torch.equal(runs[0], r) for r in runs[1:])
     ref = torch.cat(plain.meta_prototype_assign(fts[:, :1], fg, 1.0 - fg,
                                                 ctr, p), 1)
@@ -102,7 +104,8 @@ def test_assign_takes_more_than_one_column_pass(cuda, c, dtype):
     fts, fg, bg, ctr = _inputs(cuda, 2, 2, 1, 1030, c, dtype, seed=c)
     K.reset_launches()
     runs = [torch.cat(K.mpm_assign(fts, fg, bg, ctr, P), 1) for _ in range(2)]
-    assert K.launches == {"assign": 2, "match": 0}
+    assert K.launches == {"assign": 2, "match": 0, "match_bwd": 0,
+                          "assign_bwd": 0}
     assert torch.equal(runs[0], runs[1])
     ref = torch.cat(plain.meta_prototype_assign(fts[:, :2], fg, bg, ctr, P), 1)
     assert (runs[0] - ref).abs().max() <= 1e-3 * ref.abs().max()
@@ -170,10 +173,112 @@ def test_mpm_backward_matches_autograd_of_plain(cuda):
     K.reset_launches()
     lk = K.mpm_chain_packed(fk, fg, bg, ck, P, SCALE)
     gk = torch.autograd.grad((lk * w).sum(), (fk, ck))
-    assert K.launches == {"assign": 1, "match": 1}
+    assert K.launches == {"assign": 1, "match": 1, "match_bwd": 1,
+                          "assign_bwd": 1}
     assert K.backward_calls == {"mpm_backward": 1}
     pf, pb = plain.meta_prototype_assign(fp[:, :2], fg, bg, cp, P)
     lp = plain.prototype_predictions(fp[:, 2:], pf, pb, SCALE)
     gp = torch.autograd.grad((lp * w).sum(), (fp, cp))
     for a, b in zip(gk, gp):
         assert (a - b).abs().max() <= 1e-3 * b.abs().max()
+
+
+def _backward_inputs(cuda, b, s, q, n, c, p, dtype, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    fts = torch.randn(b, s + q, n, c, generator=g, device=cuda).to(dtype)
+    fg = (torch.rand(b, s, n, generator=g, device=cuda) > 0.6).float()
+    ctr = torch.rand(c, 2 * p, generator=g, device=cuda)
+    w = torch.randn(b, q, n, 2, generator=g, device=cuda)
+    return fts, fg, 1.0 - fg, ctr, w
+
+
+def _plain_backward(fts, fg, bg, ctr, packed, inds, w, s, p):
+    g_qry, g_packed = K._match_backward(fts[:, s:], packed, inds, w, p, SCALE)
+    g_sup, g_fg, g_bg, g_ctr = K._assign_backward(
+        fts[:, :s], fg, bg, ctr, g_packed, p, plain.ASSIGN_EPS)
+    return torch.cat([g_sup, g_qry], 1).to(fts.dtype), g_fg, g_bg, g_ctr
+
+
+@pytest.mark.parametrize("c,p,dtype", [(64, 3, torch.float32),
+                                       (64, 3, torch.bfloat16),
+                                       (512, 1, torch.float32),
+                                       (512, 8, torch.bfloat16),
+                                       (768, 3, torch.float32),
+                                       (1024, 3, torch.bfloat16)])
+def test_mpm_backward_kernels_match_the_plain_backward(cuda, c, p, dtype):
+    """S=2, Q=2, n=1030 (a partial last stage), every cotangent, one and
+    two column passes; two backward calls bit-identical and the tickets
+    back at zero."""
+    fts, fg, bg, ctr, w = _backward_inputs(cuda, 2, 2, 2, 1030, c, p, dtype,
+                                           seed=c + p)
+    t = [fts.clone().requires_grad_(), fg.clone().requires_grad_(),
+         bg.clone().requires_grad_(), ctr.clone().requires_grad_()]
+    K.reset_launches()
+    logits = K.MPMChainPacked.apply(*t, p, SCALE, plain.ASSIGN_EPS)
+    runs = [torch.autograd.grad(logits, t, w, retain_graph=True)
+            for _ in range(2)]
+    assert K.launches == {"assign": 1, "match": 1, "match_bwd": 2,
+                          "assign_bwd": 2}
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    with torch.no_grad():
+        packed = torch.cat(K.mpm_assign(fts, fg, bg, ctr, p), 1)
+        _, inds = K.mpm_match(fts, 2, packed[:, :p], packed[:, p:], SCALE,
+                              return_indices=True)
+    ref = _plain_backward(fts, fg, bg, ctr, packed, inds, w, 2, p)
+    for i, (got, want) in enumerate(zip(runs[0], ref)):
+        tol = 2.0 ** -7 if i == 0 and dtype == torch.bfloat16 else 1e-3
+        assert got.dtype == want.dtype and torch.isfinite(got).all()
+        assert ((got.float() - want.float()).abs().max()
+                <= tol * want.float().abs().max())
+    torch.cuda.synchronize()
+    assert all(int(t.abs().sum()) == 0 for t in K._ticket_bufs.values())
+
+
+def test_mpm_backward_refuses_what_the_kernels_do_not_take(cuda):
+    """On CUDA the backward launches its kernels or raises: no fallback
+    to the PyTorch ops."""
+    fts, fg, bg, ctr, w = _backward_inputs(cuda, 1, 1, 1, 49, 64, P,
+                                           torch.float32, seed=1)
+    packed, num, den = K._assign_launch(fts, fg, bg, ctr, P, plain.ASSIGN_EPS,
+                                        partials=True)
+    _, inds = K._match_launch(fts, 1, packed, P, SCALE, True)
+    args = [fts, fg, bg, ctr, packed, inds, num, den, w, P, SCALE,
+            plain.ASSIGN_EPS, False]
+    K.reset_launches()
+    for i, bad, err in ((0, fts.half(), TypeError),
+                        (1, fg.cpu(), ValueError),
+                        (8, w[..., :1].contiguous(), ValueError),
+                        (9, 9, ValueError)):
+        with pytest.raises(err):
+            K._backward_launch(*args[:i], bad, *args[i + 1:])
+    assert K.launches["match_bwd"] == K.launches["assign_bwd"] == 0
+
+
+@pytest.mark.parametrize("p,c,dtype", [(1, 512, torch.bfloat16),
+                                       (8, 512, torch.float32),
+                                       (3, 1024, torch.bfloat16),
+                                       (3, 4096, torch.bfloat16)])
+def test_match_kernel_widths_and_first_occurrence_ties(cuda, p, c, dtype):
+    """K2 against plain at p=1 and p=8, c=1024, and c=4096 (no row ring
+    fits beside the table: rows read from device memory); the fg
+    prototypes [u, v, v] tie at v, which must go to the first of the two
+    (index 1, never 2), as the plain argmax does."""
+    g = torch.Generator(device=cuda).manual_seed(p * c)
+    fts = torch.randn(2, 2, 1030, c, generator=g, device=cuda).to(dtype)
+    fgp = torch.randn(2, p, c, generator=g, device=cuda)
+    bgp = torch.randn(2, p, c, generator=g, device=cuda)
+    if p > 2:
+        fgp[:, 2] = fgp[:, 1]
+    kl, ki = K.mpm_match(fts, 1, fgp, bgp, SCALE, return_indices=True)
+    pl, pi = plain.prototype_predictions(fts[:, 1:], fgp, bgp, SCALE, True)
+    assert (kl - pl).abs().max() <= 2e-3
+    if p > 2:
+        assert (ki[..., 1] != 2).all()
+        assert (ki[..., 1] == 1).any()
+    margin = torch.stack([
+        (plain.cosine_similarity(fts[:, 1:], pr[:, None]) * SCALE)
+        .topk(min(2, p), dim=-1).values.diff(dim=-1).neg()[..., 0]
+        if p > 1 else torch.full(pl.shape[:-1], 1.0, device=cuda)
+        for pr in (bgp, fgp)], dim=-1)
+    sure = (margin > 1e-3) | (margin == 0)      # exact ties: first occurrence
+    assert torch.equal(ki[sure], pi[sure])
