@@ -21,7 +21,8 @@ autograd of the plain composition) hold the training slice's pieces on
 their own. ``kernels`` also holds the assign kernel above 512 channels
 (column passes) and the match kernel where no row ring fits (c=4096), and
 times the assign kernel at the eval and train shapes, at p=8 and, with
-four shots, its cost per extra row; ``minplus`` also times one 2048^3
+four shots, its cost per extra row (the match kernel's too, with four
+queries); ``minplus`` also times one 2048^3
 product (the kernel's sustained rate); the train profile names the
 convolutions behind cuDNN's fallback kernels by input shape.
 
@@ -375,6 +376,17 @@ def kernel_phase(torch, K, plain):
     })
     w = work(b, s, q, n, c, p, 2)
     bounds.update({k: bound_ms(*w[k]) for k in ("match", "chain")})
+    # four query images: about the same blocks with four times the rows,
+    # so the difference to one query is the match kernel's cost per row
+    fts, fg, bg, ctr = make_inputs(torch, b, s, 4, n, c, p, bf16)
+    packed = K._assign_launch(fts, fg, bg, ctr, p, eps)
+    t["match_q4"] = time_ms(torch, lambda: K._match_launch(
+        fts, s, packed, p, scale, False), flush)
+    t["match_q4_plain"] = time_ms(torch, lambda: plain.prototype_predictions(
+        fts[:, s:], packed[:, :p], packed[:, p:], scale), flush)
+    bounds["match_q4"] = bound_ms(*work(b, s, 4, n, c, p, 2)["match"])
+    extra = work(b, s, 4, n, c, p, 2)["match"][0] - w["match"][0]
+    match_marginal = extra / ((t["match_q4"] - t["match"]) * 1e-3)
     emit({"phase": "kernels", "cases": results, "timing_shapes": {
         "B": [8, 4], "S": s, "Q": q, "n": n, "c": c, "p": p,
         "dtype": "bfloat16"},
@@ -383,15 +395,17 @@ def kernel_phase(torch, K, plain):
                                           ("eval_s4", 32))},
         "match_plan_eval": K._plans[("match", fts.device, c, p, 1)],
         "assign_marginal_bytes_per_s": marginal,
+        "match_marginal_bytes_per_s": match_marginal,
         "ms": t,
         "bound_ms": {k: v[0] for k, v in bounds.items()},
         "bound_by": {k: v[1] for k, v in bounds.items()},
         "tolerance": {"proto_rtol": PROTO_RTOL, "logit_atol": LOGIT_ATOL,
                       "index_margin": MARGIN},
         "note": "assign = K1, one launch (B=8 eval, _train B=4, _s4 B=8 "
-                "with 4 shots, _p8 B=8 at p=8); "
-                "assign_marginal_bytes_per_s = the extra "
-                "bytes of 4 shots over 1 by the extra time; chain = K1 "
+                "with 4 shots, _p8 B=8 at p=8); match = K2 (_q4: B=8 "
+                "with 4 queries); *_marginal_bytes_per_s = the extra "
+                "bytes of 4 shots (queries) over 1 by the extra time; "
+                "chain = K1 "
                 "then match on the packed tensor (K3), no launch of its "
                 "own"})
     return t, bounds, worst
