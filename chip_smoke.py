@@ -6,12 +6,17 @@
 Run from the root of a checkout on a machine with one NVIDIA H100 and the
 CUDA toolkit. It builds the port's CUDA kernels from the sources in the
 checkout, holds each kernel against its plain PyTorch version on the card,
-and drives the port's two paths at full width (PEMP stage 1, ResNet-50,
-1-shot, 401x401 SYNTH episodes):
+and drives the port's paths at full width (ResNet-50, 1-shot, 401x401
+SYNTH episodes):
 
-- eval: the ``test`` entry, 8 episodes a batch (``main_path``);
-- training: the ``train`` entry with the cedt loss, 4 episodes a step, six
-  steps, the online eval and the chained ``test`` (``train_path``);
+- eval: PEMP stage 1's ``test`` entry, 8 episodes a batch (``main_path``);
+- training: stage 1's ``train`` entry with the cedt loss, 4 episodes a
+  step, six steps, the online eval and the chained ``test``
+  (``train_path``);
+- the stage-2 cascade: ``pemp_stage2``'s ``train`` entry (ResNetCM and
+  PurifierV1 behind a frozen, seed-initialised stage 1, cedt, lr 0.0035),
+  six steps, the online eval and the chained ``test``, with the f32 step
+  and one eval batch held against the plain mpm (``stage2_path``);
 
 and checks that each path went through the kernels and agrees with the
 plain version. The phases ``minplus`` (the EDT kernel, bit-exact, also on
@@ -85,6 +90,13 @@ MAIN_ARGS = ["test", "with", "split=0", "data.dataset=SYNTH",
              "data.height=401", "data.width=401", "shot=1", "query=1",
              "data.test_bs=8", "data.test_n=32", "te.epochs=1",
              "dev.precision=bf16", "seed=1234"]
+STAGE2_ARGS = ["train", "with", "split=0", "data.dataset=SYNTH",
+               "data.height=401", "data.width=401", "shot=1", "query=1",
+               "data.bs=4", "data.train_n=24", "tr.total_epochs=1",
+               "data.test_bs=8", "data.test_n=16", "te.epochs=1",
+               "loss=cedt", "tr.lr=0.0035", "net.backbone=resnet50",
+               "net.backbone2=resnet50", "net.cm=True", "dev.precision=bf16",
+               "seed=1234"]
 TRAIN_ARGS = ["train", "with", "split=0", "data.dataset=SYNTH",
               "data.height=401", "data.width=401", "shot=1", "query=1",
               "data.bs=4", "data.train_n=24", "tr.total_epochs=1",
@@ -944,6 +956,258 @@ def train_path_phase(torch, K, M):
     return launches
 
 
+def stage2_path_phase(torch, K, M):
+    """The stage-2 cascade (``pemp_tpu_torch.entry.pemp_stage2``) at full
+    width: ``train`` (6 steps, online eval, chained test) from a seeded
+    stage-1 checkpoint, its launches, checkpoints and the frozen stage 1;
+    one eval batch of stage 2 with the kernels against the plain mpm on
+    the same prior; one f32 stage-2 train step with the kernels against
+    the plain mpm; the steady train and eval steps; one train step's
+    profile with the convolutions by input shape."""
+    from unittest import mock
+
+    from pemp_tpu_torch.config import Run
+    from pemp_tpu_torch.core import checkpoint as ckpt_lib
+    from pemp_tpu_torch.core import losses as loss_lib
+    from pemp_tpu_torch.core import solver
+    from pemp_tpu_torch.core.evaluator import make_fast_eval_step
+    from pemp_tpu_torch.core.trainer import Trainer
+    from pemp_tpu_torch.data import datasets
+    from pemp_tpu_torch.entry import pemp_stage1 as entry1
+    from pemp_tpu_torch.entry import pemp_stage2 as entry
+    from pemp_tpu_torch.models import pemp_stage1 as stage1
+    from pemp_tpu_torch.models.pemp_stage2 import PEMPStage2
+
+    device = torch.device("cuda")
+    built = []
+    build = entry.build_model
+
+    def keep(cfg, dev):
+        built.append(build(cfg, dev))
+        return built[-1]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # the frozen stage 1: a seed-initialised PEMPStage1 checkpoint
+        cfg1 = entry1.ex.assemble("test", {"split": "0", "seed": "1234"})
+        s1_path = Path(tmp) / "stage1.pt"
+        torch.save(entry1.build_model(cfg1, torch.device("cpu")).state_dict(),
+                   s1_path)
+        snapshot = torch.load(s1_path, map_location="cpu", weights_only=True)
+        args = STAGE2_ARGS + [f"s1.ckpt={s1_path}", f"g.model_dir={tmp}"]
+        K.reset_launches()
+        M.reset_launches()
+        t0 = time.perf_counter()
+        with mock.patch.object(entry, "build_model", keep):
+            result = entry.main(args)
+        wall = time.perf_counter() - t0
+        launches = {**K.launches, **M.launches, **K.backward_calls}
+        run_dir = Path(tmp) / "pemp_stage2" / str(result["train"]["run_id"])
+        files = sorted(p.name for p in run_dir.iterdir())
+        saved = {name: ckpt_lib.load(run_dir / name)["model"]
+                 for name in (ckpt_lib.CKPT, ckpt_lib.BEST)}
+        overrides = dict(a.split("=", 1) for a in args[2:])
+        # the models of the checks below, from the same stage-1 file
+        cfg_eval = entry.ex.assemble("test", overrides)
+        model = entry.build_model(cfg_eval, device)
+        cfg32 = entry.ex.assemble("train", {**overrides,
+                                            "dev.precision": "f32"})
+        base = entry.build_model(cfg32, device).train()
+
+    cfg = entry.ex.assemble("train", overrides)
+    losses = result["train"]["losses"]
+    steps = len(losses)
+    evals = 2 * -(-cfg.data.test_n // cfg.data.test_bs) * cfg.te.epochs
+    # a train step: stage 1's prior (assign, match) and stage 2 (assign,
+    # match, the backward's two kernels, the cedt EDT's two min-plus
+    # launches); an eval batch: both stages' assign and match
+    want = {"assign": 2 * (steps + evals), "match": 2 * (steps + evals),
+            "match_bwd": steps, "assign_bwd": steps, "minplus": 2 * steps,
+            "mpm_backward": steps}
+    if steps != cfg.data.train_n // cfg.data.bs or not all(
+            math.isfinite(x) for x in losses):
+        raise AssertionError(f"stage-2 train losses {losses}")
+    if launches != want:
+        raise AssertionError(f"stage-2 path launches {launches}, want {want}")
+    if files != sorted([ckpt_lib.BEST, ckpt_lib.CKPT]):
+        raise AssertionError(f"stage-2 run dir holds {files}")
+    if not math.isfinite(result["test"]["miou"]):
+        raise AssertionError(f"stage-2 chained test {result['test']}")
+    keys = PEMPStage2().state_dict()
+    for name, sd in saved.items():
+        if set(sd) != set(keys) or any(sd[k].shape != keys[k].shape
+                                       for k in keys):
+            raise AssertionError(f"{name} does not hold stage 2's keys only")
+    # the frozen stage 1 of the train run: weights and BN buffers bit-equal
+    after = {k: v.cpu() for k, v in built[0].stage1.state_dict().items()}
+    stage1_equal = set(after) == set(snapshot) and all(
+        torch.equal(after[k], v) for k, v in snapshot.items())
+    if not stage1_equal:
+        raise AssertionError("stage 1 changed while stage 2 trained")
+    del built[:]
+
+    def plain_chain(fts, sup_fg, sup_bg, ctr, protos, dist_scalar,
+                    return_indices=False):
+        s = sup_fg.shape[1]
+        return stage1.mpm_predict(fts[:, :s], fts[:, s:], sup_fg, sup_bg,
+                                  ctr, protos, dist_scalar, return_indices)
+
+    # one eval batch: stage 2 with the kernels against the plain mpm, both
+    # on the kernels' prior; the prior itself against the plain mpm's
+    ds, loader, _ = datasets.load(cfg_eval)
+    ds.sample_tasks()
+    ebatch = next(iter(loader))
+    t = {k: torch.from_numpy(ebatch[k]).to(device)
+         for k in ("sup_rgb", "sup_mask", "qry_rgb")}
+    with torch.no_grad():
+        prior = model.prior(t["sup_rgb"], t["sup_mask"], t["qry_rgb"])
+        lk = model.stage2(t["sup_rgb"], t["sup_mask"], t["qry_rgb"], prior)
+        before = dict(K.launches)
+        with mock.patch.object(stage1, "mpm_chain_packed", plain_chain):
+            prior_p = model.prior(t["sup_rgb"], t["sup_mask"], t["qry_rgb"])
+            lp = model.stage2(t["sup_rgb"], t["sup_mask"], t["qry_rgb"],
+                              prior)
+    torch.cuda.synchronize()
+    if K.launches != before:
+        raise AssertionError("the plain stage-2 forward launched a kernel")
+    want_shape = (cfg_eval.data.test_bs, cfg_eval.query, cfg_eval.data.height,
+                  cfg_eval.data.width, 2)
+    if tuple(lk.shape) != want_shape or not torch.isfinite(lk).all():
+        raise AssertionError(f"stage-2 logits {tuple(lk.shape)} (want "
+                             f"{want_shape}) or not finite")
+    err = (lk - lp).abs().max().item()
+    agree = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
+    prior_agree = (prior == prior_p).float().mean().item()
+    if agree < MAIN_AGREE or err > LOGIT_ATOL or prior_agree < MAIN_AGREE:
+        raise AssertionError(f"stage 2, kernels vs plain mpm: argmax "
+                             f"agreement {agree}, max abs err {err}, prior "
+                             f"agreement {prior_agree}")
+
+    # one f32 stage-2 step (TF32 off) on one prior: kernels vs plain mpm
+    base.freeze()
+    ds_t, loader_t, _ = datasets.load(cfg32, "train")
+    ds_t.sample_tasks()
+    batch = next(iter(loader_t))
+    tt = {k: torch.from_numpy(batch[k]).to(device)
+          for k in ("sup_rgb", "sup_mask", "qry_rgb", "qry_msk")}
+    base.set_dropout_generator(torch.Generator(device=device).manual_seed(5))
+    prior32 = base.prior(tt["sup_rgb"], tt["sup_mask"], tt["qry_rgb"])
+    loss_fn = loss_lib.get(cfg32)
+
+    def grads(stage2):
+        stage2.set_dropout_generator(
+            torch.Generator(device=device).manual_seed(7))
+        logits = stage2(tt["sup_rgb"], tt["sup_mask"], tt["qry_rgb"], prior32)
+        loss = loss_fn(logits.reshape(-1, *logits.shape[-3:]),
+                       tt["qry_msk"].reshape(-1, *tt["qry_msk"].shape[-2:]))
+        loss.backward()
+        return loss.item(), {k: p.grad.clone() for k, p in
+                             stage2.named_parameters() if p.requires_grad}
+
+    kernel_s2, plain_s2 = base.stage2, copy.deepcopy(base.stage2)
+    before = dict(K.launches)
+    loss_k, grads_k = grads(kernel_s2)
+    if any(K.launches[k] == before[k] for k in K.launches):
+        raise AssertionError(f"the kernel stage-2 step skipped an mpm "
+                             f"kernel: {before} -> {K.launches}")
+    before = dict(K.launches)
+    with mock.patch.object(stage1, "mpm_chain_packed", plain_chain):
+        loss_p, grads_p = grads(plain_s2)
+    torch.cuda.synchronize()
+    if K.launches != before:
+        raise AssertionError("the plain stage-2 step launched an mpm kernel")
+    # the CM linears' biases add one constant to the whole batch ahead of
+    # 1x1 convolutions and train-mode BNs, which remove it: their gradient
+    # is zero in exact arithmetic (rounding on either side), so each is
+    # held to zero against its weight's gradient instead of to the other
+    zero = [f"encoder.backbone.linear{i}.bias" for i in (1, 2, 3)]
+    zero_rel = max((g[k].abs().max() / g[k[:-4] + "weight"].abs().max()
+                    ).item() for g in (grads_k, grads_p) for k in zero)
+    rel = {k: ((grads_k[k] - grads_p[k]).norm()
+               / grads_p[k].norm().clamp(min=1e-30)).item()
+           for k in grads_p if k not in zero}
+    worst_leaf = max(rel, key=rel.get)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    if (loss_rel > TRAIN_LOSS_RTOL or rel[worst_leaf] > TRAIN_GRAD_RTOL
+            or zero_rel > TRAIN_GRAD_RTOL):
+        raise AssertionError(f"f32 stage-2 step kernels vs plain: loss rel "
+                             f"{loss_rel}, worst grad {worst_leaf} rel L2 "
+                             f"{rel[worst_leaf]}, CM bias grads "
+                             f"{zero_rel} of their weights'")
+    del base, kernel_s2, plain_s2, grads_k, grads_p
+
+    # steady train step (bf16, as the entry ran) and eval step: host clock
+    model.train()
+    params = model.freeze()
+    opt = solver.make_optimizer(cfg.tr, params)
+    trainer = Trainer(cfg, Run(None, None), model, opt, params,
+                      loss_lib.get(cfg), solver.LRPolicy(cfg.tr, 100), device,
+                      weights=model.stage2)
+    model.set_dropout_generator(torch.Generator(device=device).manual_seed(0))
+    ds_t, loader_t, _ = datasets.load(cfg, "train")
+    ds_t.sample_tasks()
+    batch = next(iter(loader_t))
+
+    def host_ms(fn, warm=3, n=10):
+        for _ in range(warm):
+            fn()
+        torch.cuda.synchronize()
+        samples = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            samples.append(time.perf_counter() - t0)
+        return statistics.median(samples) * 1e3
+
+    step_ms = host_ms(lambda: trainer.train_step(batch))
+    prof = device_profile(torch, lambda: trainer.train_step(batch), {
+        "mpm_kernels": ["assign_kernel", "match_kernel"],
+        "mpm_backward_kernels": ["match_bwd_kernel", "assign_bwd_kernel"],
+        "minplus_kernel": ["minplus_kernel"]}, ("",))
+    # every convolution's kernels by the op's input shape: the CM stages'
+    # first convolutions (4, 66, 258 and 514 input channels) among them
+    convs = [g for g in prof.pop("by_input_shape") if "conv" in g["op"]]
+    odd_shape = re.compile(r"\[\d+, (4|66|258|514), \d+, \d+\]")
+    odd = [g for g in convs if odd_shape.search(g["input_shapes"])]
+    prof["conv_by_input_shape_top"] = convs[:12]
+    prof["conv_odd_channels_us"] = sum(g["us"] for g in odd)
+    prof["conv_odd_channels_top"] = odd[:12]
+    model.eval()
+    eval_step = make_fast_eval_step(model, device)
+    eval_ms = host_ms(lambda: eval_step(ebatch))
+    eval_prof = device_profile(torch, lambda: eval_step(ebatch), {
+        "mpm_kernels": ["assign_kernel", "match_kernel"]})
+    del trainer, opt, params, model
+    emit({"phase": "stage2_path", "args": STAGE2_ARGS, "wall_s": wall,
+          "steps": steps, "losses": losses, "launches": launches,
+          "launches_expected": want, "run_files": files,
+          "checkpoint_keys": len(keys), "stage1_bit_equal": stage1_equal,
+          "best_iou": result["train"]["best_iou"], "test": result["test"],
+          "eval_vs_plain": {"logits_max_abs_err": err,
+                            "argmax_agreement": agree,
+                            "prior_agreement": prior_agree,
+                            "tolerance": {"logit_atol": LOGIT_ATOL,
+                                          "agree": MAIN_AGREE}},
+          "f32_step_vs_plain": {"loss_kernels": loss_k, "loss_plain": loss_p,
+                                "loss_rel_err": loss_rel,
+                                "grad_max_rel_l2": rel[worst_leaf],
+                                "grad_worst_leaf": worst_leaf,
+                                "grad_leaves": len(rel),
+                                "cm_bias_grad_vs_weight_grad": zero_rel,
+                                "tolerance": {"loss_rtol": TRAIN_LOSS_RTOL,
+                                              "grad_rel_l2": TRAIN_GRAD_RTOL}},
+          "steady_step_ms": step_ms,
+          "steady_episodes_per_s": cfg.data.bs / step_ms * 1e3,
+          "train_device_idle_share": 1 - prof["device_us_total"] / 1e3
+          / step_ms,
+          "steady_eval_step_ms": eval_ms,
+          "steady_eval_episodes_per_s": cfg.data.test_bs / eval_ms * 1e3,
+          "eval_device_idle_share": 1 - eval_prof["device_us_total"] / 1e3
+          / eval_ms,
+          "profile": prof, "eval_profile": eval_prof})
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -971,14 +1235,16 @@ def main() -> int:
     mp_times, mp_bounds = minplus_phase(torch)
     bw_times, bw_bound, bw_worst = mpm_backward_phase(torch, K, plain)
     train_launches = train_path_phase(torch, K, M)
+    stage2_launches = stage2_path_phase(torch, K, M)
 
     # one row per TPU kernel K1-K5. assign and match are one __global__
     # each; the chain (K3, mpm.py:342) is those two launches on the packed
     # tensor and has none of its own (its launches: its calls on the main
     # path, one assign and one match launch each). The mpm rows' launches
     # are the eval path's (their slice), train_path_launches the training
-    # path's. minplus: one EDT = its two launches (ms, plain_ms and
-    # bound_ms add both phases at the train shapes). mpm_backward (K4):
+    # path's, stage2_path_launches the stage-2 cascade's. minplus: one EDT
+    # = its two launches (ms, plain_ms and bound_ms add both phases at the
+    # train shapes). mpm_backward (K4):
     # its two kernels, match_bwd and assign_bwd, one launch each per
     # backward pass of the training path.
     mpm_cu = "pemp_tpu_torch/ops/kernels/csrc/mpm.cu"
@@ -986,6 +1252,7 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": mpm_cu,
          "replaces": replaces, "launches": launches[name],
          "train_path_launches": train_launches[name],
+         "stage2_path_launches": stage2_launches[name],
          "max_abs_err": worst[name], "ms": times[name],
          "plain_ms": times[f"{name}_plain"], "bound_ms": bounds[name][0],
          "bound_by": bounds[name][1], "library_ms": None}
@@ -995,6 +1262,8 @@ def main() -> int:
         "name": "chain", "route": "cuda", "source": mpm_cu,
         "replaces": "pemp_tpu/ops/pallas/mpm.py:342",
         "launches": launches["match"],
+        "train_path_launches": train_launches["match"],
+        "stage2_path_launches": stage2_launches["match"],
         "max_abs_err": worst["chain"], "ms": times["chain"],
         "plain_ms": times["chain_plain"], "bound_ms": bounds["chain"][0],
         "bound_by": bounds["chain"][1], "library_ms": None,
@@ -1007,6 +1276,7 @@ def main() -> int:
         "launches": train_launches["mpm_backward"],
         "kernel_launches": {k: train_launches[k]
                             for k in ("match_bwd", "assign_bwd")},
+        "stage2_path_launches": stage2_launches["mpm_backward"],
         "max_abs_err": bw_worst, "ms": bw_times["bfloat16"],
         "ms_no_spin": bw_times["bfloat16_no_spin"],
         "plain_ms": bw_times["bfloat16_plain"],
@@ -1021,6 +1291,7 @@ def main() -> int:
         "source": "pemp_tpu_torch/ops/kernels/csrc/minplus.cu",
         "replaces": "pemp_tpu/ops/pallas/minplus.py:47",
         "launches": train_launches["minplus"], "max_abs_err": 0.0,
+        "stage2_path_launches": stage2_launches["minplus"],
         "ms": mp_times["phase1"] + mp_times["phase2"],
         "plain_ms": mp_times["phase1_plain"] + mp_times["phase2_plain"],
         "bound_ms": mp_bounds["phase1"][0] + mp_bounds["phase2"][0],

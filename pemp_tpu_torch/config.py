@@ -3,9 +3,10 @@
 Counterpart of the part of ``pemp_tpu/config/base.py`` and
 ``pemp_tpu/config/cli.py`` that the ``train`` and ``test`` commands need:
 scopes ``g`` (run directories), ``dev`` (device and precision; the JAX
-package's ``tpu`` scope), ``data``, ``tr``, ``te`` and the per-entry
-``net``, plus the top-level keys; dotted ``a.b=value`` overrides; the
-``print_config`` and ``help`` commands.
+package's ``tpu`` scope), ``data``, ``tr``, ``te``, ``s1`` (stage 2's
+frozen stage 1) and the per-entry ``net``, plus the top-level keys;
+dotted ``a.b=value`` overrides; the ``print_config`` and ``help``
+commands.
 
 ``train`` records its run into ``<g.model_dir>/<tag>/<id>/`` (an
 auto-incremented integer id; ``resume=True exp_id=<id>`` reuses the
@@ -89,6 +90,17 @@ class TestConfig:
 
 
 @dataclass
+class Stage1RefConfig:
+    """Scope ``s1``: the frozen stage-1 checkpoint of the stage-2 cascade
+    (reference entry/pemp_stage2.py:39-42): ``ckpt`` as a path, else
+    ``g.model_dir/<tag or pemp_stage1>/<id>/<ckpt or bestckpt.pt,
+    ckpt.pt>``."""
+    id: int = -1
+    ckpt: str = ""
+    tag: str = ""
+
+
+@dataclass
 class Config:
     """Top-level experiment config (reference entry/baseline.py:24-41)."""
     tag: str = "default"
@@ -107,6 +119,7 @@ class Config:
     data: DataConfig = field(default_factory=DataConfig)
     tr: TrainConfig = field(default_factory=TrainConfig)
     te: TestConfig = field(default_factory=TestConfig)
+    s1: Stage1RefConfig = field(default_factory=Stage1RefConfig)
     # ``net`` is installed per entry with the model's own dataclass.
     net: Any = None
 

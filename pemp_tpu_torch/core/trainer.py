@@ -70,15 +70,19 @@ class GracefulStop:
 
 class Trainer:
     """Trains ``model`` (already in train mode, frozen parameters marked)
-    with ``optimizer`` over ``params``, the parameters that train."""
+    with ``optimizer`` over ``params``, the parameters that train. The
+    checkpoints hold the ``state_dict`` of ``weights`` (default ``model``;
+    the stage-2 cascade's is its stage 2)."""
 
     def __init__(self, cfg, run, model: torch.nn.Module,
                  optimizer: torch.optim.Optimizer,
                  params: List[torch.nn.Parameter], loss_fn: Callable,
                  lr_policy: solver.LRPolicy, device: torch.device,
-                 logger: Optional[logging.Logger] = None):
+                 logger: Optional[logging.Logger] = None,
+                 weights: Optional[torch.nn.Module] = None):
         self.cfg = cfg
         self.model = model
+        self.weights = model if weights is None else weights
         self.optimizer = optimizer
         self.params = params
         self.loss_fn = loss_fn
@@ -137,7 +141,7 @@ class Trainer:
             path = self.model_dir / ckpt_lib.CKPT
         else:
             return None
-        ckpt_lib.save(path, self.model, self.optimizer, epoch,
+        ckpt_lib.save(path, self.weights, self.optimizer, epoch,
                       extra=self._resume_extra(lr_state))
         if final:
             self.logger.info(f" \\_/ Save checkpoint to {path}")
@@ -150,7 +154,7 @@ class Trainer:
         if not path.exists():
             return 0
         payload = ckpt_lib.load(path)
-        self.model.load_state_dict(payload["model"])
+        self.weights.load_state_dict(payload["model"])
         if payload.get("optimizer"):
             self.optimizer.load_state_dict(payload["optimizer"])
         extra = payload.get("extra", {})
@@ -234,7 +238,7 @@ class Trainer:
         if miou > self.best_iou:
             self.best_iou, self.best_epoch = miou, epoch
             if self.do_ckpt:
-                ckpt_lib.save(self.model_dir / ckpt_lib.BEST, self.model,
+                ckpt_lib.save(self.model_dir / ckpt_lib.BEST, self.weights,
                               self.optimizer, epoch)
                 best = True
         return float(mloss), miou, biou, best

@@ -23,7 +23,7 @@ import logging
 import random
 import sys
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -47,8 +47,8 @@ base_cfg.tr.grad_clip = 1.1     # reference entry/pemp_stage1.py:63
 ex = Experiment(NAME, base_cfg)
 
 
-def _logger() -> logging.Logger:
-    logger = logging.getLogger(f"pemp_tpu_torch.{NAME}")
+def get_logger(name: str) -> logging.Logger:
+    logger = logging.getLogger(f"pemp_tpu_torch.{name}")
     if not logger.handlers:
         handler = logging.StreamHandler(sys.stdout)
         handler.setFormatter(logging.Formatter(
@@ -82,16 +82,28 @@ def build_model(cfg, device: torch.device) -> PEMPStage1:
         block_size=net.block_size, dist_scalar=net.dist_scalar,
         init_channels=net.init_channels,
         compute_dtype=set_precision(cfg.dev.precision))
+    init_weights(model, cfg)
+    return model.to(device, memory_format=torch.channels_last).eval()
+
+
+def init_weights(model, cfg) -> None:
+    """``model``'s weights from the checkpoint ``cfg.ckpt`` names, or drawn
+    from ``cfg.seed`` when it names none."""
     path = find_checkpoint(cfg)
     if path is None:
         model.reset_parameters(torch.Generator().manual_seed(cfg.seed))
-    elif path.suffix == ".msgpack":
+    else:
+        load_weights(model, path)
+
+
+def load_weights(model, path: Path) -> None:
+    """Load a ``.pt`` checkpoint (the trainer's ``{"model": ...}`` dict or a
+    bare state_dict) into ``model``, every key present."""
+    if path.suffix == ".msgpack":
         raise NotImplementedError(
             "reading the JAX package's .msgpack checkpoints is not ported "
             "yet; convert with state_dict_from_jax and torch.save a .pt")
-    else:
-        model.load_state_dict(ckpt_lib.model_state(ckpt_lib.load(path)))
-    return model.to(device, memory_format=torch.channels_last).eval()
+    model.load_state_dict(ckpt_lib.model_state(ckpt_lib.load(path)))
 
 
 def find_checkpoint(cfg) -> Optional[Path]:
@@ -107,13 +119,14 @@ def find_checkpoint(cfg) -> Optional[Path]:
     return path
 
 
-def run_test(cfg) -> Dict[str, float]:
-    """The ``test`` command: returns loss, mIoU, bIoU (fractions), the
-    episodes/s of the eval steps and the device the run used."""
-    logger = _logger()
+def run_test(cfg, build: Callable = build_model) -> Dict[str, float]:
+    """The ``test`` command of the model ``build(cfg, device)`` returns:
+    returns loss, mIoU, bIoU (fractions), the episodes/s of the eval steps
+    and the device the run used."""
+    logger = get_logger(cfg.tag)
     device = resolve_device(cfg.dev.device)
     test_ds, test_loader, num_classes = datasets.load(cfg)
-    model = build_model(cfg, device)
+    model = build(cfg, device)
     evaluator = Evaluator(cfg, make_fast_eval_step(model, device),
                           datasets.get_val_labels(cfg, cfg.split), logger)
     logger.info(f"Start testing on {device}.")
@@ -127,22 +140,25 @@ def run_test(cfg) -> Dict[str, float]:
     return result
 
 
-def _train(cfg, run) -> Dict:
-    """Train on the device; returns the run id, every step's loss, the
-    best online-eval mIoU and its epoch, and whether a signal stopped it."""
-    logger = _logger()
+def _train(cfg, run, build: Callable = build_model,
+           weights: Callable = lambda model: model) -> Dict:
+    """Train the model ``build(cfg, device)`` returns, on the device, with
+    checkpoints of ``weights(model)``; returns the run id, every step's
+    loss, the best online-eval mIoU and its epoch, and whether a signal
+    stopped it."""
+    logger = get_logger(cfg.tag)
     device = resolve_device(cfg.dev.device)
     random.seed(cfg.seed)
     np.random.seed(cfg.seed)
     train_ds, train_loader, _ = datasets.load(cfg, "train")
     val_ds, val_loader, num_classes = datasets.load(cfg, "eval_online")
-    model = build_model(cfg, device).train()
+    model = build(cfg, device).train()
     params = model.freeze()
     optimizer = solver.make_optimizer(cfg.tr, params)
     lr_policy = solver.LRPolicy(cfg.tr, cfg.tr.total_epochs
                                 * len(train_loader))
     trainer = Trainer(cfg, run, model, optimizer, params, loss_lib.get(cfg),
-                      lr_policy, device, logger)
+                      lr_policy, device, logger, weights=weights(model))
     evaluator = Evaluator(cfg, make_fast_eval_step(model, device),
                           datasets.get_val_labels(cfg, cfg.split), logger,
                           mode="EVAL_ONLINE")
@@ -156,14 +172,15 @@ def _train(cfg, run) -> Dict:
             "preempted": trainer.preempted, "device": str(device)}
 
 
-def run_train(cfg, run) -> Dict:
+def run_train(cfg, run, build: Callable = build_model,
+              weights: Callable = lambda model: model) -> Dict:
     """The ``train`` command: ``{"train": <_train's summary>}`` plus, for a
     recorded run that was not stopped, ``"test"``: the chained ``test``
     of ``bestckpt.pt``."""
-    result = {"train": _train(cfg, run)}
+    result = {"train": _train(cfg, run, build, weights)}
     if run._id is not None and not result["train"]["preempted"]:
         cfg.exp_id, cfg.ckpt = run._id, ckpt_lib.BEST
-        result["test"] = run_test(cfg)
+        result["test"] = run_test(cfg, build)
     return result
 
 

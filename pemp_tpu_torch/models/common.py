@@ -1,7 +1,8 @@
 """Shared model plumbing: purifier head, mask downsampling, output resize.
 
-Counterpart of ``pemp_tpu/models/common.py`` (``PurifierV2``,
-``downsample_masks``, ``output_resize``, ``RESNET_LAYERS``).
+Counterpart of ``pemp_tpu/models/common.py`` (``PurifierV1``,
+``PurifierV2``, ``downsample_masks``, ``output_resize``,
+``RESNET_LAYERS``).
 """
 
 from __future__ import annotations
@@ -11,7 +12,9 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from pemp_tpu_torch.models.layers import ASPPV2, Conv, DropBlock
+from pemp_tpu_torch.models.layers import (
+    ASPP, ASPPV2, Conv, DropBlock, Dropout2d,
+)
 from pemp_tpu_torch.ops.resize import resize_bilinear_align_corners, resize_nearest
 
 RESNET_LAYERS = {"resnet50": (3, 4, 6), "resnet101": (3, 4, 23)}
@@ -30,6 +33,19 @@ class PurifierV2(nn.Sequential):
             Conv(256, 256, 3, padding=1), nn.ReLU(),
             DropBlock(drop_rate, block_size),
             ASPPV2(256, 256, out_channels, drop_rate, block_size))
+
+
+class PurifierV1(nn.Sequential):
+    """Stage-2 purifier: 1x1 conv -> Dropout2d -> 3x3 conv -> Dropout2d ->
+    ASPP (reference networks/pemp_stage2.py:65-72). Indices follow the
+    reference ``state_dict``: ``0`` conv1, ``3`` conv2, ``6`` ASPP."""
+
+    def __init__(self, in_channels: int = 1024, out_channels: int = 512,
+                 drop_rate: float = 0.5):
+        super().__init__(
+            Conv(in_channels, 256, 1), nn.ReLU(), Dropout2d(drop_rate),
+            Conv(256, 256, 3, padding=1), nn.ReLU(), Dropout2d(drop_rate),
+            ASPP(256, 256, out_channels, drop_rate))
 
 
 def downsample_masks(sup_mask: torch.Tensor, hw: Tuple[int, int]):

@@ -16,7 +16,9 @@ the ``MPMChainPacked`` autograd Function.
 Training is ``model.train()``: BatchNorms use batch statistics and update
 their running stats, DropBlocks drop. ``freeze()`` applies ``FROZEN``:
 the backbone BatchNorms keep batch statistics but their affine
-parameters do not train (reference backbones.py:56-62).
+parameters do not train (reference backbones.py:56-62). ``PEMPModel``
+holds what stage 2 (``models/pemp_stage2.py``) shares with stage 1, and
+``predict`` the path from the encoder's features to the logits.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from pemp_tpu_torch.models.backbones import ResNet
 from pemp_tpu_torch.models.common import (
     RESNET_LAYERS, PurifierV2, downsample_masks, output_resize,
 )
-from pemp_tpu_torch.models.layers import DropBlock
+from pemp_tpu_torch.models.layers import DropBlock, Dropout2d
 from pemp_tpu_torch.ops.kernels.mpm import mpm_chain_packed
 from pemp_tpu_torch.ops.prototypes import (
     masked_average_pooling, meta_prototype_assign, prototype_predictions,
@@ -42,7 +44,8 @@ from pemp_tpu_torch.ops.resize import resize_nearest
 
 @dataclass
 class NetConfig:
-    """Scope ``net`` (reference networks/pemp_stage1.py:21-29)."""
+    """Scope ``net`` (reference networks/pemp_stage1.py:21-29 and
+    pemp_stage2.py:14-19)."""
     dist_scalar: float = 20.0
     init_channels: int = 3
     out_channels: int = 512
@@ -50,6 +53,12 @@ class NetConfig:
     protos: int = 3
     drop_rate: float = 0.1
     block_size: int = 4
+    # stage 2 (``models/pemp_stage2.py``) reads these; both stages share
+    # the scope, as the JAX package's and the reference's do
+    backbone2: str = "resnet50"     # resnet50 | resnet101
+    protos2: int = 3
+    drop_rate2: float = 0.5
+    cm: bool = True                 # the JAX package reads it nowhere
 
 
 def mpm_predict(sup_fts, qry_fts, sup_fg, sup_bg, ctr, protos, dist_scalar,
@@ -90,6 +99,28 @@ def response_map(logits, indices, protos):
     return torch.where(fg_wins, indices[..., 1] + protos, indices[..., 0])
 
 
+def predict(fts, sup_mask, q, ctr, protos, dist_scalar, out_hw, ret_ind):
+    """The encoder's channels_last features [B*(S+Q), c, h, w] -> the mpm
+    -> logits [B,Q,*out_hw,2] (and with ``ret_ind`` the response map
+    [B,Q,*out_hw]); ``out_hw=None`` keeps feature resolution."""
+    b, s = sup_mask.shape[:2]
+    c, h, w = fts.shape[1:]
+    # channels_last NCHW -> NHWC is a view; so is the reshape
+    fts = fts.permute(0, 2, 3, 1).reshape(b, s + q, h * w, c)
+    sup_fg, sup_bg = downsample_masks(sup_mask, (h, w))
+    out = mpm_predict_packed(fts.contiguous(), s, sup_fg, sup_bg, ctr,
+                             protos, dist_scalar, ret_ind=ret_ind)
+    if ret_ind:
+        logits, indices = out
+        logits = logits.reshape(b, q, h, w, 2)
+        resp = response_map(logits, indices.reshape(b, q, h, w, 2), protos)
+        if out_hw is not None:
+            resp = resize_nearest(resp.reshape(b * q, h, w, 1), out_hw)
+            resp = resp.reshape(b, q, *out_hw)
+        return output_resize(logits, out_hw), resp
+    return output_resize(out.reshape(b, q, h, w, 2), out_hw)
+
+
 class Encoder(nn.Module):
     def __init__(self, backbone: str, out_channels: int, drop_rate: float,
                  block_size: int, init_channels: int = 3, layers=None):
@@ -107,38 +138,27 @@ class Encoder(nn.Module):
         return self.purifier(self.backbone(x))
 
 
-class PEMPStage1(nn.Module):
-    """``state_dict`` keys follow the reference checkpoint layout
-    (``encoder.backbone.*``, ``encoder.purifier.*``, ``ctr``).
-    ``layers`` overrides the ResNet depth (tests build ``(1, 1, 1)``)."""
+class PEMPModel(nn.Module):
+    """What both PEMP stages share: ``state_dict`` keys in the reference
+    checkpoint layout (``encoder.backbone.*``, ``encoder.purifier.*``,
+    ``ctr``), the frozen backbone BNs, the init and the dropout
+    generator. Subclasses set ``encoder`` and ``ctr``."""
 
     # module types under ``encoder.backbone`` whose parameters do not
-    # train (both ResNets). The JAX package's regex ``backbone/.*bn`` also matches its
-    # ``downsample_bn``; here that module is ``layerK.0.downsample.1``, so
-    # the rule goes by module type, not by name.
+    # train (every ResNet). The JAX package's regex ``backbone/.*bn`` also
+    # matches its ``downsample_bn``; here that module is
+    # ``layerK.0.downsample.1``, so the rule goes by module type, not by
+    # name.
     FROZEN = (nn.BatchNorm2d,)
-
-    def __init__(self, backbone: str = "resnet50", out_channels: int = 512,
-                 protos: int = 3, drop_rate: float = 0.1, block_size: int = 4,
-                 dist_scalar: float = 20.0, init_channels: int = 3,
-                 compute_dtype: torch.dtype = torch.float32, layers=None):
-        super().__init__()
-        self.encoder = Encoder(backbone, out_channels, drop_rate, block_size,
-                               init_channels, layers)
-        self.protos = protos
-        self.dist_scalar = dist_scalar
-        self.compute_dtype = compute_dtype
-        self.ctr = (nn.Parameter(torch.rand(out_channels, 2 * protos))
-                    if protos > 0 else None)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Re-draw every weight from ``generator`` with torch's default
-        inits (conv kaiming-uniform a=sqrt(5) and U(+-1/sqrt(fan_in))
-        bias, BN ones/zeros with fresh running stats) and ``ctr`` from
-        U[0,1) like ``torch.rand`` (reference :105)."""
+        inits (conv and linear kaiming-uniform a=sqrt(5) and
+        U(+-1/sqrt(fan_in)) bias, BN ones/zeros with fresh running stats)
+        and ``ctr`` from U[0,1) like ``torch.rand`` (reference :105)."""
         for m in self.modules():
-            if isinstance(m, nn.Conv2d):
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
                 nn.init.kaiming_uniform_(m.weight, a=math.sqrt(5),
                                          generator=generator)
                 if m.bias is not None:
@@ -162,10 +182,28 @@ class PEMPStage1(nn.Module):
 
     def set_dropout_generator(self, generator: Optional[torch.Generator]
                               ) -> None:
-        """The generator every DropBlock draws from in train mode."""
+        """The generator every DropBlock and Dropout2d draws from in train
+        mode."""
         for m in self.modules():
-            if isinstance(m, DropBlock):
+            if isinstance(m, (DropBlock, Dropout2d)):
                 m.generator = generator
+
+
+class PEMPStage1(PEMPModel):
+    """``layers`` overrides the ResNet depth (tests build ``(1, 1, 1)``)."""
+
+    def __init__(self, backbone: str = "resnet50", out_channels: int = 512,
+                 protos: int = 3, drop_rate: float = 0.1, block_size: int = 4,
+                 dist_scalar: float = 20.0, init_channels: int = 3,
+                 compute_dtype: torch.dtype = torch.float32, layers=None):
+        super().__init__()
+        self.encoder = Encoder(backbone, out_channels, drop_rate, block_size,
+                               init_channels, layers)
+        self.protos = protos
+        self.dist_scalar = dist_scalar
+        self.compute_dtype = compute_dtype
+        self.ctr = (nn.Parameter(torch.rand(out_channels, 2 * protos))
+                    if protos > 0 else None)
 
     def forward(self, sup_img, sup_mask, qry_img,
                 out_hw: Optional[Tuple[int, int]] = "input",
@@ -184,20 +222,5 @@ class PEMPStage1(nn.Module):
         with torch.autocast(imgs.device.type, dtype=torch.bfloat16,
                             enabled=self.compute_dtype == torch.bfloat16):
             fts = self.encoder(imgs)
-        c, h, w = fts.shape[1:]
-        # channels_last NCHW -> NHWC is a view; so is the reshape
-        fts = fts.permute(0, 2, 3, 1).reshape(b, s + q, h * w, c)
-        sup_fg, sup_bg = downsample_masks(sup_mask, (h, w))
-        out = mpm_predict_packed(fts.contiguous(), s, sup_fg, sup_bg,
-                                 self.ctr, self.protos, self.dist_scalar,
-                                 ret_ind=ret_ind)
-        if ret_ind:
-            logits, indices = out
-            logits = logits.reshape(b, q, h, w, 2)
-            resp = response_map(logits, indices.reshape(b, q, h, w, 2),
-                                self.protos)
-            if out_hw is not None:
-                resp = resize_nearest(resp.reshape(b * q, h, w, 1), out_hw)
-                resp = resp.reshape(b, q, *out_hw)
-            return output_resize(logits, out_hw), resp
-        return output_resize(out.reshape(b, q, h, w, 2), out_hw)
+        return predict(fts, sup_mask, q, self.ctr, self.protos,
+                       self.dist_scalar, out_hw, ret_ind)

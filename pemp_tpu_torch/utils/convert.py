@@ -1,14 +1,18 @@
 """Carry the JAX package's weights into the port.
 
 ``state_dict_from_jax(params, batch_stats)`` takes the nested numpy trees
-of a ``pemp_tpu`` PEMP stage-1 model (``variables["params"]`` and
-``variables["batch_stats"]``) and returns the port's ``state_dict``:
+of a ``pemp_tpu`` PEMP stage-1 or stage-2 model (``variables["params"]``
+and ``variables["batch_stats"]``) and returns the port's ``state_dict``:
 
 - Flax convs live under ``.../<name>/Conv_0/{kernel,bias}``; kernels go
   from HWIO to OIHW;
 - Flax BatchNorms live under ``.../<name>/BatchNorm_0/{scale,bias}`` and
   ``batch_stats .../BatchNorm_0/{mean,var}``; they become
   ``weight/bias/running_mean/running_var`` (plus ``num_batches_tracked``);
+- stage 2's communication modules' ``backbone/cm{i}/linear/{kernel,bias}``
+  become ``encoder.backbone.linear{i}.{weight (kernel transposed), bias}``
+  (``tools/export_reference_ckpt.py:195-200``), its purifier's
+  ``aspp/aspp_k`` convs ``encoder.purifier.6.aspp_k.0``;
 - ``ctr`` is copied as is.
 
 The port's keys are the reference checkpoint's (``encoder.backbone.*``,
@@ -44,6 +48,8 @@ def _module_key(path: Tuple[str, ...]) -> str:
         if len(rest) == 2 and rest[0] == "aspp":
             if rest[1] == "layer6":
                 return "encoder.purifier.6.layer6"
+            if re.fullmatch(r"aspp_\d", rest[1]):               # stage 2
+                return f"encoder.purifier.6.{rest[1]}.0"
             m = re.fullmatch(r"(aspp_\d)_(bn|conv)", rest[1])
             if m is not None:
                 idx = "0" if m[2] == "bn" else "2"
@@ -61,8 +67,8 @@ def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()):
 
 def state_dict_from_jax(params: Mapping, batch_stats: Mapping
                         ) -> Dict[str, torch.Tensor]:
-    """JAX PEMP stage-1 ``params`` / ``batch_stats`` trees -> the port's
-    ``state_dict`` (float32 tensors; ``num_batches_tracked`` 0)."""
+    """JAX PEMP stage-1 or stage-2 ``params`` / ``batch_stats`` trees -> the
+    port's ``state_dict`` (float32 tensors; ``num_batches_tracked`` 0)."""
     sd: Dict[str, torch.Tensor] = {}
 
     def put(key, value):
@@ -73,6 +79,15 @@ def state_dict_from_jax(params: Mapping, batch_stats: Mapping
             put("ctr", leaf)
             continue
         layer, name = path[-2], path[-1]
+        cm = re.fullmatch(r"backbone/cm(\d)/linear/(kernel|bias)",
+                          "/".join(path))
+        if cm is not None:
+            key = f"encoder.backbone.linear{cm[1]}"
+            if cm[2] == "kernel":
+                put(f"{key}.weight", leaf.T)
+            else:
+                put(f"{key}.bias", leaf)
+            continue
         key = _module_key(path[:-2])
         if layer == "Conv_0":
             put(f"{key}.{'weight' if name == 'kernel' else 'bias'}",

@@ -1,7 +1,8 @@
-"""state_dict_from_jax: every conv and BN leaf of a JAX PEMP stage-1 model
-lands in the right tensor of the port, and the port's keys are the
-reference checkpoint layout that tools/export_reference_ckpt.py writes.
-Exact equality: the conversion only transposes and copies.
+"""state_dict_from_jax: every conv, BN and linear leaf of a JAX PEMP
+stage-1 or stage-2 model lands in the right tensor of the port, and the
+port's keys are the reference checkpoint layout that
+tools/export_reference_ckpt.py writes. Exact equality: the conversion only
+transposes and copies.
 """
 
 import numpy as np
@@ -12,19 +13,25 @@ import jax
 import jax.numpy as jnp
 
 from pemp_tpu.models.pemp_stage1 import PEMPStage1 as JaxPEMPStage1
+from pemp_tpu.models.pemp_stage2 import PEMPStage2 as JaxPEMPStage2
 from pemp_tpu_torch.models.pemp_stage1 import PEMPStage1
+from pemp_tpu_torch.models.pemp_stage2 import PEMPStage2
 from pemp_tpu_torch.utils.convert import state_dict_from_jax
 from tools.export_reference_ckpt import export_trained
 
 
-def _random_trees(backbone, seed=0):
+def _random_trees(backbone, seed=0, stage=1):
     """JAX param / batch_stats trees of the model, filled from numpy
     (shapes from eval_shape: no init compute)."""
-    model = JaxPEMPStage1(backbone=backbone)
     x = jnp.zeros((1, 1, 33, 33, 3))
     m = jnp.zeros((1, 1, 33, 33, 2))
+    if stage == 1:
+        model, args = JaxPEMPStage1(backbone=backbone), (x, m, x)
+    else:
+        model = JaxPEMPStage2(backbone=backbone, spq=2)
+        args = (x, m, x, jnp.zeros((1, 1, 33, 33)))
     shapes = jax.eval_shape(lambda: model.init(
-        {"params": jax.random.PRNGKey(0)}, x, m, x))
+        {"params": jax.random.PRNGKey(0)}, *args))
     rng = np.random.RandomState(seed)
     fill = lambda s: rng.randn(*s.shape).astype(np.float32)  # noqa: E731
     return (jax.tree_util.tree_map(fill, shapes["params"]),
@@ -73,6 +80,36 @@ def test_state_dict_from_jax_round_trip(backbone):
     assert set(ref) == set(ours)
     for k, v in ref.items():
         np.testing.assert_array_equal(ours[k].numpy(), v, err_msg=k)
+
+
+def test_stage2_state_dict_from_jax_matches_the_reference_export():
+    """ResNetCM + PurifierV1: the 4-channel stem, +2 input channels on each
+    stage's first block, the CM linears (kernel transposed) and the ASPP
+    branch convs, under the keys and shapes of the reference .pth."""
+    params, stats = _random_trees("resnet50", seed=1, stage=2)
+    sd = state_dict_from_jax(params, stats)
+    port = PEMPStage2(backbone="resnet50")
+    port.load_state_dict(sd, strict=True)
+    got = {k: v for k, v in port.state_dict().items()
+           if not k.endswith("num_batches_tracked")}
+    ref = export_trained("pemp_stage2", "resnet50", params, stats)
+    assert set(ref) == set(got)
+    for k, v in ref.items():
+        assert tuple(got[k].shape) == np.shape(v), k
+        np.testing.assert_array_equal(got[k].numpy(), v, err_msg=k)
+    bb = "encoder.backbone"
+    assert tuple(got[f"{bb}.conv1.weight"].shape) == (64, 4, 7, 7)
+    for si, cin in ((1, 66), (2, 258), (3, 514)):
+        for key in (f"layer{si}.0.conv1", f"layer{si}.0.downsample.0"):
+            assert got[f"{bb}.{key}.weight"].shape[1] == cin, key
+        assert got[f"{bb}.linear{si}.weight"].shape == (2, 2 * (cin - 2))
+    np.testing.assert_array_equal(
+        got[f"{bb}.linear2.weight"].numpy(),
+        params["backbone"]["cm2"]["linear"]["kernel"].T)
+    np.testing.assert_array_equal(
+        got["encoder.purifier.6.aspp_3.0.weight"].numpy(),
+        params["purifier"]["aspp"]["aspp_3"]["Conv_0"]["kernel"]
+        .transpose(3, 2, 0, 1))
 
 
 @pytest.mark.parametrize("path,layer", [
