@@ -17,6 +17,13 @@ SYNTH episodes):
   PurifierV1 behind a frozen, seed-initialised stage 1, cedt, lr 0.0035),
   six steps, the online eval and the chained ``test``, with the f32 step
   and one eval batch held against the plain mpm (``stage2_path``);
+- PEMP with ``net.backbone=vgg16``: both stages' ``train`` entries (VGG16,
+  then VGG16CM behind that run's stage 1, clip 1.1), their launches per
+  step and per eval batch, the kernels on the VGG features, one eval
+  batch of each stage and one f32 step against the plain mpm
+  (``vgg_path``);
+- Baseline and PANet (VGG16): their ``train`` entries, which launch no
+  kernel, and their steady steps (``baseline_path``, ``panet_path``);
 
 and checks that each path went through the kernels and agrees with the
 plain version. The phases ``minplus`` (the EDT kernel, bit-exact, also on
@@ -102,6 +109,26 @@ TRAIN_ARGS = ["train", "with", "split=0", "data.dataset=SYNTH",
               "data.bs=4", "data.train_n=24", "tr.total_epochs=1",
               "data.test_bs=8", "data.test_n=16", "te.epochs=1", "loss=cedt",
               "dev.precision=bf16", "seed=1234"]
+# the VGG16 family: both PEMP stages with net.backbone=vgg16 (stage 2
+# behind the stage-1 run, clip 1.1), scripts/baseline.sh's step (batch 4,
+# lr 1e-3, ce) and scripts/panet.sh's (batch 1, lr 1e-3, ce + align), each
+# cut to six steps and one epoch
+VGG1_ARGS = TRAIN_ARGS + ["net.backbone=vgg16"]
+VGG2_ARGS = [a for a in STAGE2_ARGS if not a.startswith("net.")] + [
+    "net.backbone=vgg16", "net.backbone2=vgg16"]
+BASELINE_ARGS = ["train", "with", "split=0", "data.dataset=SYNTH",
+                 "data.height=401", "data.width=401", "shot=1", "query=1",
+                 "data.bs=4", "data.train_n=24", "tr.total_epochs=1",
+                 "tr.lr=0.001", "data.test_bs=8", "data.test_n=16",
+                 "te.epochs=1", "net.backbone=vgg16", "dev.precision=bf16",
+                 "seed=1234"]
+PANET_ARGS = [a for a in BASELINE_ARGS if not a.startswith(
+    ("data.bs=", "data.train_n="))] + ["data.bs=1", "data.train_n=6"]
+# K1-K5's launches per train step and per eval batch of one mpm chain
+STEP_LAUNCHES = {"assign": 1, "match": 1, "match_bwd": 1, "assign_bwd": 1,
+                 "minplus": 2}
+EVAL_LAUNCHES = {"assign": 1, "match": 1, "match_bwd": 0, "assign_bwd": 0,
+                 "minplus": 0}
 
 
 def emit(obj) -> None:
@@ -249,6 +276,44 @@ def top2_margin(torch, fts_q, fg, bg, scale):
     return torch.stack(out, dim=-1)
 
 
+def check_kernels(torch, K, plain, name, fts, fg, bg, ctr, p, scale):
+    """K1, K2 and the K3 chain on ``fts`` [B, S+Q, n, c] against their
+    plain versions: K1's prototypes within PROTO_RTOL of their largest
+    magnitude, the logits within LOGIT_ATOL, the indices equal wherever the
+    plain top-two margin exceeds MARGIN, the chain bit-identical over three
+    back-to-back runs (each assign launch leaves its tickets at zero)."""
+    b, s = fg.shape[:2]
+    n, c = fts.shape[2:]
+    kf, kb = K.mpm_assign(fts, fg, bg, ctr, p)
+    pf, pb = plain.meta_prototype_assign(fts[:, :s], fg, bg, ctr, p)
+    ref = torch.cat([pf, pb], 1)
+    err1 = (torch.cat([kf, kb], 1) - ref).abs().max().item()
+    rel1 = err1 / ref.abs().max().item()
+    finite1 = bool(torch.isfinite(kf).all() and torch.isfinite(kb).all())
+    # K2 alone, on the plain prototypes
+    kl, ki = K.mpm_match(fts, s, pf, pb, scale, return_indices=True)
+    pl, pi = plain.prototype_predictions(fts[:, s:], pf, pb, scale, True)
+    err2 = (kl - pl).abs().max().item()
+    margin = top2_margin(torch, fts[:, s:], pf, pb, scale)
+    agree2, sure2 = index_agreement(ki, pi, margin)
+    runs = [K.mpm_chain_packed(fts, fg, bg, ctr, p, scale,
+                               return_indices=True) for _ in range(3)]
+    cl, ci = runs[0]
+    bitwise = all(torch.equal(cl, l2) and torch.equal(ci, i2)
+                  for l2, i2 in runs[1:])
+    err3 = (cl - pl).abs().max().item()
+    agree3, sure3 = index_agreement(ci, pi, margin)
+    torch.cuda.synchronize()
+    ok = (finite1 and rel1 <= PROTO_RTOL and err2 <= LOGIT_ATOL
+          and sure2 and err3 <= LOGIT_ATOL and sure3 and bitwise)
+    return {"case": name, "B": b, "S": s, "Q": fts.shape[1] - s, "n": n,
+            "c": c, "p": p, "dtype": str(fts.dtype).replace("torch.", ""),
+            "assign_max_abs_err": err1, "assign_max_rel_err": rel1,
+            "match_max_abs_err": err2, "match_index_agreement": agree2,
+            "chain_max_abs_err": err3, "chain_index_agreement": agree3,
+            "chain_bit_identical_x3": bitwise, "ok": ok}
+
+
 def kernel_phase(torch, K, plain):
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
     scale, eps = 20.0, plain.ASSIGN_EPS
@@ -276,42 +341,12 @@ def kernel_phase(torch, K, plain):
     worst = {"assign": 0.0, "match": 0.0, "chain": 0.0}
     for name, b, s, q, n, c, p, dtype, far in cases:
         fts, fg, bg, ctr = make_inputs(torch, b, s, q, n, c, p, dtype, far)
-        # K1: one launch against the plain prototypes
-        kf, kb = K.mpm_assign(fts, fg, bg, ctr, p)
-        pf, pb = plain.meta_prototype_assign(fts[:, :s], fg, bg, ctr, p)
-        ref = torch.cat([pf, pb], 1)
-        err1 = (torch.cat([kf, kb], 1) - ref).abs().max().item()
-        rel1 = err1 / ref.abs().max().item()
-        finite1 = bool(torch.isfinite(kf).all() and torch.isfinite(kb).all())
-        # K2 alone, on the plain prototypes
-        kl, ki = K.mpm_match(fts, s, pf, pb, scale, return_indices=True)
-        pl, pi = plain.prototype_predictions(fts[:, s:], pf, pb, scale, True)
-        err2 = (kl - pl).abs().max().item()
-        margin = top2_margin(torch, fts[:, s:], pf, pb, scale)
-        agree2, sure2 = index_agreement(ki, pi, margin)
-        # K3: the packed chain three times back to back (bit-identical:
-        # each assign launch leaves its episode tickets at zero)
-        runs = [K.mpm_chain_packed(fts, fg, bg, ctr, p, scale,
-                                   return_indices=True) for _ in range(3)]
-        cl, ci = runs[0]
-        bitwise = all(torch.equal(cl, l2) and torch.equal(ci, i2)
-                      for l2, i2 in runs[1:])
-        err3 = (cl - pl).abs().max().item()
-        agree3, sure3 = index_agreement(ci, pi, margin)
-        torch.cuda.synchronize()
-        ok = (finite1 and rel1 <= PROTO_RTOL and err2 <= LOGIT_ATOL
-              and sure2 and err3 <= LOGIT_ATOL and sure3 and bitwise)
-        row = {"case": name, "B": b, "S": s, "Q": q, "n": n, "c": c, "p": p,
-               "dtype": str(dtype).replace("torch.", ""),
-               "assign_max_abs_err": err1, "assign_max_rel_err": rel1,
-               "match_max_abs_err": err2, "match_index_agreement": agree2,
-               "chain_max_abs_err": err3, "chain_index_agreement": agree3,
-               "chain_bit_identical_x3": bitwise, "ok": ok}
+        row = check_kernels(torch, K, plain, name, fts, fg, bg, ctr, p, scale)
         results.append(row)
-        worst["assign"] = max(worst["assign"], err1)
-        worst["match"] = max(worst["match"], err2)
-        worst["chain"] = max(worst["chain"], err3)
-        if not ok:
+        worst["assign"] = max(worst["assign"], row["assign_max_abs_err"])
+        worst["match"] = max(worst["match"], row["match_max_abs_err"])
+        worst["chain"] = max(worst["chain"], row["chain_max_abs_err"])
+        if not row["ok"]:
             emit({"phase": "kernels", "failed": row})
             raise AssertionError(f"kernel case {name} disagrees with plain")
     # the match kernel where no row ring fits beside its table (c=4096):
@@ -423,6 +458,31 @@ def kernel_phase(torch, K, plain):
     return t, bounds, worst
 
 
+def plain_chain(fts, sup_fg, sup_bg, ctr, protos, dist_scalar,
+                return_indices=False):
+    """The plain mpm in place of ``mpm_chain_packed`` (patched into
+    ``models.pemp_stage1``, whose ``predict`` both PEMP stages use)."""
+    from pemp_tpu_torch.models import pemp_stage1 as stage1
+    s = sup_fg.shape[1]
+    return stage1.mpm_predict(fts[:, :s], fts[:, s:], sup_fg, sup_bg, ctr,
+                              protos, dist_scalar, return_indices)
+
+
+def host_ms(torch, fn, warm=3, n=10):
+    """Median host-clock ms of ``fn`` ending in a synchronize, after
+    ``warm`` calls."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        samples.append(time.perf_counter() - t0)
+    return statistics.median(samples) * 1e3
+
+
 def main_path_phase(torch, K):
     from unittest import mock
 
@@ -430,12 +490,6 @@ def main_path_phase(torch, K):
     from pemp_tpu_torch.data import datasets
     from pemp_tpu_torch.entry import pemp_stage1 as entry
     from pemp_tpu_torch.models import pemp_stage1 as stage1
-
-    def plain_chain(fts, sup_fg, sup_bg, ctr, protos, dist_scalar,
-                    return_indices=False):
-        s = sup_fg.shape[1]
-        return stage1.mpm_predict(fts[:, :s], fts[:, s:], sup_fg, sup_bg,
-                                  ctr, protos, dist_scalar, return_indices)
 
     K.reset_launches()
     t0 = time.perf_counter()
@@ -871,7 +925,8 @@ def train_path_phase(torch, K, M):
     params = model.freeze()
     opt = solver.make_optimizer(cfg.tr, params)
     trainer = Trainer(cfg, Run(None, None), model, opt, params,
-                      loss_lib.get(cfg), solver.LRPolicy(cfg.tr, 100), device)
+                      entry.Stage1Runtime(cfg), solver.LRPolicy(cfg.tr, 100),
+                      device)
     model.set_dropout_generator(torch.Generator(device=device).manual_seed(0))
     ds, loader, _ = datasets.load(cfg, "train")
     ds.sample_tasks()
@@ -893,12 +948,6 @@ def train_path_phase(torch, K, M):
     del trainer, opt, params, model
 
     # one f32 step twice (TF32 off): kernels vs the plain mpm chain
-    def plain_chain(fts, sup_fg, sup_bg, ctr, protos, dist_scalar,
-                    return_indices=False):
-        s = sup_fg.shape[1]
-        return stage1.mpm_predict(fts[:, :s], fts[:, s:], sup_fg, sup_bg,
-                                  ctr, protos, dist_scalar, return_indices)
-
     cfg32 = entry.ex.assemble("train", {**overrides, "dev.precision": "f32"})
     base = entry.build_model(cfg32, device).train()
     base.freeze()
@@ -1045,12 +1094,6 @@ def stage2_path_phase(torch, K, M):
         raise AssertionError("stage 1 changed while stage 2 trained")
     del built[:]
 
-    def plain_chain(fts, sup_fg, sup_bg, ctr, protos, dist_scalar,
-                    return_indices=False):
-        s = sup_fg.shape[1]
-        return stage1.mpm_predict(fts[:, :s], fts[:, s:], sup_fg, sup_bg,
-                                  ctr, protos, dist_scalar, return_indices)
-
     # one eval batch: stage 2 with the kernels against the plain mpm, both
     # on the kernels' prior; the prior itself against the plain mpm's
     ds, loader, _ = datasets.load(cfg_eval)
@@ -1140,26 +1183,14 @@ def stage2_path_phase(torch, K, M):
     params = model.freeze()
     opt = solver.make_optimizer(cfg.tr, params)
     trainer = Trainer(cfg, Run(None, None), model, opt, params,
-                      loss_lib.get(cfg), solver.LRPolicy(cfg.tr, 100), device,
-                      weights=model.stage2)
+                      entry.Stage2Runtime(cfg), solver.LRPolicy(cfg.tr, 100),
+                      device, weights=model.stage2)
     model.set_dropout_generator(torch.Generator(device=device).manual_seed(0))
     ds_t, loader_t, _ = datasets.load(cfg, "train")
     ds_t.sample_tasks()
     batch = next(iter(loader_t))
 
-    def host_ms(fn, warm=3, n=10):
-        for _ in range(warm):
-            fn()
-        torch.cuda.synchronize()
-        samples = []
-        for _ in range(n):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            samples.append(time.perf_counter() - t0)
-        return statistics.median(samples) * 1e3
-
-    step_ms = host_ms(lambda: trainer.train_step(batch))
+    step_ms = host_ms(torch, lambda: trainer.train_step(batch))
     prof = device_profile(torch, lambda: trainer.train_step(batch), {
         "mpm_kernels": ["assign_kernel", "match_kernel"],
         "mpm_backward_kernels": ["match_bwd_kernel", "assign_bwd_kernel"],
@@ -1174,7 +1205,7 @@ def stage2_path_phase(torch, K, M):
     prof["conv_odd_channels_top"] = odd[:12]
     model.eval()
     eval_step = make_fast_eval_step(model, device)
-    eval_ms = host_ms(lambda: eval_step(ebatch))
+    eval_ms = host_ms(torch, lambda: eval_step(ebatch))
     eval_prof = device_profile(torch, lambda: eval_step(ebatch), {
         "mpm_kernels": ["assign_kernel", "match_kernel"]})
     del trainer, opt, params, model
@@ -1208,6 +1239,369 @@ def stage2_path_phase(torch, K, M):
     return launches
 
 
+def counted(torch, K, M, fn):
+    """The K1-K5 launches of one call of ``fn``."""
+    K.reset_launches()
+    M.reset_launches()
+    fn()
+    torch.cuda.synchronize()
+    return {k: {**K.launches, **M.launches}[k] for k in STEP_LAUNCHES}
+
+
+def conv_profile(prof):
+    """A ``device_profile(..., by_shape=("",))`` with its kernels grouped
+    by op cut to the convolutions: their total and the top 12."""
+    convs = [g for g in prof.pop("by_input_shape") if "conv" in g["op"]]
+    prof["conv_us"] = sum(g["us"] for g in convs)
+    prof["conv_by_input_shape_top"] = convs[:12]
+    return prof
+
+
+def steady_steps(torch, runtime, model, cfg, device, train_batch,
+                 eval_batch, weights=None, groups=None):
+    """The steady train step (a trainer over ``model`` in train mode, the
+    runtime's hooks) and eval step (``runtime.eval_step``) on the host
+    clock, each with one profiled call (device time by kernel, the
+    convolutions by input shape) and the device's idle share of the
+    step."""
+    from pemp_tpu_torch.config import Run
+    from pemp_tpu_torch.core import solver
+    from pemp_tpu_torch.core.trainer import Trainer
+
+    model.train()
+    params = model.freeze()
+    opt = solver.make_optimizer(cfg.tr, params)
+    trainer = Trainer(cfg, Run(None, None), model, opt, params, runtime,
+                      solver.LRPolicy(cfg.tr, 100), device, weights=weights)
+    model.set_dropout_generator(torch.Generator(device=device).manual_seed(0))
+    out = {"train_step": lambda: trainer.train_step(train_batch)}
+    out["steady_step_ms"] = host_ms(torch, out["train_step"])
+    out["profile"] = conv_profile(device_profile(
+        torch, out["train_step"], groups or {}, ("",)))
+    out["train_device_idle_share"] = (
+        1 - out["profile"]["device_us_total"] / 1e3 / out["steady_step_ms"])
+    model.eval()
+    step = runtime.eval_step(model, device)
+    out["eval_step"] = lambda: step(eval_batch)
+    out["steady_eval_step_ms"] = host_ms(torch, out["eval_step"])
+    out["eval_profile"] = device_profile(torch, out["eval_step"], groups or {})
+    out["eval_device_idle_share"] = (
+        1 - out["eval_profile"]["device_us_total"] / 1e3
+        / out["steady_eval_step_ms"])
+    out["steady_episodes_per_s"] = cfg.data.bs / out["steady_step_ms"] * 1e3
+    out["steady_eval_episodes_per_s"] = (cfg.data.test_bs
+                                         / out["steady_eval_step_ms"] * 1e3)
+    return out
+
+
+def first_batch(datasets, cfg, mode="test"):
+    ds, loader, _ = datasets.load(cfg, mode)
+    ds.sample_tasks()
+    return next(iter(loader))
+
+
+def vgg_path_phase(torch, K, M, plain):
+    """PEMP with ``net.backbone=vgg16`` at full width (VGG16, c=512, p=3):
+    stage 1's ``train`` entry (cedt, clip 1.1; 6 steps, online eval,
+    chained test), then stage 2's (VGG16CM behind that run's stage 1,
+    clip 1.1), their exact launches over the run, per train step and per
+    eval batch, their checkpoints, stage 1 bit-equal after stage 2
+    trains; one eval batch of each stage with the kernels against the
+    plain mpm, and the kernels against their plain versions on the
+    batch's own VGG features (``check_kernels``); one f32 stage-1 train
+    step with the kernels against the plain mpm; the steady train and
+    eval steps of both stages with the device's idle share."""
+    from unittest import mock
+
+    from pemp_tpu_torch.core import checkpoint as ckpt_lib
+    from pemp_tpu_torch.core import losses as loss_lib
+    from pemp_tpu_torch.data import datasets
+    from pemp_tpu_torch.entry import pemp_stage1 as entry1
+    from pemp_tpu_torch.entry import pemp_stage2 as entry2
+    from pemp_tpu_torch.models import pemp_stage1 as stage1
+    from pemp_tpu_torch.models.pemp_stage1 import PEMPStage1
+    from pemp_tpu_torch.models.pemp_stage2 import PEMPStage2
+
+    device = torch.device("cuda")
+    built = []
+    build = entry2.build_model
+
+    def keep(cfg, dev):
+        built.append(build(cfg, dev))
+        return built[-1]
+
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for stage, entry, args in ((1, entry1, VGG1_ARGS),
+                                   (2, entry2, VGG2_ARGS)):
+            args = args + [f"g.model_dir={tmp}"]
+            if stage == 2:
+                args.append(f"s1.id={runs[1]['result']['train']['run_id']}")
+            K.reset_launches()
+            M.reset_launches()
+            t0 = time.perf_counter()
+            with mock.patch.object(entry2, "build_model", keep):
+                result = entry.main(args)
+            wall = time.perf_counter() - t0
+            run_dir = Path(tmp) / entry.NAME / str(result["train"]["run_id"])
+            runs[stage] = {
+                "result": result, "wall_s": wall,
+                "launches": {**K.launches, **M.launches, **K.backward_calls},
+                "overrides": dict(a.split("=", 1) for a in args[2:]),
+                "files": sorted(p.name for p in run_dir.iterdir()),
+                "saved": {name: ckpt_lib.load(run_dir / name)["model"]
+                          for name in (ckpt_lib.CKPT, ckpt_lib.BEST)}}
+        best1 = Path(tmp) / "pemp_stage1" / str(
+            runs[1]["result"]["train"]["run_id"]) / ckpt_lib.BEST
+        snapshot = ckpt_lib.load(best1)["model"]
+        # the models of the checks below, from the runs' own files
+        over1 = {**runs[1]["overrides"], "ckpt": str(best1)}
+        cfg1 = entry1.ex.assemble("train", over1)
+        model1 = entry1.build_model(cfg1, device)
+        cfg1_32 = entry1.ex.assemble("train", {**over1,
+                                               "dev.precision": "f32"})
+        base32 = entry1.build_model(cfg1_32, device).train()
+        cfg2 = entry2.ex.assemble("train", runs[2]["overrides"])
+        model2 = entry2.build_model(cfg2, device)
+
+    checks = {}
+    for stage, cls, key in ((1, PEMPStage1, "pemp_stage1"),
+                            (2, PEMPStage2, "pemp_stage2")):
+        run, cfg = runs[stage], (cfg1, cfg2)[stage - 1]
+        losses = run["result"]["train"]["losses"]
+        steps = len(losses)
+        evals = 2 * -(-cfg.data.test_n // cfg.data.test_bs) * cfg.te.epochs
+        # a stage-2 step and eval batch run two forward chains (stage 1's
+        # prior, stage 2), one backward and one cedt EDT
+        want = {k: (stage if k in ("assign", "match") else 1)
+                * (steps * STEP_LAUNCHES[k] + evals * EVAL_LAUNCHES[k])
+                for k in STEP_LAUNCHES}
+        want["mpm_backward"] = steps
+        run["launches_expected"] = want
+        if steps != cfg.data.train_n // cfg.data.bs or not all(
+                math.isfinite(x) for x in losses):
+            raise AssertionError(f"vgg stage {stage} train losses {losses}")
+        if run["launches"] != want:
+            raise AssertionError(f"vgg stage {stage} launches "
+                                 f"{run['launches']}, want {want}")
+        if run["files"] != sorted([ckpt_lib.BEST, ckpt_lib.CKPT]):
+            raise AssertionError(f"vgg stage {stage} run dir {run['files']}")
+        if not math.isfinite(run["result"]["test"]["miou"]):
+            raise AssertionError(f"vgg stage {stage} chained test "
+                                 f"{run['result']['test']}")
+        keys = cls(backbone="vgg16").state_dict()
+        for name, sd in run["saved"].items():
+            if set(sd) != set(keys) or any(sd[k].shape != keys[k].shape
+                                           for k in keys):
+                raise AssertionError(f"vgg {key} {name}: not the model's keys")
+        run["checkpoint_keys"] = len(keys)
+        del run["saved"]
+    # the frozen stage 1 of the stage-2 run: bit-equal to its snapshot
+    after = {k: v.cpu() for k, v in built[0].stage1.state_dict().items()}
+    stage1_equal = set(after) == set(snapshot) and all(
+        torch.equal(after[k], v) for k, v in snapshot.items())
+    if not stage1_equal:
+        raise AssertionError("vgg stage 1 changed while stage 2 trained")
+    del built[:]
+
+    # one eval batch: each stage with the kernels against the plain mpm
+    # (stage 2 on the kernels' prior), and the kernels against their plain
+    # versions on the VGG features the batch gives them
+    ebatch = first_batch(datasets, cfg1)
+    t = {k: torch.from_numpy(ebatch[k]).to(device)
+         for k in ("sup_rgb", "sup_mask", "qry_rgb")}
+    args = (t["sup_rgb"], t["sup_mask"], t["qry_rgb"])
+    captured = []
+    real = stage1.mpm_chain_packed
+
+    def record(*a, **kw):
+        captured.append(a)
+        return real(*a, **kw)
+
+    with torch.no_grad():
+        with mock.patch.object(stage1, "mpm_chain_packed", record):
+            lk1 = model1(*args)
+            prior = model2.prior(*args)
+            lk2 = model2.stage2(*args, prior)
+        before = dict(K.launches)
+        with mock.patch.object(stage1, "mpm_chain_packed", plain_chain):
+            lp1 = model1(*args)
+            prior_p = model2.prior(*args)
+            lp2 = model2.stage2(*args, prior)
+    torch.cuda.synchronize()
+    if K.launches != before:
+        raise AssertionError("the plain vgg forward launched a kernel")
+    want_shape = (cfg1.data.test_bs, cfg1.query, cfg1.data.height,
+                  cfg1.data.width, 2)
+    eval_vs_plain = {"prior_agreement": (prior == prior_p).float().mean().item()}
+    for tag, lk, lp in (("stage1", lk1, lp1), ("stage2", lk2, lp2)):
+        if tuple(lk.shape) != want_shape or not torch.isfinite(lk).all():
+            raise AssertionError(f"vgg {tag} logits {tuple(lk.shape)} (want "
+                                 f"{want_shape}) or not finite")
+        eval_vs_plain[tag] = {
+            "logits_max_abs_err": (lk - lp).abs().max().item(),
+            "argmax_agreement": (lk.argmax(-1) == lp.argmax(-1)).float()
+            .mean().item()}
+    # captured: stage 1's chain, stage 2's prior (stage 1 again), stage 2's
+    feature_cases = []
+    for tag, i in (("stage1", 0), ("stage2", 2)):
+        case = check_kernels(torch, K, plain, f"vgg_{tag}_eval_features",
+                             *captured[i])
+        case["features_abs_max"] = captured[i][0].float().abs().max().item()
+        feature_cases.append(case)
+    bad = [k for k, v in eval_vs_plain.items() if k != "prior_agreement"
+           and (v["logits_max_abs_err"] > LOGIT_ATOL
+                or v["argmax_agreement"] < MAIN_AGREE)]
+    if (bad or eval_vs_plain["prior_agreement"] < MAIN_AGREE
+            or not all(c["ok"] for c in feature_cases)):
+        emit({"phase": "vgg_path", "failed": {
+            "eval_vs_plain": eval_vs_plain, "kernel_cases": feature_cases}})
+        raise AssertionError("vgg path: kernels vs plain mpm disagree")
+
+    # one f32 stage-1 step (TF32 off): kernels vs the plain mpm chain
+    base32.freeze()
+    batch = first_batch(datasets, cfg1_32, "train")
+    tt = {k: torch.from_numpy(batch[k]).to(device)
+          for k in ("sup_rgb", "sup_mask", "qry_rgb", "qry_msk")}
+    loss_fn = loss_lib.get(cfg1_32)
+
+    def grads(model):
+        model.zero_grad(set_to_none=True)
+        logits = model(tt["sup_rgb"], tt["sup_mask"], tt["qry_rgb"])
+        loss = loss_fn(logits.reshape(-1, *logits.shape[-3:]),
+                       tt["qry_msk"].reshape(-1, *tt["qry_msk"].shape[-2:]))
+        loss.backward()
+        return loss.item(), {k: p.grad.clone() for k, p in
+                             model.named_parameters() if p.requires_grad}
+
+    before = dict(K.launches)
+    loss_k, grads_k = grads(base32)
+    if any(K.launches[k] == before[k] for k in K.launches):
+        raise AssertionError(f"the kernel vgg step skipped an mpm kernel: "
+                             f"{before} -> {K.launches}")
+    before = dict(K.launches)
+    with mock.patch.object(stage1, "mpm_chain_packed", plain_chain):
+        loss_p, grads_p = grads(base32)
+    torch.cuda.synchronize()
+    if K.launches != before:
+        raise AssertionError("the plain vgg step launched an mpm kernel")
+    rel = {k: ((grads_k[k] - grads_p[k]).norm()
+               / grads_p[k].norm().clamp(min=1e-30)).item() for k in grads_p}
+    worst_leaf = max(rel, key=rel.get)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    f32_step = {"loss_kernels": loss_k, "loss_plain": loss_p,
+                "loss_rel_err": loss_rel, "grad_max_rel_l2": rel[worst_leaf],
+                "grad_worst_leaf": worst_leaf, "grad_leaves": len(rel),
+                "grad_rel_l2": rel,
+                "tolerance": {"loss_rtol": TRAIN_LOSS_RTOL,
+                              "grad_rel_l2": TRAIN_GRAD_RTOL}}
+    if loss_rel > TRAIN_LOSS_RTOL or rel[worst_leaf] > TRAIN_GRAD_RTOL:
+        emit({"phase": "vgg_path", "failed": {"f32_step_vs_plain": f32_step}})
+        raise AssertionError(f"f32 vgg step kernels vs plain: loss rel "
+                             f"{loss_rel}, worst grad {worst_leaf} rel L2 "
+                             f"{rel[worst_leaf]}")
+    del base32, grads_k, grads_p
+
+    # the steady steps of both stages, and their launches per train step
+    # and per eval batch
+    groups = {"mpm_kernels": ["assign_kernel", "match_kernel"],
+              "mpm_backward_kernels": ["match_bwd_kernel",
+                                       "assign_bwd_kernel"],
+              "minplus_kernel": ["minplus_kernel"]}
+    tbatch = first_batch(datasets, cfg1, "train")
+    steady = {}
+    for stage, runtime, model, weights in (
+            (1, entry1.Stage1Runtime(cfg1), model1, None),
+            (2, entry2.Stage2Runtime(cfg2), model2, model2.stage2)):
+        out = steady_steps(torch, runtime, model, runtime.cfg, device, tbatch,
+                           ebatch, weights, groups)
+        per_step = counted(torch, K, M, out.pop("train_step"))
+        per_eval = counted(torch, K, M, out.pop("eval_step"))
+        want_step = {k: v * (stage if k in ("assign", "match") else 1)
+                     for k, v in STEP_LAUNCHES.items()}
+        want_eval = {k: v * stage for k, v in EVAL_LAUNCHES.items()}
+        if per_step != want_step or per_eval != want_eval:
+            raise AssertionError(f"vgg stage {stage}: launches per step "
+                                 f"{per_step} (want {want_step}), per eval "
+                                 f"batch {per_eval} (want {want_eval})")
+        out.update(launches_per_train_step=per_step,
+                   launches_per_eval_batch=per_eval,
+                   grad_clip=runtime.cfg.tr.grad_clip)
+        steady[f"stage{stage}"] = out
+    if (steady["stage1"]["grad_clip"], steady["stage2"]["grad_clip"]) != (
+            1.1, 1.1):
+        raise AssertionError("the vgg runs must clip at 1.1")
+    del model1, model2
+    for run in runs.values():
+        run["test"] = run["result"]["test"]
+        run["losses"] = run["result"]["train"]["losses"]
+        run["best_iou"] = run["result"]["train"]["best_iou"]
+        del run["result"], run["overrides"]
+    emit({"phase": "vgg_path", "args": {"stage1": VGG1_ARGS,
+                                        "stage2": VGG2_ARGS},
+          "runs": runs, "stage1_bit_equal": stage1_equal,
+          "eval_vs_plain": eval_vs_plain, "kernel_cases": feature_cases,
+          "f32_step_vs_plain": f32_step, "steady": steady,
+          "tolerance": {"logit_atol": LOGIT_ATOL, "agree": MAIN_AGREE,
+                        "proto_rtol": PROTO_RTOL, "index_margin": MARGIN}})
+    return {k: runs[1]["launches"][k] + runs[2]["launches"][k]
+            for k in runs[1]["launches"]}
+
+
+def family_path_phase(torch, K, M, name, runtime_cls, args):
+    """Baseline or PANet (``name``) at full width (VGG16): the ``train``
+    entry (6 steps, online eval, chained test), finite losses, no mpm or
+    EDT kernel launched (the JAX package runs no kernel of its own for
+    these models); for PANet a finite, positive alignment loss; the steady
+    train and eval steps with one profile each."""
+    import importlib
+
+    from pemp_tpu_torch.data import datasets
+
+    entry = importlib.import_module(f"pemp_tpu_torch.entry.{name}")
+    runtime = getattr(entry, runtime_cls)
+    device = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        K.reset_launches()
+        M.reset_launches()
+        t0 = time.perf_counter()
+        result = entry.main(args + [f"g.model_dir={tmp}"])
+        wall = time.perf_counter() - t0
+        launches = {**K.launches, **M.launches, **K.backward_calls}
+        run_dir = Path(tmp) / name / str(result["train"]["run_id"])
+        files = sorted(p.name for p in run_dir.iterdir())
+    cfg = entry.ex.assemble("train", dict(a.split("=", 1) for a in args[2:]))
+    losses = result["train"]["losses"]
+    if len(losses) != cfg.data.train_n // cfg.data.bs or not all(
+            math.isfinite(x) for x in losses):
+        raise AssertionError(f"{name} train losses {losses}")
+    if any(launches.values()):
+        raise AssertionError(f"{name} launched a kernel: {launches}")
+    if not math.isfinite(result["test"]["miou"]) or len(files) != 2:
+        raise AssertionError(f"{name} chained test {result['test']}, run "
+                             f"files {files}")
+    runtime = runtime(cfg)
+    model = entry.build_model(cfg, device)
+    tbatch = first_batch(datasets, cfg, "train")
+    ebatch = first_batch(datasets, cfg)
+    t = {k: torch.from_numpy(tbatch[k]).to(device)
+         for k in ("sup_rgb", "sup_mask", "qry_rgb", "qry_msk")}
+    with torch.no_grad():
+        logits, aux = runtime.apply_train(model.train(), t)
+        loss = runtime.compute_loss(logits, t, aux)
+    aux = {k: float(v) for k, v in aux.items()}
+    if not math.isfinite(float(loss)) or (
+            name == "panet" and not 0.0 < aux["align_loss"] < math.inf):
+        raise AssertionError(f"{name} loss {float(loss)}, aux {aux}")
+    steady = steady_steps(torch, runtime, model, cfg, device, tbatch, ebatch)
+    del steady["train_step"], steady["eval_step"], model
+    emit({"phase": f"{name}_path", "args": args, "wall_s": wall,
+          "steps": len(losses), "losses": losses, "launches": launches,
+          "run_files": files, "best_iou": result["train"]["best_iou"],
+          "test": result["test"], "first_batch_loss": float(loss),
+          "first_batch_aux": aux, **steady})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1236,6 +1630,10 @@ def main() -> int:
     bw_times, bw_bound, bw_worst = mpm_backward_phase(torch, K, plain)
     train_launches = train_path_phase(torch, K, M)
     stage2_launches = stage2_path_phase(torch, K, M)
+    vgg_launches = vgg_path_phase(torch, K, M, plain)
+    family_path_phase(torch, K, M, "baseline", "BaselineRuntime",
+                      BASELINE_ARGS)
+    family_path_phase(torch, K, M, "panet", "PANetRuntime", PANET_ARGS)
 
     # one row per TPU kernel K1-K5. assign and match are one __global__
     # each; the chain (K3, mpm.py:342) is those two launches on the packed
@@ -1253,6 +1651,7 @@ def main() -> int:
          "replaces": replaces, "launches": launches[name],
          "train_path_launches": train_launches[name],
          "stage2_path_launches": stage2_launches[name],
+         "vgg_path_launches": vgg_launches[name],
          "max_abs_err": worst[name], "ms": times[name],
          "plain_ms": times[f"{name}_plain"], "bound_ms": bounds[name][0],
          "bound_by": bounds[name][1], "library_ms": None}
@@ -1264,6 +1663,7 @@ def main() -> int:
         "launches": launches["match"],
         "train_path_launches": train_launches["match"],
         "stage2_path_launches": stage2_launches["match"],
+        "vgg_path_launches": vgg_launches["match"],
         "max_abs_err": worst["chain"], "ms": times["chain"],
         "plain_ms": times["chain_plain"], "bound_ms": bounds["chain"][0],
         "bound_by": bounds["chain"][1], "library_ms": None,
@@ -1277,6 +1677,7 @@ def main() -> int:
         "kernel_launches": {k: train_launches[k]
                             for k in ("match_bwd", "assign_bwd")},
         "stage2_path_launches": stage2_launches["mpm_backward"],
+        "vgg_path_launches": vgg_launches["mpm_backward"],
         "max_abs_err": bw_worst, "ms": bw_times["bfloat16"],
         "ms_no_spin": bw_times["bfloat16_no_spin"],
         "plain_ms": bw_times["bfloat16_plain"],
@@ -1292,6 +1693,7 @@ def main() -> int:
         "replaces": "pemp_tpu/ops/pallas/minplus.py:47",
         "launches": train_launches["minplus"], "max_abs_err": 0.0,
         "stage2_path_launches": stage2_launches["minplus"],
+        "vgg_path_launches": vgg_launches["minplus"],
         "ms": mp_times["phase1"] + mp_times["phase2"],
         "plain_ms": mp_times["phase1_plain"] + mp_times["phase2_plain"],
         "bound_ms": mp_bounds["phase1"][0] + mp_bounds["phase2"][0],

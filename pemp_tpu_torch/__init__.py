@@ -11,9 +11,11 @@ names mirror ``pemp_tpu`` so each counterpart is easy to find:
 - ``pemp_tpu_torch.ops``     -- resize, prototype, DropBlock and EDT ops
   (plain PyTorch) and ``ops.kernels`` (the CUDA kernels, their build,
   wrappers and the mpm autograd Function).
-- ``pemp_tpu_torch.models``  -- dilated ResNet, purifier, PEMP stage 1.
+- ``pemp_tpu_torch.models``  -- dilated ResNet and VGG16 backbones (and
+  their communication-module variants), purifiers, PEMP stages 1 and 2,
+  Baseline, PANet, the model registry.
 - ``pemp_tpu_torch.core``    -- losses, metrics, solver, checkpoints,
-  the trainer and the evaluator.
+  the trainer, the evaluator and the entries' shared runtime.
 - ``pemp_tpu_torch.data``    -- episodic sampler, SYNTH dataset, loader.
 - ``pemp_tpu_torch.utils``   -- JAX-to-torch weight conversion, timer.
 - ``pemp_tpu_torch.entry``   -- command-line entries.

@@ -24,15 +24,21 @@ from pemp_tpu_torch.utils.timer import Timer
 ARRAY_KEYS = ("sup_rgb", "sup_mask", "qry_rgb", "qry_msk")
 
 
-def make_fast_eval_step(model: torch.nn.Module, device: torch.device
-                        ) -> Callable:
-    """batch (numpy) -> (counts [B, 2, 3] int64, losses [B] float64)."""
+def _forward(model, t):
+    return model(t["sup_rgb"], t["sup_mask"], t["qry_rgb"])
+
+
+def make_fast_eval_step(model: torch.nn.Module, device: torch.device,
+                        apply: Callable = _forward) -> Callable:
+    """batch (numpy) -> (counts [B, 2, 3] int64, losses [B] float64);
+    ``apply(model, tensors)`` is the eval forward (default: the model
+    called on the support images, masks and query images)."""
 
     @torch.no_grad()
     def step(batch):
         t = {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(device)
              for k in ARRAY_KEYS}
-        logits = model(t["sup_rgb"], t["sup_mask"], t["qry_rgb"])  # [B,Q,H,W,2]
+        logits = apply(model, t)                                    # [B,Q,H,W,2]
         labels = t["qry_msk"]                                       # [B,Q,H,W]
         b, nq = logits.shape[:2]
         losses = per_episode_cross_entropy(logits.reshape(b, nq, -1, 2),

@@ -4,6 +4,8 @@ Counterpart of ``pemp_tpu/core/losses.py`` (reference core/losses.py):
 
 - ``cross_entropy``: mean CE with ignore index 255 (reference :10);
 - ``per_episode_cross_entropy``: the eval CE per episode;
+- ``cross_entropy_no_ignore``: plain mean CE, every pixel counted (PANet's
+  alignment loss);
 - ``cedt``: boundary-weighted CE, per-pixel CE times
   ``exp(-EDT(boundary)/sigma^2) + 1``, divided by the *total* weight,
   ignored pixels included (the reference divides by ``weight.sum()``,
@@ -51,6 +53,16 @@ def per_episode_cross_entropy(logits: torch.Tensor,
     per_query = (pix.reshape(b, q, -1).sum(dim=2)
                  / valid.reshape(b, q, -1).sum(dim=2).clamp(min=1))
     return per_query.mean(dim=1)
+
+
+def cross_entropy_no_ignore(logits: torch.Tensor,
+                            labels: torch.Tensor) -> torch.Tensor:
+    """Mean CE over every pixel, no ignore index (torch
+    ``F.cross_entropy`` defaults; reference PANet alignLoss)."""
+    logits = f32up(logits)
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return (logz - ll).mean()
 
 
 def cedt(logits: torch.Tensor, labels: torch.Tensor,

@@ -26,7 +26,7 @@ import logging
 import signal
 import time
 from pathlib import Path
-from typing import Callable, List, Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -70,13 +70,15 @@ class GracefulStop:
 
 class Trainer:
     """Trains ``model`` (already in train mode, frozen parameters marked)
-    with ``optimizer`` over ``params``, the parameters that train. The
+    with ``optimizer`` over ``params``, the parameters that train, through
+    the hooks of ``runtime`` (``core/experiment.py``): ``apply_train``
+    gives the logits and auxiliary losses, ``compute_loss`` the loss. The
     checkpoints hold the ``state_dict`` of ``weights`` (default ``model``;
     the stage-2 cascade's is its stage 2)."""
 
     def __init__(self, cfg, run, model: torch.nn.Module,
                  optimizer: torch.optim.Optimizer,
-                 params: List[torch.nn.Parameter], loss_fn: Callable,
+                 params: List[torch.nn.Parameter], runtime,
                  lr_policy: solver.LRPolicy, device: torch.device,
                  logger: Optional[logging.Logger] = None,
                  weights: Optional[torch.nn.Module] = None):
@@ -85,7 +87,7 @@ class Trainer:
         self.weights = model if weights is None else weights
         self.optimizer = optimizer
         self.params = params
-        self.loss_fn = loss_fn
+        self.runtime = runtime
         self.lr_policy = lr_policy
         self.device = device
         self.logger = logger or logging.getLogger(__name__)
@@ -108,10 +110,8 @@ class Trainer:
         LR; returns the detached loss (still on the device)."""
         t = {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(self.device)
              for k in ("sup_rgb", "sup_mask", "qry_rgb", "qry_msk")}
-        logits = self.model(t["sup_rgb"], t["sup_mask"], t["qry_rgb"])
-        labels = t["qry_msk"]
-        loss = self.loss_fn(logits.reshape(-1, *logits.shape[-3:]),
-                            labels.reshape(-1, *labels.shape[-2:]))
+        logits, aux = self.runtime.apply_train(self.model, t)
+        loss = self.runtime.compute_loss(logits, t, aux)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         solver.clip_gradients(self.params, self.cfg.tr.grad_clip)

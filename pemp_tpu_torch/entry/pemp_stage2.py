@@ -16,10 +16,11 @@ from ``s1.ckpt`` as a path, else from
 ckpt.pt>``, and a missing one raises: it is never drawn from a seed.
 Stage 2 (``net.backbone2``, ``net.protos2``, ``net.drop_rate2``) is
 initialised from ``seed`` or loaded from ``ckpt``, as in stage 1's entry;
-``train`` trains it (SGD, its backbone BNs frozen, no gradient clip: the
-JAX entry clips only ``vgg16``, which is not ported), records
+``train`` trains it (SGD, its backbone BNs frozen), records
 ``ckpt.pt``/``bestckpt.pt`` holding stage 2's weights only, and chains
-into ``test``. ``visualize`` is not ported yet.
+into ``test``. The gradient clip is 1.1 when ``net.backbone2`` (or, when
+empty, ``net.backbone``) is ``vgg16``, and off otherwise (reference
+:80-82). ``visualize`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -30,54 +31,59 @@ import torch
 
 from pemp_tpu_torch.config import Config, Experiment
 from pemp_tpu_torch.core import checkpoint as ckpt_lib
-from pemp_tpu_torch.entry import pemp_stage1 as s1_entry
-from pemp_tpu_torch.models.pemp_stage1 import NetConfig, PEMPStage1
-from pemp_tpu_torch.models.pemp_stage2 import PEMPCascade, PEMPStage2
+from pemp_tpu_torch.core.experiment import (
+    EntryRuntime, get_logger, init_weights, load_weights, set_precision,
+)
+from pemp_tpu_torch.models import registry
+from pemp_tpu_torch.models.pemp_stage2 import PEMPCascade
 
 NAME = "pemp_stage2"
 
 base_cfg = Config(tag=NAME)
-base_cfg.net = NetConfig()
+base_cfg.net = registry.net_config(NAME)
 ex = Experiment(NAME, base_cfg)
 
 
-def build_model(cfg, device: torch.device) -> PEMPCascade:
-    """The eval-mode cascade on ``device`` (channels_last): the frozen
-    stage 1 loaded from its snapshot, stage 2 from ``cfg.ckpt`` or
-    ``cfg.seed``. Both run at ``dev.precision``."""
-    net = cfg.net
-    dtype = s1_entry.set_precision(cfg.dev.precision)
-    stage1 = PEMPStage1(
-        backbone=net.backbone, out_channels=net.out_channels,
-        protos=net.protos, drop_rate=net.drop_rate,
-        block_size=net.block_size, dist_scalar=net.dist_scalar,
-        init_channels=net.init_channels, compute_dtype=dtype)
-    path = ckpt_lib.find_snapshot(cfg.g.model_dir, cfg.s1.tag or "pemp_stage1",
-                                  cfg.s1.id, cfg.s1.ckpt)
-    s1_entry.load_weights(stage1, path)
-    s1_entry.get_logger(cfg.tag).info(
-        f"Stage-1 (frozen) initialized from {path}")
-    stage2 = PEMPStage2(
-        backbone=net.backbone2 or net.backbone, out_channels=net.out_channels,
-        protos=net.protos2, drop_rate=net.drop_rate2,
-        dist_scalar=net.dist_scalar, compute_dtype=dtype)
-    s1_entry.init_weights(stage2, cfg)
-    model = PEMPCascade(stage1, stage2)
-    return model.to(device, memory_format=torch.channels_last).eval()
+class Stage2Runtime(EntryRuntime):
+    name = NAME
+
+    def __init__(self, cfg, run=None, build=None):
+        if (cfg.net.backbone2 or cfg.net.backbone) == "vgg16":
+            cfg.tr.grad_clip = 1.1      # reference :80-82
+        super().__init__(cfg, run, build)
+
+    @classmethod
+    def build_model(cls, cfg, device: torch.device) -> PEMPCascade:
+        """The eval-mode cascade on ``device`` (channels_last): the frozen
+        stage 1 loaded from its snapshot, stage 2 from ``cfg.ckpt`` or
+        ``cfg.seed``. Both run at ``dev.precision``."""
+        set_precision(cfg.dev.precision)
+        stage1 = registry.build("pemp_stage1", cfg)
+        path = ckpt_lib.find_snapshot(cfg.g.model_dir,
+                                      cfg.s1.tag or "pemp_stage1",
+                                      cfg.s1.id, cfg.s1.ckpt)
+        load_weights(stage1, path)
+        get_logger(cfg.tag).info(f"Stage-1 (frozen) initialized from {path}")
+        stage2 = registry.build(NAME, cfg)
+        init_weights(stage2, cfg)
+        model = PEMPCascade(stage1, stage2)
+        return model.to(device, memory_format=torch.channels_last).eval()
+
+    def weights(self, model: PEMPCascade):
+        return model.stage2
 
 
-def _stage2(model: PEMPCascade) -> PEMPStage2:
-    return model.stage2
+build_model = Stage2Runtime.build_model
 
 
 @ex.command
 def test(cfg, run):
-    return s1_entry.run_test(cfg, build_model)
+    return Stage2Runtime(cfg, run, build_model).test()
 
 
 @ex.command
 def train(cfg, run):
-    return s1_entry.run_train(cfg, run, build_model, _stage2)
+    return Stage2Runtime(cfg, run, build_model).train()
 
 
 @ex.command

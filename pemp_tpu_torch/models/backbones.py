@@ -1,13 +1,19 @@
-"""Dilated ResNet backbones (output stride 8).
+"""Dilated ResNet and VGG16 backbones (output stride 8).
 
-Counterpart of ``BottleNeck``, ``ResNet``, ``CommModule`` and ``ResNetCM``
-in ``pemp_tpu/models/backbones.py:30-187`` (reference
-networks/backbones.py:42-247): caffe-style bottleneck with the stride on
-the first 1x1 conv, layer3 at stride 1 with dilation 2; the stage-2
-variant adds an episode communication module before each stage. Module
-names follow the torchvision / reference ``state_dict`` keys (``conv1``,
-``bn1``, ``layer1.0.conv1``, ``layer1.0.downsample.0``, ``linear1`` ...),
-so a reference checkpoint loads as is.
+Counterpart of ``pemp_tpu/models/backbones.py`` (reference
+networks/backbones.py):
+
+- ``BottleNeck``, ``ResNet``: caffe-style bottleneck with the stride on
+  the first 1x1 conv, layer3 at stride 1 with dilation 2;
+- ``VGG16``: 13 biased 3x3 convs, pools (3, stride, 1) at strides 2, 2,
+  2, 1 and none after block 5, block 5 dilated 2, no ReLU after the last
+  conv;
+- the stage-2 variants ``ResNetCM`` and ``VGG16CM`` add an episode
+  communication module (``CommModule``) at each stage boundary.
+
+Module names follow the torchvision / reference ``state_dict`` keys
+(``conv1``, ``bn1``, ``layer1.0.conv1``, ``layer1.0.downsample.0``,
+``features.0``, ``linear1`` ...), so a reference checkpoint loads as is.
 """
 
 from __future__ import annotations
@@ -18,7 +24,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pemp_tpu_torch.models.layers import BatchNorm, Conv, max_pool_torch
+from pemp_tpu_torch.models.layers import (
+    BatchNorm, Conv, KaimingConv, max_pool_torch,
+)
 
 
 class BottleNeck(nn.Module):
@@ -153,4 +161,80 @@ class ResNetCM(nn.Module):
         for si in (1, 2, 3):
             ci, mask = getattr(self, f"linear{si}")(x, mask, spq)
             x = getattr(self, f"layer{si}")(torch.cat([x, ci], dim=1))
+        return x
+
+
+# (convs, out channels, pool stride, dilation) per block (reference
+# :372-421): pool4 stride 1, block 5 dilated with no pool
+VGG_PLAN = ((2, 64, 2, 1), (2, 128, 2, 1), (3, 256, 2, 1), (3, 512, 1, 1),
+            (3, 512, 0, 2))
+# torchvision's ``features`` index of each of the 13 convs
+VGG_TORCH_IDX = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+
+
+def _vgg_features(in_channels: int, extra: int, last_relu: bool
+                  ) -> nn.Sequential:
+    """torchvision's ``features`` layout: conv, ReLU, ..., pool per block.
+    The first conv of blocks 2-5 takes ``extra`` more input channels (the
+    CMs' output); the pools are (3, stride, 1) in floor mode."""
+    layers, cin = [], in_channels
+    for bi, (convs, cout, pool_stride, dil) in enumerate(VGG_PLAN):
+        for ci in range(convs):
+            layers.append(KaimingConv(cin + (extra if bi and not ci else 0),
+                                      cout, 3, padding=dil, dilation=dil))
+            last = bi == len(VGG_PLAN) - 1 and ci == convs - 1
+            if not last or last_relu:
+                layers.append(nn.ReLU())
+            cin = cout
+        if pool_stride:
+            layers.append(nn.MaxPool2d(3, pool_stride, 1))
+    return nn.Sequential(*layers)
+
+
+class VGG16(nn.Module):
+    """Dilated VGG16 trunk (reference :372-421;
+    ``pemp_tpu/models/backbones.py:190-211``): keys ``features.{i}`` at
+    ``VGG_TORCH_IDX``, 512 output channels."""
+
+    def __init__(self, last_relu: bool = False, init_channels: int = 3):
+        super().__init__()
+        self.features = _vgg_features(init_channels, 0, last_relu)
+        self.out_channels = VGG_PLAN[-1][1]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.features(x)
+
+
+class VGG16CM(nn.Module):
+    """VGG16 with a communication module after the pool of each of blocks
+    1-4 (reference :424-500; ``pemp_tpu/models/backbones.py:214-253``):
+    ``conv0`` takes RGB plus the prior; the CMs (``linear1..4``) run on
+    64, 128, 256 and 512 channels with mask strides 2, 2, 2, 1 and their
+    mask is the prior at input size, not pre-pooled (``ResNetCM`` pools it
+    by (3, 2, 1) first); their ``n`` channels follow the features into
+    the next block's first conv. The convs keep ``VGG16``'s keys."""
+
+    def __init__(self, n: int = 2, last_relu: bool = False):
+        super().__init__()
+        self.features = _vgg_features(4, n, last_relu)
+        pools = [i for i, m in enumerate(self.features)
+                 if isinstance(m, nn.MaxPool2d)]
+        # the blocks' ends in ``features``: each of blocks 1-4 ends in its pool
+        self._ends = [i + 1 for i in pools] + [len(self.features)]
+        for k, ((_, cout, _, _), mstride) in enumerate(
+                zip(VGG_PLAN[:4], (2, 2, 2, 1)), 1):
+            setattr(self, f"linear{k}", CommModule(cout, mstride, n))
+        self.out_channels = VGG_PLAN[-1][1]
+
+    def forward(self, x: torch.Tensor, prior: torch.Tensor, spq: int
+                ) -> torch.Tensor:
+        """x [B*spq, 4, H, W] (RGB + prior), prior [B*spq, 1, H, W]."""
+        mask, start = prior, 0
+        for k, end in enumerate(self._ends, 1):
+            for i in range(start, end):
+                x = self.features[i](x)
+            start = end
+            if k <= 4:
+                ci, mask = getattr(self, f"linear{k}")(x, mask, spq)
+                x = torch.cat([x, ci], dim=1)
         return x

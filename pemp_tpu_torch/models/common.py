@@ -1,23 +1,82 @@
-"""Shared model plumbing: purifier head, mask downsampling, output resize.
+"""Shared model plumbing: the models' base class, purifier heads, mask
+downsampling, output resize.
 
 Counterpart of ``pemp_tpu/models/common.py`` (``PurifierV1``,
 ``PurifierV2``, ``downsample_masks``, ``output_resize``,
-``RESNET_LAYERS``).
+``RESNET_LAYERS``), plus ``FewShotModel``: the init, the frozen backbone
+BatchNorms and the dropout generator every model of the port shares.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import math
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from pemp_tpu_torch.models.layers import (
-    ASPP, ASPPV2, Conv, DropBlock, Dropout2d,
+    ASPP, ASPPV2, Conv, DropBlock, Dropout2d, KaimingConv,
 )
 from pemp_tpu_torch.ops.resize import resize_bilinear_align_corners, resize_nearest
 
 RESNET_LAYERS = {"resnet50": (3, 4, 6), "resnet101": (3, 4, 23)}
+
+
+class FewShotModel(nn.Module):
+    """What every model of the port shares: the init, the frozen backbone
+    BNs and the dropout generator. Subclasses set ``encoder`` (with a
+    ``backbone``) and, the PEMP stages, ``ctr``."""
+
+    # module types under ``encoder.backbone`` whose parameters do not
+    # train (every ResNet; VGG16 has none, so nothing of it is frozen).
+    # The JAX package's regex ``backbone/.*bn`` also matches its
+    # ``downsample_bn``; here that module is ``layerK.0.downsample.1``, so
+    # the rule goes by module type, not by name.
+    FROZEN = (nn.BatchNorm2d,)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Re-draw every weight from ``generator`` with the JAX package's
+        inits: torch's defaults for convs and linears (kaiming-uniform
+        a=sqrt(5)), kaiming-normal (relu gain, fan_in) for the VGG convs
+        (``KaimingConv``), U(+-1/sqrt(fan_in)) biases, BN ones/zeros with
+        fresh running stats, and ``ctr`` from U[0,1) like ``torch.rand``
+        (reference pemp_stage1.py:105)."""
+        for m in self.modules():
+            if isinstance(m, KaimingConv):
+                nn.init.kaiming_normal_(m.weight, mode="fan_in",
+                                        nonlinearity="relu",
+                                        generator=generator)
+            elif isinstance(m, (nn.Conv2d, nn.Linear)):
+                nn.init.kaiming_uniform_(m.weight, a=math.sqrt(5),
+                                         generator=generator)
+            elif isinstance(m, nn.BatchNorm2d):
+                m.reset_parameters()
+            if isinstance(m, (nn.Conv2d, nn.Linear)) and m.bias is not None:
+                bound = 1.0 / math.sqrt(m.weight[0].numel())
+                m.bias.uniform_(-bound, bound, generator=generator)
+        if getattr(self, "ctr", None) is not None:
+            self.ctr.uniform_(0.0, 1.0, generator=generator)
+
+    def freeze(self) -> List[nn.Parameter]:
+        """``requires_grad=False`` on the parameters of every ``FROZEN``
+        module under the backbone (those BNs stay in train mode, so they
+        still use and update batch statistics); returns the parameters
+        that train."""
+        for m in self.encoder.backbone.modules():
+            if isinstance(m, self.FROZEN):
+                for p in m.parameters(recurse=False):
+                    p.requires_grad_(False)
+        return [p for p in self.parameters() if p.requires_grad]
+
+    def set_dropout_generator(self, generator: Optional[torch.Generator]
+                              ) -> None:
+        """The generator every DropBlock and Dropout2d draws from in train
+        mode."""
+        for m in self.modules():
+            if isinstance(m, (DropBlock, Dropout2d)):
+                m.generator = generator
 
 
 class PurifierV2(nn.Sequential):

@@ -8,8 +8,12 @@ torch's conventions on NHWC Flax modules; here they are torch's own:
 - ``BatchNorm`` is ``nn.BatchNorm2d(eps=1e-5, momentum=0.1)``, which is the
   semantics ``_TorchBatchNorm`` reproduces in JAX (running variance from
   the unbiased batch variance, two-pass batch statistics);
+- ``KaimingConv`` is ``nn.Conv2d`` drawn kaiming-normal (relu gain,
+  fan_in) by ``FewShotModel.reset_parameters``: the VGG16 convs'
+  ``kaiming_normal_relu`` init;
 - ``max_pool_torch`` is ``nn.MaxPool2d(3, 2, 1, ceil_mode=True)`` for the
-  ResNet stem;
+  ResNet stem; VGG16 pools with ``nn.MaxPool2d(3, stride, 1)`` (floor
+  mode), which differs from it at even sizes;
 - ``Dropout2d`` and ``DropBlock`` draw from an explicit generator (set by
   the trainer), which ``nn.Dropout2d`` cannot take.
 
@@ -28,6 +32,13 @@ from pemp_tpu_torch.ops.dropblock import dropblock_2d
 
 Conv = nn.Conv2d
 BatchNorm = nn.BatchNorm2d      # defaults eps=1e-5, momentum=0.1
+
+
+class KaimingConv(nn.Conv2d):
+    """A ``Conv`` whose weight ``FewShotModel.reset_parameters`` draws
+    kaiming-normal (relu gain, fan_in) instead of torch's default
+    (the JAX package's ``kaiming_normal_relu``); its bias keeps torch's
+    U(+-1/sqrt(fan_in))."""
 
 
 def max_pool_torch() -> nn.MaxPool2d:

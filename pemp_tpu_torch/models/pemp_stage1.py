@@ -2,9 +2,11 @@
 
 Counterpart of ``pemp_tpu/models/pemp_stage1.py`` (reference
 networks/pemp_stage1.py): a 3-stage dilated ResNet-50/101 + ``PurifierV2``
-encoder, then the meta-prototype module (mpm) -- soft assignment of the
-support pixels to learned centers ``ctr`` [c, 2p], adaptive prototypes,
-max-over-p cosine matching -- and an align-corners upsample.
+encoder, or a dilated VGG16 alone (no purifier: ``drop_rate`` and
+``block_size`` go unused and c is 512), then the meta-prototype module
+(mpm) -- soft assignment of the support pixels to learned centers ``ctr``
+[c, 2p], adaptive prototypes, max-over-p cosine matching -- and an
+align-corners upsample.
 
 The encoder runs under bf16 autocast when ``compute_dtype`` is bf16 (the
 JAX package's ``tpu.precision=bf16``); the mpm and everything after it
@@ -16,25 +18,24 @@ the ``MPMChainPacked`` autograd Function.
 Training is ``model.train()``: BatchNorms use batch statistics and update
 their running stats, DropBlocks drop. ``freeze()`` applies ``FROZEN``:
 the backbone BatchNorms keep batch statistics but their affine
-parameters do not train (reference backbones.py:56-62). ``PEMPModel``
-holds what stage 2 (``models/pemp_stage2.py``) shares with stage 1, and
-``predict`` the path from the encoder's features to the logits.
+parameters do not train (reference backbones.py:56-62; VGG16 has none).
+``FewShotModel`` (``models/common.py``) holds what every model shares,
+and ``predict`` the path from the encoder's features to the logits that
+stage 2 (``models/pemp_stage2.py``) shares with stage 1.
 """
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
-from pemp_tpu_torch.models.backbones import ResNet
+from pemp_tpu_torch.models.backbones import VGG16, ResNet
 from pemp_tpu_torch.models.common import (
-    RESNET_LAYERS, PurifierV2, downsample_masks, output_resize,
+    RESNET_LAYERS, FewShotModel, PurifierV2, downsample_masks, output_resize,
 )
-from pemp_tpu_torch.models.layers import DropBlock, Dropout2d
 from pemp_tpu_torch.ops.kernels.mpm import mpm_chain_packed
 from pemp_tpu_torch.ops.prototypes import (
     masked_average_pooling, meta_prototype_assign, prototype_predictions,
@@ -49,13 +50,13 @@ class NetConfig:
     dist_scalar: float = 20.0
     init_channels: int = 3
     out_channels: int = 512
-    backbone: str = "resnet50"      # resnet50 | resnet101 (vgg16 not ported)
+    backbone: str = "resnet50"      # resnet50 | resnet101 | vgg16
     protos: int = 3
     drop_rate: float = 0.1
     block_size: int = 4
     # stage 2 (``models/pemp_stage2.py``) reads these; both stages share
     # the scope, as the JAX package's and the reference's do
-    backbone2: str = "resnet50"     # resnet50 | resnet101
+    backbone2: str = "resnet50"     # resnet50 | resnet101 | vgg16
     protos2: int = 3
     drop_rate2: float = 0.5
     cm: bool = True                 # the JAX package reads it nowhere
@@ -122,75 +123,35 @@ def predict(fts, sup_mask, q, ctr, protos, dist_scalar, out_hw, ret_ind):
 
 
 class Encoder(nn.Module):
+    """A ResNet + ``PurifierV2`` (``out_channels`` out), or VGG16 alone
+    (512 out, reference pemp_stage1.py:66-72)."""
+
     def __init__(self, backbone: str, out_channels: int, drop_rate: float,
                  block_size: int, init_channels: int = 3, layers=None):
         super().__init__()
+        if backbone == "vgg16":
+            self.backbone = VGG16(last_relu=False, init_channels=init_channels)
+            self.purifier = None
+            self.out_channels = self.backbone.out_channels
+            return
         if backbone not in RESNET_LAYERS:
             raise ValueError(f"Not supported backbone '{backbone}' "
-                             f"[{', '.join(RESNET_LAYERS)}] (vgg16 is not "
-                             "ported yet)")
+                             f"[vgg16, {', '.join(RESNET_LAYERS)}]")
         self.backbone = ResNet(layers or RESNET_LAYERS[backbone],
                                init_channels)
         self.purifier = PurifierV2(self.backbone.out_channels, out_channels,
                                    drop_rate, block_size)
+        self.out_channels = out_channels
 
     def forward(self, x):
-        return self.purifier(self.backbone(x))
+        x = self.backbone(x)
+        return x if self.purifier is None else self.purifier(x)
 
 
-class PEMPModel(nn.Module):
-    """What both PEMP stages share: ``state_dict`` keys in the reference
-    checkpoint layout (``encoder.backbone.*``, ``encoder.purifier.*``,
-    ``ctr``), the frozen backbone BNs, the init and the dropout
-    generator. Subclasses set ``encoder`` and ``ctr``."""
-
-    # module types under ``encoder.backbone`` whose parameters do not
-    # train (every ResNet). The JAX package's regex ``backbone/.*bn`` also
-    # matches its ``downsample_bn``; here that module is
-    # ``layerK.0.downsample.1``, so the rule goes by module type, not by
-    # name.
-    FROZEN = (nn.BatchNorm2d,)
-
-    @torch.no_grad()
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        """Re-draw every weight from ``generator`` with torch's default
-        inits (conv and linear kaiming-uniform a=sqrt(5) and
-        U(+-1/sqrt(fan_in)) bias, BN ones/zeros with fresh running stats)
-        and ``ctr`` from U[0,1) like ``torch.rand`` (reference :105)."""
-        for m in self.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
-                nn.init.kaiming_uniform_(m.weight, a=math.sqrt(5),
-                                         generator=generator)
-                if m.bias is not None:
-                    bound = 1.0 / math.sqrt(m.weight[0].numel())
-                    m.bias.uniform_(-bound, bound, generator=generator)
-            elif isinstance(m, nn.BatchNorm2d):
-                m.reset_parameters()
-        if self.ctr is not None:
-            self.ctr.uniform_(0.0, 1.0, generator=generator)
-
-    def freeze(self) -> List[nn.Parameter]:
-        """``requires_grad=False`` on the parameters of every ``FROZEN``
-        module under the backbone (those BNs stay in train mode, so they
-        still use and update batch statistics); returns the parameters
-        that train."""
-        for m in self.encoder.backbone.modules():
-            if isinstance(m, self.FROZEN):
-                for p in m.parameters(recurse=False):
-                    p.requires_grad_(False)
-        return [p for p in self.parameters() if p.requires_grad]
-
-    def set_dropout_generator(self, generator: Optional[torch.Generator]
-                              ) -> None:
-        """The generator every DropBlock and Dropout2d draws from in train
-        mode."""
-        for m in self.modules():
-            if isinstance(m, (DropBlock, Dropout2d)):
-                m.generator = generator
-
-
-class PEMPStage1(PEMPModel):
-    """``layers`` overrides the ResNet depth (tests build ``(1, 1, 1)``)."""
+class PEMPStage1(FewShotModel):
+    """``state_dict`` keys are the reference's (``encoder.backbone.*``,
+    ``encoder.purifier.*``, ``ctr``). ``layers`` overrides the ResNet depth
+    (tests build ``(1, 1, 1)``)."""
 
     def __init__(self, backbone: str = "resnet50", out_channels: int = 512,
                  protos: int = 3, drop_rate: float = 0.1, block_size: int = 4,
@@ -202,7 +163,8 @@ class PEMPStage1(PEMPModel):
         self.protos = protos
         self.dist_scalar = dist_scalar
         self.compute_dtype = compute_dtype
-        self.ctr = (nn.Parameter(torch.rand(out_channels, 2 * protos))
+        self.ctr = (nn.Parameter(torch.rand(self.encoder.out_channels,
+                                            2 * protos))
                     if protos > 0 else None)
 
     def forward(self, sup_img, sup_mask, qry_img,

@@ -6,10 +6,11 @@ networks/pemp_stage2.py) and of the cascade in ``entry/pemp_stage2.py``:
 - ``PEMPStage2``: a 4-channel input, RGB plus a prior (the support's GT fg
   mask, the query's stage-1 prediction), through a ``ResNetCM`` whose
   communication modules pool the prior-masked features of each episode,
-  then ``PurifierV1`` (Dropout2d, ASPP) under bf16 autocast when
-  ``compute_dtype`` is bf16, then the same mpm as stage 1 with its own
-  centers (``protos2``): the CUDA kernels for features on the card, the
-  plain version on the CPU, ``MPMChainPacked`` with grad;
+  then ``PurifierV1`` (Dropout2d, ASPP), or through a ``VGG16CM`` alone
+  (no purifier), under bf16 autocast when ``compute_dtype`` is bf16, then
+  the same mpm as stage 1 with its own centers (``protos2``): the CUDA
+  kernels for features on the card, the plain version on the CPU,
+  ``MPMChainPacked`` with grad;
 - ``PEMPCascade``: a frozen ``PEMPStage1`` gives the query prior (its
   argmax at input size, under ``no_grad``), and ``PEMPStage2`` refines.
   In train mode stage 1 runs as the JAX package runs it in training:
@@ -17,8 +18,6 @@ networks/pemp_stage2.py) and of the cascade in ``entry/pemp_stage2.py``:
   discarded. In eval mode it runs in eval mode. (The reference leaves
   stage 1 in train mode at test time; the JAX package documents why it
   does not, ``entry/pemp_stage2.py:10-14``.)
-
-``vgg16`` (``VGG16CM``) is not ported, as in stage 1.
 """
 
 from __future__ import annotations
@@ -29,31 +28,44 @@ from typing import List, Optional, Tuple
 import torch
 from torch import nn
 
-from pemp_tpu_torch.models.backbones import ResNetCM
-from pemp_tpu_torch.models.common import RESNET_LAYERS, PurifierV1
-from pemp_tpu_torch.models.pemp_stage1 import PEMPModel, PEMPStage1, predict
+from pemp_tpu_torch.models.backbones import VGG16CM, ResNetCM
+from pemp_tpu_torch.models.common import (
+    RESNET_LAYERS, FewShotModel, PurifierV1,
+)
+from pemp_tpu_torch.models.pemp_stage1 import PEMPStage1, predict
 
 
 class EncoderCM(nn.Module):
+    """A ``ResNetCM`` + ``PurifierV1`` (``out_channels`` out), or a
+    ``VGG16CM`` alone (512 out)."""
+
     def __init__(self, backbone: str, out_channels: int, drop_rate: float,
                  layers=None):
         super().__init__()
+        if backbone == "vgg16":
+            self.backbone = VGG16CM(last_relu=False)
+            self.purifier = None
+            self.out_channels = self.backbone.out_channels
+            return
         if backbone not in RESNET_LAYERS:
             raise ValueError(f"Not supported backbone '{backbone}' "
-                             f"[{', '.join(RESNET_LAYERS)}] (vgg16 is not "
-                             "ported yet)")
+                             f"[vgg16, {', '.join(RESNET_LAYERS)}]")
         self.backbone = ResNetCM(layers or RESNET_LAYERS[backbone])
         self.purifier = PurifierV1(self.backbone.out_channels, out_channels,
                                    drop_rate)
+        self.out_channels = out_channels
 
     def forward(self, x, prior, spq):
-        return self.purifier(self.backbone(x, prior, spq))
+        x = self.backbone(x, prior, spq)
+        return x if self.purifier is None else self.purifier(x)
 
 
-class PEMPStage2(PEMPModel):
+class PEMPStage2(FewShotModel):
     """``state_dict`` keys are the reference's (``encoder.backbone.*`` with
-    ``linear{1,2,3}``, ``encoder.purifier.{0,3,6}``, ``ctr``). ``layers``
-    overrides the ResNet depth (tests build ``(1, 1, 1)``)."""
+    ``linear{1,2,3}``, ``encoder.purifier.{0,3,6}``, ``ctr``; with
+    ``vgg16``, ``encoder.backbone.features.*`` and ``linear{1..4}``, the
+    layout ``utils/convert.py`` sets out). ``layers`` overrides the ResNet
+    depth (tests build ``(1, 1, 1)``)."""
 
     def __init__(self, backbone: str = "resnet50", out_channels: int = 512,
                  protos: int = 3, drop_rate: float = 0.5,
@@ -64,7 +76,8 @@ class PEMPStage2(PEMPModel):
         self.protos = protos
         self.dist_scalar = dist_scalar
         self.compute_dtype = compute_dtype
-        self.ctr = (nn.Parameter(torch.rand(out_channels, 2 * protos))
+        self.ctr = (nn.Parameter(torch.rand(self.encoder.out_channels,
+                                            2 * protos))
                     if protos > 0 else None)
 
     def forward(self, sup_img, sup_mask, qry_img, qry_prior,

@@ -18,6 +18,7 @@ from typing import Tuple
 import torch
 
 from pemp_tpu_torch.ops.dtypes import f32up
+from pemp_tpu_torch.ops.resize import _interp_matrix
 
 COS_EPS = 1e-8      # torch F.cosine_similarity default
 POOL_EPS = 1e-5     # reference masked-average denominators
@@ -32,6 +33,29 @@ def masked_average_pooling(fts: torch.Tensor, mask: torch.Tensor,
     mask = f32up(mask)
     num = torch.einsum("...nc,...n->...c", fts, mask)
     den = mask.sum(dim=-1, keepdim=True) + eps
+    return num / den
+
+
+def masked_average_pooling_adjoint(fts: torch.Tensor, mask: torch.Tensor,
+                                   eps: float = POOL_EPS) -> torch.Tensor:
+    """``masked_average_pooling`` of the features bilinearly upsampled
+    (align_corners) to the mask's size, without the upsampled tensor: the
+    resize is linear, so the pooled numerator contracts the original
+    features with the mask projected down by the adjoint ``R_h^T m R_w``
+    (the Baseline/PANet prototypes, reference baseline.py:100-110). The
+    denominator is the full-resolution mask sum, as the reference's.
+
+    fts [B, S, h, w, c] at feature resolution, mask [B, S, H, W] at full
+    resolution -> [B, S, c].
+    """
+    b, s, h, w, c = fts.shape
+    big_h, big_w = mask.shape[-2:]
+    m = f32up(mask)
+    rh = torch.from_numpy(_interp_matrix(h, big_h)).to(m)         # [H, h]
+    rw = torch.from_numpy(_interp_matrix(w, big_w)).to(m)         # [W, w]
+    mdown = torch.einsum("Hh,bsHW,Ww->bshw", rh, m, rw)
+    num = torch.einsum("bshwc,bshw->bsc", f32up(fts), mdown)
+    den = m.sum(dim=(-1, -2))[..., None] + eps
     return num / den
 
 

@@ -1,11 +1,18 @@
 """Carry the JAX package's weights into the port.
 
 ``state_dict_from_jax(params, batch_stats)`` takes the nested numpy trees
-of a ``pemp_tpu`` PEMP stage-1 or stage-2 model (``variables["params"]``
-and ``variables["batch_stats"]``) and returns the port's ``state_dict``:
+of a ``pemp_tpu`` PEMP stage-1, PEMP stage-2, Baseline or PANet model
+(``variables["params"]`` and ``variables["batch_stats"]``) and returns the
+port's ``state_dict``:
 
 - Flax convs live under ``.../<name>/Conv_0/{kernel,bias}``; kernels go
   from HWIO to OIHW;
+- a VGG16 trunk (a tree with ``backbone/conv0``) has its 13 convs
+  ``backbone/conv{i}`` at torchvision's ``encoder.backbone.features.{j}``,
+  j = 0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28
+  (``tools/export_reference_ckpt.py:81-86``); Baseline's and PANet's
+  ResNet-50 ``projection`` becomes ``encoder.projection``
+  (``export_reference_ckpt.py:165-169``);
 - Flax BatchNorms live under ``.../<name>/BatchNorm_0/{scale,bias}`` and
   ``batch_stats .../BatchNorm_0/{mean,var}``; they become
   ``weight/bias/running_mean/running_var`` (plus ``num_batches_tracked``);
@@ -16,7 +23,13 @@ and ``variables["batch_stats"]``) and returns the port's ``state_dict``:
 - ``ctr`` is copied as is.
 
 The port's keys are the reference checkpoint's (``encoder.backbone.*``,
-``encoder.purifier.*``, ``ctr``), so a reference ``.pth`` loads too.
+``encoder.purifier.*``, ``encoder.projection``, ``ctr``), so a reference
+``.pth`` loads too. Stage 2 with ``vgg16`` (``VGG16CM``) has no reference
+layout (the JAX exporter refuses it); the port's is VGG16's and
+ResNetCM's together: the convs ``backbone/conv{i}`` at
+``encoder.backbone.features.{j}`` as above (``conv0`` takes 4 channels,
+``conv{2,4,7,10}`` 2 more than VGG16's), the CMs ``backbone/cm{k}/linear``
+at ``encoder.backbone.linear{k}``, k = 1..4, and ``ctr``.
 """
 
 from __future__ import annotations
@@ -27,10 +40,20 @@ from typing import Dict, Mapping, Tuple
 import numpy as np
 import torch
 
+from pemp_tpu_torch.models.backbones import VGG_TORCH_IDX
 
-def _module_key(path: Tuple[str, ...]) -> str:
-    """Flax module path -> the port's module name."""
+
+def _module_key(path: Tuple[str, ...], vgg: bool = False) -> str:
+    """Flax module path -> the port's module name (``vgg``: the backbone
+    is a VGG16 trunk)."""
     top, rest = path[0], path[1:]
+    if top == "projection" and not rest:
+        return "encoder.projection"
+    if top == "backbone" and vgg:
+        m = re.fullmatch(r"conv(\d+)", rest[0]) if len(rest) == 1 else None
+        if m is None or int(m[1]) >= len(VGG_TORCH_IDX):
+            raise KeyError(f"unexpected backbone path {'/'.join(path)}")
+        return f"encoder.backbone.features.{VGG_TORCH_IDX[int(m[1])]}"
     if top == "backbone":
         if rest in (("conv1",), ("bn1",)):                   # the stem
             return f"encoder.backbone.{rest[0]}"
@@ -67,9 +90,11 @@ def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()):
 
 def state_dict_from_jax(params: Mapping, batch_stats: Mapping
                         ) -> Dict[str, torch.Tensor]:
-    """JAX PEMP stage-1 or stage-2 ``params`` / ``batch_stats`` trees -> the
-    port's ``state_dict`` (float32 tensors; ``num_batches_tracked`` 0)."""
+    """JAX PEMP stage-1, stage-2, Baseline or PANet ``params`` /
+    ``batch_stats`` trees -> the port's ``state_dict`` (float32 tensors;
+    ``num_batches_tracked`` 0)."""
     sd: Dict[str, torch.Tensor] = {}
+    vgg = "conv0" in params.get("backbone", {})
 
     def put(key, value):
         sd[key] = torch.from_numpy(np.ascontiguousarray(value, np.float32))
@@ -88,7 +113,7 @@ def state_dict_from_jax(params: Mapping, batch_stats: Mapping
             else:
                 put(f"{key}.bias", leaf)
             continue
-        key = _module_key(path[:-2])
+        key = _module_key(path[:-2], vgg)
         if layer == "Conv_0":
             put(f"{key}.{'weight' if name == 'kernel' else 'bias'}",
                 leaf.transpose(3, 2, 0, 1) if name == "kernel" else leaf)
@@ -100,7 +125,7 @@ def state_dict_from_jax(params: Mapping, batch_stats: Mapping
     for path, leaf in _leaves(batch_stats):
         if path[-2] != "BatchNorm_0":
             raise KeyError(f"unexpected batch_stats path {'/'.join(path)}")
-        key = _module_key(path[:-2])
+        key = _module_key(path[:-2], vgg)
         put(f"{key}.{'running_mean' if path[-1] == 'mean' else 'running_var'}",
             leaf)
     return sd

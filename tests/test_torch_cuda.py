@@ -282,3 +282,101 @@ def test_match_kernel_widths_and_first_occurrence_ties(cuda, p, c, dtype):
         for pr in (bgp, fgp)], dim=-1)
     sure = (margin > 1e-3) | (margin == 0)      # exact ties: first occurrence
     assert torch.equal(ki[sure], pi[sure])
+
+
+def _vgg_episode(cuda, b=2, hw=97, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    fg = (torch.rand(b, 1, hw, hw, 1, generator=g) > 0.5).float()
+    return [t.to(cuda) for t in (
+        torch.randn(b, 1, hw, hw, 3, generator=g), torch.cat([fg, 1 - fg], -1),
+        torch.randn(b, 1, hw, hw, 3, generator=g),
+        (torch.rand(b, 1, hw, hw, generator=g) > 0.5).float())]
+
+
+def _plain_chain(fts, sup_fg, sup_bg, ctr, protos, dist_scalar,
+                 return_indices=False):
+    from pemp_tpu_torch.models import pemp_stage1 as stage1
+    s = sup_fg.shape[1]
+    return stage1.mpm_predict(fts[:, :s], fts[:, s:], sup_fg, sup_bg, ctr,
+                              protos, dist_scalar, return_indices)
+
+
+@pytest.mark.parametrize("stage", [1, 2])
+def test_vgg16_pemp_stages_kernels_match_plain(cuda, stage):
+    """PEMP with ``vgg16`` (bf16 VGG16 or VGG16CM, no purifier) on the
+    card: the forward through the kernels against the plain mpm on the
+    same features (logits within 2e-3, argmax agreement >= 0.999), and
+    one f32 train step's gradients (rel L2 <= 1e-3 each, loss rel 1e-5)."""
+    from unittest import mock
+
+    from pemp_tpu_torch.core import losses
+    from pemp_tpu_torch.models import pemp_stage1 as stage1
+    from pemp_tpu_torch.models.pemp_stage2 import PEMPStage2
+
+    cls = stage1.PEMPStage1 if stage == 1 else PEMPStage2
+    sup, mask, qry, prior = _vgg_episode(cuda)
+    args = (sup, mask, qry) + ((prior,) if stage == 2 else ())
+    model = cls(backbone="vgg16", compute_dtype=torch.bfloat16)
+    model.reset_parameters(torch.Generator().manual_seed(stage))
+    model = model.to(cuda, memory_format=torch.channels_last).eval()
+    K.reset_launches()
+    with torch.no_grad():
+        lk = model(*args)
+        assert K.launches["assign"] == 1 and K.launches["match"] == 1
+        with mock.patch.object(stage1, "mpm_chain_packed", _plain_chain):
+            lp = model(*args)
+    assert (lk - lp).abs().max() <= 2e-3
+    assert (lk.argmax(-1) == lp.argmax(-1)).float().mean() >= 0.999
+
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        model.compute_dtype = torch.float32
+        model.train()
+        labels = (qry[..., 0] > 0).long().reshape(-1, *qry.shape[2:4])
+
+        def step():
+            model.zero_grad(set_to_none=True)
+            out = model(*args)
+            loss = losses.cedt(out.reshape(-1, *out.shape[-3:]), labels)
+            loss.backward()
+            return loss.item(), {k: p.grad.clone()
+                                 for k, p in model.named_parameters()}
+
+        loss_k, gk = step()
+        assert K.launches["match_bwd"] == 1 and K.launches["assign_bwd"] == 1
+        with mock.patch.object(stage1, "mpm_chain_packed", _plain_chain):
+            loss_p, gp = step()
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
+    for k in gp:
+        assert (gk[k] - gp[k]).norm() <= 1e-3 * gp[k].norm(), k
+
+
+@pytest.mark.parametrize("name", ["baseline", "panet"])
+def test_baseline_and_panet_on_the_card_match_the_cpu(cuda, name):
+    """Baseline and PANet (VGG16, f32, TF32 off) on the card against the
+    same model on the CPU: logits and PANet's alignment loss within rtol
+    1e-3, atol 2e-4 (cuDNN and oneDNN sum in other orders); no kernel
+    launched."""
+    from pemp_tpu_torch.models.baseline import Baseline
+    from pemp_tpu_torch.models.panet import PANet
+
+    sup, mask, qry, _ = _vgg_episode(cuda, hw=65, seed=3)
+    model = (Baseline if name == "baseline" else PANet)(backbone="vgg16")
+    model.reset_parameters(torch.Generator().manual_seed(4))
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    K.reset_launches()
+    try:
+        with torch.no_grad():
+            cpu = model.eval()(sup.cpu(), mask.cpu(), qry.cpu())
+            card = model.to(cuda)(sup, mask, qry)
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    assert not any(K.launches.values())
+    cpu = cpu if name == "panet" else (cpu,)
+    card = card if name == "panet" else (card,)
+    for a, b in zip(card, cpu):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=2e-4)

@@ -7,6 +7,7 @@ package's for the same seeds (exact).
 """
 
 import math
+import shutil
 
 import numpy as np
 import pytest
@@ -21,6 +22,15 @@ from pemp_tpu_torch.entry import pemp_stage1 as entry
 
 SMALL = ["split=0", "data.dataset=SYNTH", "data.height=33", "data.width=33",
          "data.test_bs=2", "data.test_n=4", "te.epochs=2", "data.num_workers=2"]
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's ``tmp_path``, removed with the checkpoints the test wrote
+    into it once the test ends: nothing reads them afterwards, and at
+    ResNet-50 width they take tens of MB a file."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.mark.parametrize("precision", ["f32", "bf16"])

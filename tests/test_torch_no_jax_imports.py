@@ -31,6 +31,10 @@ def _imported_modules(tree):
 def test_the_scan_sees_the_package():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert "pemp_tpu_torch/ops/kernels/mpm.py" in names
+    for new in ("core/experiment.py", "models/registry.py",
+                "models/baseline.py", "models/panet.py", "entry/baseline.py",
+                "entry/panet.py"):
+        assert f"pemp_tpu_torch/{new}" in names
     assert "chip_smoke.py" in names and len(names) > 20
 
 

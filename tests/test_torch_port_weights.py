@@ -1,8 +1,10 @@
 """state_dict_from_jax: every conv, BN and linear leaf of a JAX PEMP
-stage-1 or stage-2 model lands in the right tensor of the port, and the
-port's keys are the reference checkpoint layout that
-tools/export_reference_ckpt.py writes. Exact equality: the conversion only
-transposes and copies.
+stage-1, stage-2, Baseline or PANet model lands in the right tensor of the
+port, and the port's keys are the reference checkpoint layout that
+tools/export_reference_ckpt.py writes wherever it has one. Exact equality:
+the conversion only transposes and copies. Stage 2 with ``vgg16`` has no
+reference layout; its trees round-trip into the port's ``PEMPStage2`` and
+give the JAX forward (float64, rel 1e-6 of the largest logit).
 """
 
 import numpy as np
@@ -12,11 +14,16 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from pemp_tpu.models.baseline import Baseline as JaxBaseline
+from pemp_tpu.models.panet import PANet as JaxPANet
 from pemp_tpu.models.pemp_stage1 import PEMPStage1 as JaxPEMPStage1
 from pemp_tpu.models.pemp_stage2 import PEMPStage2 as JaxPEMPStage2
+from pemp_tpu_torch.models.baseline import Baseline
+from pemp_tpu_torch.models.panet import PANet
 from pemp_tpu_torch.models.pemp_stage1 import PEMPStage1
 from pemp_tpu_torch.models.pemp_stage2 import PEMPStage2
 from pemp_tpu_torch.utils.convert import state_dict_from_jax
+from tests.test_torch_parity_helpers import draw_variables, episode, tree64
 from tools.export_reference_ckpt import export_trained
 
 
@@ -110,6 +117,93 @@ def test_stage2_state_dict_from_jax_matches_the_reference_export():
         got["encoder.purifier.6.aspp_3.0.weight"].numpy(),
         params["purifier"]["aspp"]["aspp_3"]["Conv_0"]["kernel"]
         .transpose(3, 2, 0, 1))
+
+
+JAX_MODELS = {"pemp_stage1": (JaxPEMPStage1, PEMPStage1),
+              "baseline": (JaxBaseline, Baseline), "panet": (JaxPANet, PANet)}
+
+
+def _family_trees(name, backbone, seed):
+    """JAX trees of a stage-1, Baseline or PANet model, filled from numpy."""
+    x = jnp.zeros((1, 1, 33, 33, 3))
+    m = jnp.zeros((1, 1, 33, 33, 2))
+    shapes = jax.eval_shape(lambda: JAX_MODELS[name][0](
+        backbone=backbone).init({"params": jax.random.PRNGKey(0)}, x, m, x))
+    rng = np.random.RandomState(seed)
+    fill = lambda s: rng.randn(*s.shape).astype(np.float32)  # noqa: E731
+    return (jax.tree_util.tree_map(fill, shapes["params"]),
+            jax.tree_util.tree_map(fill, shapes.get("batch_stats", {})))
+
+
+@pytest.mark.parametrize("name,backbone", [
+    ("pemp_stage1", "vgg16"), ("baseline", "vgg16"), ("baseline", "resnet50"),
+    ("panet", "vgg16")])
+def test_state_dict_from_jax_keys_equal_the_reference_export(name, backbone):
+    params, stats = _family_trees(name, backbone, seed=2)
+    sd = state_dict_from_jax(params, stats)
+    port = JAX_MODELS[name][1](backbone=backbone)
+    port.load_state_dict(sd, strict=True)
+    got = {k: v for k, v in port.state_dict().items()
+           if not k.endswith("num_batches_tracked")}
+    ref = export_trained(name, backbone, params, stats)
+    assert set(ref) == set(got)
+    for k, v in ref.items():
+        np.testing.assert_array_equal(got[k].numpy(), v, err_msg=k)
+    if backbone == "vgg16":
+        np.testing.assert_array_equal(
+            got["encoder.backbone.features.28.weight"].numpy(),
+            params["backbone"]["conv12"]["Conv_0"]["kernel"]
+            .transpose(3, 2, 0, 1))
+    else:
+        np.testing.assert_array_equal(
+            got["encoder.projection.bias"].numpy(),
+            params["projection"]["Conv_0"]["bias"])
+
+
+def test_vgg16cm_trees_round_trip_and_give_the_jax_forward():
+    """Stage 2 with ``vgg16``: ``backbone/conv{i}`` at
+    ``encoder.backbone.features.{j}`` (4 input channels at ``conv0``, +2
+    at the first conv of blocks 2-5), ``backbone/cm{k}/linear`` at
+    ``encoder.backbone.linear{k}`` (k = 1..4, kernel transposed), and
+    ``ctr``; the port then computes the JAX forward."""
+    x = jnp.zeros((1, 1, 33, 33, 3))
+    m = jnp.zeros((1, 1, 33, 33, 2))
+    model = JaxPEMPStage2(backbone="vgg16", spq=2, dtype=jnp.float64)
+    params, stats = draw_variables(model, (x, m, x, jnp.zeros((1, 1, 33, 33))),
+                                   seed=3)
+    assert stats == {}
+    port = PEMPStage2(backbone="vgg16")
+    port.load_state_dict(state_dict_from_jax(params, stats), strict=True)
+    got = port.state_dict()
+    n_jax = sum(np.size(x) for x in jax.tree_util.tree_leaves(params))
+    assert n_jax == sum(v.numel() for v in got.values())
+    bb, jb = "encoder.backbone", params["backbone"]
+    for i, j, cin in ((0, 0, 4), (2, 5, 66), (4, 10, 130), (7, 17, 258),
+                      (10, 24, 514), (12, 28, 512)):
+        w = got[f"{bb}.features.{j}.weight"]
+        assert w.shape[1] == cin, (i, j)
+        np.testing.assert_array_equal(
+            w.numpy(), jb[f"conv{i}"]["Conv_0"]["kernel"].transpose(3, 2, 0, 1))
+    for k, c in ((1, 64), (2, 128), (3, 256), (4, 512)):
+        np.testing.assert_array_equal(
+            got[f"{bb}.linear{k}.weight"].numpy(),
+            jb[f"cm{k}"]["linear"]["kernel"].T)
+        assert got[f"{bb}.linear{k}.weight"].shape == (2, 2 * c)
+    np.testing.assert_array_equal(got["ctr"].numpy(), params["ctr"])
+
+    # float64 forward on both sides (the float32 weights are exact there)
+    sup, mask, qry = episode(4, 2, 1, 1, 33, 33)
+    prior = (np.random.RandomState(5).rand(2, 1, 33, 33) > 0.5) * 1.0
+    args = (sup, mask, qry, prior)
+    jax.config.update("jax_enable_x64", True)
+    try:
+        ref = np.asarray(jax.jit(lambda p, *a: model.apply({"params": p}, *a))(
+            tree64(params), *map(jnp.asarray, args)))
+    finally:
+        jax.config.update("jax_enable_x64", False)
+    with torch.no_grad():
+        ours = port.double().eval()(*map(torch.from_numpy, args)).numpy()
+    assert np.abs(ours - ref).max() <= 1e-6 * np.abs(ref).max()
 
 
 @pytest.mark.parametrize("path,layer", [

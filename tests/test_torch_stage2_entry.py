@@ -10,6 +10,7 @@ no CUDA the entry raises; ``visualize`` is not ported.
 """
 
 import math
+import shutil
 
 import pytest
 import torch
@@ -27,12 +28,14 @@ SMALL = ["split=0", "data.dataset=SYNTH", "data.height=33", "data.width=33",
 
 @pytest.fixture(scope="module")
 def stage1_run(tmp_path_factory):
-    """A model dir holding one trained stage-1 run (id 1)."""
+    """A model dir holding one trained stage-1 run (id 1); removed, with
+    the stage-2 runs the tests add to it, after the module's last test."""
     root = tmp_path_factory.mktemp("model_dir")
     result = entry1.main(["train", "with", *SMALL, "dev.device=cpu",
                           f"g.model_dir={root}"])
     assert result["train"]["run_id"] == 1
-    return root
+    yield root
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def test_stage2_trains_records_stage2_keys_and_chains_into_test(

@@ -33,7 +33,6 @@ import torch
 
 import jax
 import jax.numpy as jnp
-from flax import traverse_util
 
 from pemp_tpu.core import losses as jax_losses
 from pemp_tpu.core import solver as jax_solver
@@ -43,6 +42,9 @@ from pemp_tpu_torch.core import losses, solver
 from pemp_tpu_torch.models.pemp_stage1 import PEMPStage1
 from pemp_tpu_torch.models.pemp_stage2 import PEMPCascade, PEMPStage2
 from pemp_tpu_torch.utils.convert import state_dict_from_jax
+from tests.test_torch_parity_helpers import (
+    assert_leaves_close, draw_variables, sd64, tree64,
+)
 
 H = W = 33
 B, S, Q = 2, 1, 1
@@ -58,68 +60,6 @@ def x64():
     jax.config.update("jax_enable_x64", True)
     yield
     jax.config.update("jax_enable_x64", False)
-
-
-def _tree64(tree):
-    return jax.tree_util.tree_map(lambda x: np.asarray(x, np.float64), tree)
-
-
-def _sd64(params, stats):
-    """``state_dict_from_jax`` of float64 trees, kept at float64: the sum
-    of the float32 mappings of a high and a low part."""
-    hi_p = jax.tree_util.tree_map(np.float32, _tree64(params))
-    hi_s = jax.tree_util.tree_map(np.float32, _tree64(stats))
-    lo_p = jax.tree_util.tree_map(lambda x, h: np.float32(x - h),
-                                  _tree64(params), hi_p)
-    lo_s = jax.tree_util.tree_map(lambda x, h: np.float32(x - h),
-                                  _tree64(stats), hi_s)
-    hi, lo = state_dict_from_jax(hi_p, hi_s), state_dict_from_jax(lo_p, lo_s)
-    return {k: hi[k].double() + lo[k].double() for k in hi
-            if not k.endswith("num_batches_tracked")}
-
-
-def _assert_close(got, want, what):
-    bad = []
-    for k in sorted(want):
-        g, w = got[k].double().numpy(), want[k].numpy()
-        scale = max(np.abs(w).max(), np.abs(g).max(), 1e-10)
-        err = np.abs(g - w).max() / scale
-        if err > REL:
-            bad.append((k, float(err)))
-    assert not bad, f"{what} mismatch on {len(bad)} leaves: {bad[:8]}"
-
-
-def _variables(model, args, seed):
-    """float32 trees drawn from numpy at the init's scales (shapes from
-    eval_shape: no init compute): conv kernels N(0, 2 / fan_in), the CM
-    linears U(+-1/sqrt(fan_in)), small biases, ``ctr`` U[0, 1), every BN's
-    affine and running statistics randomised."""
-    shapes = jax.eval_shape(lambda: model.init(
-        {"params": jax.random.PRNGKey(0)}, *args))
-    rng = np.random.RandomState(seed + 10)
-
-    def draw(path, leaf):
-        name, shape = path[-1], leaf.shape
-        if path[-2:-1] == ("BatchNorm_0",):
-            x = (rng.uniform(0.5, 1.5, shape) if name == "scale"
-                 else 0.1 * rng.randn(*shape))
-        elif name == "ctr":
-            x = rng.uniform(0.0, 1.0, shape)
-        elif name == "kernel" and len(shape) == 4:
-            x = rng.randn(*shape) * np.sqrt(2.0 / np.prod(shape[:3]))
-        elif name == "kernel":
-            x = rng.uniform(-1, 1, shape) / np.sqrt(shape[0])
-        else:
-            x = 0.01 * rng.randn(*shape)
-        return x.astype(np.float32)
-
-    def stat(path, leaf):
-        return (0.1 * rng.randn(*leaf.shape) if path[-1] == "mean"
-                else rng.uniform(0.5, 1.5, leaf.shape)).astype(np.float32)
-
-    fill = lambda f, tree: traverse_util.unflatten_dict(  # noqa: E731
-        {k: f(k, v) for k, v in traverse_util.flatten_dict(tree).items()})
-    return fill(draw, shapes["params"]), fill(stat, shapes["batch_stats"])
 
 
 @pytest.fixture(scope="module")
@@ -140,14 +80,14 @@ def step(x64):
                          dtype=jnp.float64)
     jax2 = JaxPEMPStage2(backbone="resnet50", protos=3, drop_rate=0.0,
                          spq=S + Q, dtype=jnp.float64)
-    p1, s1 = _variables(jax1, (x, m, x), 0)
-    p2, s2 = _variables(jax2, (x, m, x, jnp.zeros((1, Q, H, W))), 1)
+    p1, s1 = draw_variables(jax1, (x, m, x), 0)
+    p2, s2 = draw_variables(jax2, (x, m, x, jnp.zeros((1, Q, H, W))), 1)
     stage1 = PEMPStage1(backbone="resnet50", protos=3, drop_rate=0.0)
     stage1.load_state_dict(state_dict_from_jax(p1, s1))
     stage2 = PEMPStage2(backbone="resnet50", protos=3, drop_rate=0.0)
     stage2.load_state_dict(state_dict_from_jax(p2, s2))
-    v1 = {"params": _tree64(p1), "batch_stats": _tree64(s1)}
-    p2, s2 = _tree64(p2), _tree64(s2)
+    v1 = {"params": tree64(p1), "batch_stats": tree64(s1)}
+    p2, s2 = tree64(p2), tree64(s2)
     args = [jnp.asarray(a) for a in (sup, mask, qry)]
 
     def prior_fn(v):
@@ -180,8 +120,8 @@ def step(x64):
     return {"cascade": cascade, "prior": np.asarray(prior),
             "inputs": [torch.from_numpy(a) for a in (sup, mask, qry)],
             "labels": torch.from_numpy(labels), "loss": float(loss),
-            "grads": _sd64(grads, {}), "stats": _sd64({}, new_stats),
-            "params": _sd64(new_params, {}),
+            "grads": sd64(grads, {}), "stats": sd64({}, new_stats),
+            "params": sd64(new_params, {}),
             "stage1": {k: v.clone() for k, v in
                        cascade.stage1.state_dict().items()}}
 
@@ -213,16 +153,16 @@ def test_cascade_train_step_matches_jax(step):
         scale = REL * step["grads"][f"{key}.weight"].abs().max()
         assert grads[f"{key}.bias"].abs().max() <= scale
         assert step["grads"][f"{key}.bias"].abs().max() <= scale
-    _assert_close(grads, {k: step["grads"][k] for k in grads
-                          if not k.startswith("encoder.backbone.linear")
-                          or k.endswith(".weight")}, "grad")
+    assert_leaves_close(grads, {k: step["grads"][k] for k in grads
+                                if not k.startswith("encoder.backbone.linear")
+                                or k.endswith(".weight")}, REL, "grad")
     solver.clip_gradients(params, TR_CFG.grad_clip)
     opt.step()
     state = stage2.state_dict()
-    _assert_close({k: state[k] for k in step["stats"]}, step["stats"],
-                  "stage-2 running stats")
-    _assert_close({k: p.detach() for k, p in stage2.named_parameters()},
-                  step["params"], "sgd step")
+    assert_leaves_close({k: state[k] for k in step["stats"]}, step["stats"],
+                        REL, "stage-2 running stats")
+    assert_leaves_close({k: p.detach() for k, p in stage2.named_parameters()},
+                        step["params"], REL, "sgd step")
     # stage 1: no gradient, and its weights and BN buffers bit-equal
     assert all(p.grad is None for p in cascade.stage1.parameters())
     after = cascade.stage1.state_dict()

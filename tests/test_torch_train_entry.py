@@ -8,6 +8,7 @@ records nothing; without ``dev.device=cpu`` and with no CUDA it raises.
 """
 
 import math
+import shutil
 import os
 import signal
 
@@ -22,6 +23,15 @@ SMALL = ["split=0", "data.dataset=SYNTH", "data.height=33", "data.width=33",
          "data.bs=2", "data.train_n=4", "data.test_bs=2", "data.test_n=4",
          "te.epochs=1", "loss=cedt", "data.num_workers=2",
          "dev.precision=f32"]
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's ``tmp_path``, removed with the checkpoints the test wrote
+    into it once the test ends: nothing reads them afterwards, and at
+    ResNet-50 width they take tens of MB a file."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _train(tmp_path, *extra):

@@ -35,6 +35,7 @@ from pemp_tpu.models.pemp_stage1 import PEMPStage1 as JaxPEMPStage1
 from pemp_tpu_torch.core import losses, solver
 from pemp_tpu_torch.models.pemp_stage1 import PEMPStage1
 from pemp_tpu_torch.utils.convert import state_dict_from_jax
+from tests.test_torch_parity_helpers import assert_leaves_close, sd64, tree64
 
 H = W = 33
 B, S, Q = 2, 1, 1
@@ -50,35 +51,6 @@ def x64():
     jax.config.update("jax_enable_x64", True)
     yield
     jax.config.update("jax_enable_x64", False)
-
-
-def _tree64(tree):
-    return jax.tree_util.tree_map(lambda x: np.asarray(x, np.float64), tree)
-
-
-def _sd64(params, stats):
-    """``state_dict_from_jax`` of float64 trees, kept at float64: the sum
-    of the float32 mappings of a high and a low part."""
-    hi_p = jax.tree_util.tree_map(lambda x: np.float32(x), _tree64(params))
-    hi_s = jax.tree_util.tree_map(lambda x: np.float32(x), _tree64(stats))
-    lo_p = jax.tree_util.tree_map(lambda x, h: np.float32(x - h),
-                                  _tree64(params), hi_p)
-    lo_s = jax.tree_util.tree_map(lambda x, h: np.float32(x - h),
-                                  _tree64(stats), hi_s)
-    hi, lo = state_dict_from_jax(hi_p, hi_s), state_dict_from_jax(lo_p, lo_s)
-    return {k: hi[k].double() + lo[k].double() for k in hi
-            if not k.endswith("num_batches_tracked")}
-
-
-def _assert_close(got, want, what):
-    bad = []
-    for k in sorted(want):
-        g, w = got[k].double().numpy(), want[k].numpy()
-        scale = max(np.abs(w).max(), np.abs(g).max(), 1e-10)
-        err = np.abs(g - w).max() / scale
-        if err > REL:
-            bad.append((k, float(err)))
-    assert not bad, f"{what} mismatch on {len(bad)} leaves: {bad[:8]}"
 
 
 @pytest.fixture(scope="module")
@@ -115,7 +87,7 @@ def step(x64):
         leaf[...] = draw.astype(np.float32)
     port = PEMPStage1(backbone="resnet50", protos=3, drop_rate=0.0)
     port.load_state_dict(state_dict_from_jax(params, stats))
-    params, stats = _tree64(params), _tree64(stats)
+    params, stats = tree64(params), tree64(stats)
 
     def loss_fn(p):
         out, mutated = model.apply(
@@ -137,8 +109,8 @@ def step(x64):
     inputs = [torch.from_numpy(a) for a in (sup, mask, qry)]
     return {"port": port.double().train(), "inputs": inputs,
             "labels": torch.from_numpy(labels), "loss": float(loss),
-            "grads": _sd64(grads, {}), "stats": _sd64({}, new_stats),
-            "params": _sd64(new_params, {}),
+            "grads": sd64(grads, {}), "stats": sd64({}, new_stats),
+            "params": sd64(new_params, {}),
             "before": {k: v.clone() for k, v in port.state_dict().items()}}
 
 
@@ -158,9 +130,9 @@ def test_loss_grads_and_bn_stats_match_jax(step):
     np.testing.assert_allclose(float(loss.detach()), step["loss"], rtol=REL)
     grads = {k: p.grad for k, p in port.named_parameters()}
     assert set(grads) == set(step["grads"])
-    _assert_close(grads, step["grads"], "grad")
+    assert_leaves_close(grads, step["grads"], REL, "grad")
     assert set(stats) == set(step["stats"])
-    _assert_close(stats, step["stats"], "running stats")
+    assert_leaves_close(stats, step["stats"], REL, "running stats")
 
 
 def test_clipped_sgd_step_with_frozen_bn_matches_jax(step):
@@ -179,8 +151,8 @@ def test_clipped_sgd_step_with_frozen_bn_matches_jax(step):
     solver.clip_gradients(params, TR_CFG.grad_clip)
     opt.step()
     after = dict(port.named_parameters())
-    _assert_close({k: p.detach() for k, p in after.items()}, step["params"],
-                  "sgd step")
+    assert_leaves_close({k: p.detach() for k, p in after.items()},
+                        step["params"], REL, "sgd step")
     for k in frozen:
         assert torch.equal(after[k].detach(), step["before"][k])
     for p in port.parameters():
