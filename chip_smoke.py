@@ -24,6 +24,14 @@ SYNTH episodes):
   (``vgg_path``);
 - Baseline and PANet (VGG16): their ``train`` entries, which launch no
   kernel, and their steady steps (``baseline_path``, ``panet_path``);
+- CaNet (321x321, two epochs of three steps: the history store holds one
+  entry per epoch-1 query, the epoch-2 episodes that read a history are
+  exactly those the host predicts from the reset draws, the chained test
+  starts from an empty store; the write-back's cost), RPMMs (481x481:
+  eval repeatable bit for bit, three finite outputs) and PFENet (473x473:
+  no trunk gradient, the trunk's BN statistics move, every head
+  gradient finite), which launch no kernel (``canet_path``,
+  ``rpmms_path``, ``pfenet_path``);
 
 and checks that each path went through the kernels and agrees with the
 plain version. The phases ``minplus`` (the EDT kernel, bit-exact, also on
@@ -124,6 +132,19 @@ BASELINE_ARGS = ["train", "with", "split=0", "data.dataset=SYNTH",
                  "seed=1234"]
 PANET_ARGS = [a for a in BASELINE_ARGS if not a.startswith(
     ("data.bs=", "data.train_n="))] + ["data.bs=1", "data.train_n=6"]
+# CaNet, RPMMs and PFENet at their scripts' sizes and learning rates
+# (scripts/{canet,rpmms,pfenet}.sh), batch 4, ce, 1-shot; CaNet two epochs
+# of three steps, so that epoch 2 reads the history epoch 1 wrote
+ZOO_ARGS = ["train", "with", "split=0", "data.dataset=SYNTH", "shot=1",
+            "query=1", "data.bs=4", "data.test_bs=8", "data.test_n=16",
+            "te.epochs=1", "loss=ce", "dev.precision=bf16", "seed=1234"]
+CANET_ARGS = ZOO_ARGS + ["data.height=321", "data.width=321", "tr.lr=0.0025",
+                         "data.train_n=12", "tr.total_epochs=2"]
+RPMMS_ARGS = ZOO_ARGS + ["data.height=481", "data.width=481", "tr.lr=0.0035",
+                         "data.train_n=24", "tr.total_epochs=1"]
+PFENET_ARGS = ZOO_ARGS + ["data.height=473", "data.width=473",
+                          "tr.lr=0.0025", "data.train_n=24",
+                          "tr.total_epochs=1"]
 # K1-K5's launches per train step and per eval batch of one mpm chain
 STEP_LAUNCHES = {"assign": 1, "match": 1, "match_bwd": 1, "assign_bwd": 1,
                  "minplus": 2}
@@ -1294,8 +1315,12 @@ def steady_steps(torch, runtime, model, cfg, device, train_batch,
     return out
 
 
-def first_batch(datasets, cfg, mode="test"):
+def first_batch(datasets, cfg, mode="test", runtime=None):
+    """The first batch of ``mode``'s data, through ``runtime.wrap_data``
+    when a runtime is given (CaNet's history)."""
     ds, loader, _ = datasets.load(cfg, mode)
+    if runtime is not None:
+        ds, loader = runtime.wrap_data(ds, loader, mode == "train")
     ds.sample_tasks()
     return next(iter(loader))
 
@@ -1548,31 +1573,40 @@ def vgg_path_phase(torch, K, M, plain):
             for k in runs[1]["launches"]}
 
 
-def family_path_phase(torch, K, M, name, runtime_cls, args):
-    """Baseline or PANet (``name``) at full width (VGG16): the ``train``
-    entry (6 steps, online eval, chained test), finite losses, no mpm or
-    EDT kernel launched (the JAX package runs no kernel of its own for
-    these models); for PANet a finite, positive alignment loss; the steady
-    train and eval steps with one profile each."""
+def family_path_phase(torch, K, M, name, runtime_cls, args, runtime_of=None,
+                      check=None):
+    """A family without a kernel of its own (Baseline, PANet, CaNet, RPMMs,
+    PFENet) at full width: the ``train`` entry (online eval, chained
+    test), one finite loss a step, no mpm or EDT kernel launched (the JAX
+    package runs no kernel of its own for these models); the steady train
+    and eval steps with one profile each. ``runtime_of``: the runtime
+    class the entry run builds (a recording subclass), ``check(torch,
+    runtime, model, cfg, device, tbatch, ebatch, steady)``: the family's
+    own checks, whose dict joins the phase's line. Returns the run's
+    launches."""
     import importlib
+    from unittest import mock
 
+    from pemp_tpu_torch.core.evaluator import to_device
     from pemp_tpu_torch.data import datasets
 
     entry = importlib.import_module(f"pemp_tpu_torch.entry.{name}")
     runtime = getattr(entry, runtime_cls)
     device = torch.device("cuda")
     with tempfile.TemporaryDirectory() as tmp:
-        K.reset_launches()
-        M.reset_launches()
-        t0 = time.perf_counter()
-        result = entry.main(args + [f"g.model_dir={tmp}"])
-        wall = time.perf_counter() - t0
-        launches = {**K.launches, **M.launches, **K.backward_calls}
+        with mock.patch.object(entry, runtime_cls, runtime_of or runtime):
+            K.reset_launches()
+            M.reset_launches()
+            t0 = time.perf_counter()
+            result = entry.main(args + [f"g.model_dir={tmp}"])
+            wall = time.perf_counter() - t0
+            launches = {**K.launches, **M.launches, **K.backward_calls}
         run_dir = Path(tmp) / name / str(result["train"]["run_id"])
         files = sorted(p.name for p in run_dir.iterdir())
     cfg = entry.ex.assemble("train", dict(a.split("=", 1) for a in args[2:]))
     losses = result["train"]["losses"]
-    if len(losses) != cfg.data.train_n // cfg.data.bs or not all(
+    if len(losses) != cfg.tr.total_epochs * (
+            cfg.data.train_n // cfg.data.bs) or not all(
             math.isfinite(x) for x in losses):
         raise AssertionError(f"{name} train losses {losses}")
     if any(launches.values()):
@@ -1582,24 +1616,172 @@ def family_path_phase(torch, K, M, name, runtime_cls, args):
                              f"files {files}")
     runtime = runtime(cfg)
     model = entry.build_model(cfg, device)
-    tbatch = first_batch(datasets, cfg, "train")
-    ebatch = first_batch(datasets, cfg)
-    t = {k: torch.from_numpy(tbatch[k]).to(device)
-         for k in ("sup_rgb", "sup_mask", "qry_rgb", "qry_msk")}
+    tbatch = first_batch(datasets, cfg, "train", runtime)
+    ebatch = first_batch(datasets, cfg, runtime=runtime)
+    t = to_device(tbatch, runtime.device_keys, device)
     with torch.no_grad():
         logits, aux = runtime.apply_train(model.train(), t)
         loss = runtime.compute_loss(logits, t, aux)
     aux = {k: float(v) for k, v in aux.items()}
-    if not math.isfinite(float(loss)) or (
-            name == "panet" and not 0.0 < aux["align_loss"] < math.inf):
+    if not math.isfinite(float(loss)) or not all(
+            0.0 < v < math.inf for v in aux.values()):
         raise AssertionError(f"{name} loss {float(loss)}, aux {aux}")
     steady = steady_steps(torch, runtime, model, cfg, device, tbatch, ebatch)
+    extra = {} if check is None else check(torch, runtime, model, cfg,
+                                           device, tbatch, ebatch, steady)
     del steady["train_step"], steady["eval_step"], model
     emit({"phase": f"{name}_path", "args": args, "wall_s": wall,
           "steps": len(losses), "losses": losses, "launches": launches,
           "run_files": files, "best_iou": result["train"]["best_iou"],
           "test": result["test"], "first_batch_loss": float(loss),
-          "first_batch_aux": aux, **steady})
+          "first_batch_aux": aux, **steady, **extra})
+    return launches
+
+
+def canet_recorder(entry):
+    """A ``CaNetRuntime`` that records, for the checks of ``canet_path``,
+    its train loads (adapter epoch, episode index, class, query names,
+    whether the history was non-zero), the store's keys when the second
+    train epoch resamples (what its snapshot holds), the store's size when
+    each dataset is wrapped, and the loads of the chained test."""
+
+    class Recorder(entry.CaNetRuntime):
+        runs = []
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.loads, self.test_loads, self.wrap_sizes = [], [], []
+            self.epoch1_keys = None
+            self.size_before_test = None
+            Recorder.runs.append(self)
+
+        def wrap_data(self, ds, loader, train):
+            self.wrap_sizes.append(len(self.store))
+            adapter, wrapped = super().wrap_data(ds, loader, train)
+            log = self.loads if train else self.test_loads
+            get, resample = adapter.get_episode, adapter.sample_tasks
+
+            def get_episode(idx):
+                ep = get(idx)
+                log.append((adapter.epoch, idx, int(ep["cls"]),
+                            tuple(ep["qry_names"]), bool(ep["history"].any())))
+                return ep
+
+            def sample_tasks():
+                if train and adapter.epoch == 1:
+                    self.epoch1_keys = self.store.keys()
+                return resample()
+
+            adapter.get_episode = get_episode
+            adapter.sample_tasks = sample_tasks
+            return adapter, wrapped
+
+        def test(self):
+            self.size_before_test = len(self.store)
+            self.test_loads.clear()
+            return super().test()
+
+    return Recorder
+
+
+def canet_check(recorder):
+    """``canet_path``'s history checks: after epoch 1 the store holds one
+    entry per distinct training query; the epoch-2 episodes that read a
+    non-zero history are exactly those whose key epoch 1 wrote and whose
+    reset draw (adapter epoch 2, episode index) missed; the chained test
+    started from an empty store and read only zeros. Also the steady
+    train step without the write-back, which costs a device-to-host copy
+    and a wait each step."""
+
+    def check(torch, runtime, model, cfg, device, tbatch, ebatch, steady):
+        run = recorder.runs[-1]
+        epoch1 = {(c, n) for e, _, c, names, _ in run.loads if e == 1
+                  for n in names}
+        train_classes = {c for c, _ in epoch1}
+        written = {k for k in run.epoch1_keys if k[0] in train_classes}
+        if written != epoch1:
+            raise AssertionError(f"canet store after epoch 1 holds {written},"
+                                 f" the epoch's queries {epoch1}")
+        epoch2 = [ld for ld in run.loads if ld[0] == 2]
+        want = sum(any((c, n) in written and not run.store.reset_draw(
+            (c, n), 2, idx) for n in names) for _, idx, c, names, _ in epoch2)
+        got = sum(ld[4] for ld in epoch2)
+        if not epoch2 or got != want or want == 0:
+            raise AssertionError(f"canet epoch-2 episodes with history: {got}"
+                                 f", want {want} of {len(epoch2)}")
+        if (run.wrap_sizes[-1] != 0 or not run.size_before_test
+                or any(ld[4] for ld in run.test_loads)
+                or not run.test_loads):
+            raise AssertionError(
+                f"canet chained test: store size {run.wrap_sizes} at each "
+                f"wrap, {run.size_before_test} before the test, test loads "
+                f"with history {sum(ld[4] for ld in run.test_loads)}")
+        model.train()
+        runtime.post_step = None
+        no_wb_ms = host_ms(torch, steady["train_step"])
+        return {"history": {
+            "epoch1_distinct_queries": len(epoch1),
+            "epoch2_episodes": len(epoch2),
+            "epoch2_with_history": got, "epoch2_expected": want,
+            "store_size_before_test": run.size_before_test,
+            "test_loads": len(run.test_loads)},
+            "steady_step_no_writeback_ms": no_wb_ms,
+            "writeback_ms": steady["steady_step_ms"] - no_wb_ms}
+    return check
+
+
+def rpmms_check(torch, runtime, model, cfg, device, tbatch, ebatch, steady):
+    """``rpmms_path``: the same eval batch twice gives bit-identical
+    logits (the eval generator is seeded 0 for every batch); the three
+    train outputs are finite and of feature resolution."""
+    from pemp_tpu_torch.core.evaluator import to_device
+    from pemp_tpu_torch.models.canet import feat_size
+
+    t = to_device(ebatch, runtime.device_keys, device)
+    with torch.no_grad():
+        a = runtime.apply_eval(model.eval(), t)
+        b = runtime.apply_eval(model, t)
+        outs, _ = runtime.apply_train(model.train(), to_device(
+            tbatch, runtime.device_keys, device))
+    h = feat_size(cfg.data.height)
+    shape = (cfg.data.bs, 1, h, feat_size(cfg.data.width), 2)
+    if not torch.equal(a, b) or len(outs) != 3 or not all(
+            tuple(o.shape) == shape and bool(torch.isfinite(o).all())
+            for o in outs):
+        raise AssertionError(
+            f"rpmms: eval repeat equal {torch.equal(a, b)}, train outputs "
+            f"{[tuple(o.shape) for o in outs]}")
+    return {"eval_repeat_bit_equal": True,
+            "train_output_shape": list(shape)}
+
+
+def pfenet_check(torch, runtime, model, cfg, device, tbatch, ebatch,
+                 steady):
+    """``pfenet_path``: after one train step no trunk parameter has a
+    gradient, the trunk's BN running stats changed, and every head
+    parameter has a finite gradient."""
+    trunk = model.trunk()
+    bns = {f"{i}.{k}": v.clone() for i, part in enumerate(trunk)
+           for k, v in part.state_dict().items() if "running" in k}
+    model.train()
+    steady["train_step"]()
+    torch.cuda.synchronize()
+    stats = {f"{i}.{k}": v for i, part in enumerate(trunk)
+             for k, v in part.state_dict().items() if "running" in k}
+    trunk_ids = {id(p) for part in trunk for p in part.parameters()}
+    trunk_grads = sum(p.grad is not None for part in trunk
+                      for p in part.parameters())
+    head = [(k, p) for k, p in model.named_parameters()
+            if id(p) not in trunk_ids]
+    bad = [k for k, p in head
+           if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+    changed = sum(not torch.equal(bns[k], stats[k]) for k in bns)
+    if trunk_grads or bad or changed != len(bns):
+        raise AssertionError(f"pfenet: trunk grads {trunk_grads}, head "
+                             f"params without a finite grad {bad[:5]}, BN "
+                             f"stats changed {changed} of {len(bns)}")
+    return {"trunk_params_with_grad": 0, "head_params": len(head),
+            "trunk_bn_stats_changed": changed}
 
 
 def main() -> int:
@@ -1631,9 +1813,20 @@ def main() -> int:
     train_launches = train_path_phase(torch, K, M)
     stage2_launches = stage2_path_phase(torch, K, M)
     vgg_launches = vgg_path_phase(torch, K, M, plain)
-    family_path_phase(torch, K, M, "baseline", "BaselineRuntime",
-                      BASELINE_ARGS)
-    family_path_phase(torch, K, M, "panet", "PANetRuntime", PANET_ARGS)
+    other = {"baseline_path": family_path_phase(
+        torch, K, M, "baseline", "BaselineRuntime", BASELINE_ARGS)}
+    other["panet_path"] = family_path_phase(torch, K, M, "panet",
+                                            "PANetRuntime", PANET_ARGS)
+    from pemp_tpu_torch.entry import canet as canet_entry
+    recorder = canet_recorder(canet_entry)
+    other["canet_path"] = family_path_phase(
+        torch, K, M, "canet", "CaNetRuntime", CANET_ARGS, recorder,
+        canet_check(recorder))
+    other["rpmms_path"] = family_path_phase(
+        torch, K, M, "rpmms", "RPMMsRuntime", RPMMS_ARGS, check=rpmms_check)
+    other["pfenet_path"] = family_path_phase(
+        torch, K, M, "pfenet", "PFENetRuntime", PFENET_ARGS,
+        check=pfenet_check)
 
     # one row per TPU kernel K1-K5. assign and match are one __global__
     # each; the chain (K3, mpm.py:342) is those two launches on the packed
@@ -1699,6 +1892,12 @@ def main() -> int:
         "bound_ms": mp_bounds["phase1"][0] + mp_bounds["phase2"][0],
         "bound_by": "operations", "library_ms": None,
         "library_note": "no PyTorch call computes a min-plus product"})
+    # the paths that launch no kernel (family_path_phase fails otherwise):
+    # each row's count there; the chain's is its match launches
+    for row in table:
+        key = "match" if row["name"] == "chain" else row["name"]
+        row["other_path_launches"] = {path: counts[key]
+                                      for path, counts in other.items()}
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

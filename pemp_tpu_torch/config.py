@@ -112,7 +112,7 @@ class Config:
     exp_id: int = -1                    # look for ckpt in model_dir/tag/exp_id
     loss: str = "ce"                    # ce | cedt
     sigma: float = 5.0                  # cedt EDT bandwidth
-    loss_coef: float = 1.0              # aux-loss coefficient (panet)
+    loss_coef: float = 1.0              # aux weight: panet, rpmms, pfenet
     resume: bool = False                # resume run exp_id's ckpt.pt
 
     g: GlobalConfig = field(default_factory=GlobalConfig)

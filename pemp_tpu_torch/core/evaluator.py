@@ -3,10 +3,10 @@
 Counterpart of ``Evaluator`` (``pemp_tpu/core/trainer.py:112-224``,
 reference core/base_trainer.py:59-102) with the fixed-size-GT fast step
 of ``pemp_tpu/core/experiment.py:181-223``: the batch goes to the device,
-and logits, align-corners resize, argmax, TP/FP/FN counts and the
-per-episode CE all stay there; one host fetch per batch brings back the
-counts and losses. Query GT of another size than the input (PASCAL's
-test protocol) is not ported yet.
+and logits, align-corners resize (of feature-resolution logits), argmax,
+TP/FP/FN counts and the per-episode CE all stay there; one host fetch per
+batch brings back the counts and losses. Query GT of another size than
+the input (PASCAL's test protocol) is not ported yet.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import torch
 
 from pemp_tpu_torch.core.losses import per_episode_cross_entropy
 from pemp_tpu_torch.core.metrics import Accumulator, FewShotMetric, tp_fp_fn
+from pemp_tpu_torch.models.common import output_resize
 from pemp_tpu_torch.utils.timer import Timer
 
 ARRAY_KEYS = ("sup_rgb", "sup_mask", "qry_rgb", "qry_msk")
@@ -28,18 +29,31 @@ def _forward(model, t):
     return model(t["sup_rgb"], t["sup_mask"], t["qry_rgb"])
 
 
+def to_device(batch, keys, device: torch.device):
+    """The arrays ``keys`` of a numpy batch as tensors on ``device``."""
+    return {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(device)
+            for k in keys}
+
+
 def make_fast_eval_step(model: torch.nn.Module, device: torch.device,
-                        apply: Callable = _forward) -> Callable:
+                        apply: Callable = _forward, keys=ARRAY_KEYS,
+                        with_logits: bool = False) -> Callable:
     """batch (numpy) -> (counts [B, 2, 3] int64, losses [B] float64);
     ``apply(model, tensors)`` is the eval forward (default: the model
-    called on the support images, masks and query images)."""
+    called on the support images, masks and query images) on the arrays
+    ``keys``. Logits at another size than the query's (feature
+    resolution) are resized to it (align_corners) first; ``with_logits``
+    also returns ``apply``'s logits as float32 numpy (CaNet's history
+    write-back)."""
 
     @torch.no_grad()
     def step(batch):
-        t = {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(device)
-             for k in ARRAY_KEYS}
-        logits = apply(model, t)                                    # [B,Q,H,W,2]
-        labels = t["qry_msk"]                                       # [B,Q,H,W]
+        t = to_device(batch, keys, device)
+        feat = apply(model, t)                          # [B,Q,h,w,2]
+        out_hw = tuple(t["qry_rgb"].shape[2:4])
+        logits = (feat if tuple(feat.shape[2:4]) == out_hw
+                  else output_resize(feat, out_hw))     # [B,Q,H,W,2]
+        labels = t["qry_msk"]                           # [B,Q,H,W]
         b, nq = logits.shape[:2]
         losses = per_episode_cross_entropy(logits.reshape(b, nq, -1, 2),
                                            labels.reshape(b, nq, -1))
@@ -48,7 +62,10 @@ def make_fast_eval_step(model: torch.nn.Module, device: torch.device,
         # one fetch: counts (< 2^53, exact in f64) beside the losses
         host = torch.cat([counts.reshape(b, 6).double(),
                           losses.double()[:, None]], dim=1).cpu().numpy()
-        return host[:, :6].reshape(b, 2, 3).astype(np.int64), host[:, 6]
+        out = host[:, :6].reshape(b, 2, 3).astype(np.int64), host[:, 6]
+        if with_logits:
+            return (*out, feat.float().cpu().numpy())
+        return out
 
     return step
 

@@ -12,11 +12,16 @@ between families goes through the hooks:
 - ``apply_train(model, batch)``: the train-mode forward, returning the
   logits and a dict of auxiliary losses;
 - ``compute_loss(logits, batch, aux)``: the loss the step minimises;
-- ``apply_eval(model, batch)``: the eval forward, returning the logits.
+- ``apply_eval(model, batch)``: the eval forward, returning the logits
+  (at the query's size or at feature resolution: the eval step resizes);
+- ``device_keys``: the batch arrays the steps move to the device;
+- ``wrap_data(ds, loader, train)``: wraps the train, online-eval and test
+  data (CaNet's history adapter);
+- ``post_step(logits, batch)``: optional, after every train step (CaNet's
+  history write-back).
 
 The entries under ``pemp_tpu_torch/entry/`` subclass it. The JAX
-runtime's mesh, fused-step, history and pretrained-backbone hooks are
-not ported.
+runtime's mesh, fused-step and pretrained-backbone hooks are not ported.
 """
 
 from __future__ import annotations
@@ -33,7 +38,9 @@ import torch
 from pemp_tpu_torch.core import checkpoint as ckpt_lib
 from pemp_tpu_torch.core import losses as loss_lib
 from pemp_tpu_torch.core import solver
-from pemp_tpu_torch.core.evaluator import Evaluator, make_fast_eval_step
+from pemp_tpu_torch.core.evaluator import (
+    ARRAY_KEYS, Evaluator, make_fast_eval_step,
+)
 from pemp_tpu_torch.core.trainer import Trainer
 from pemp_tpu_torch.data import datasets
 from pemp_tpu_torch.device import resolve_device
@@ -103,6 +110,8 @@ class EntryRuntime:
     its own, so that it can be swapped)."""
 
     name: str = "baseline"
+    device_keys = ARRAY_KEYS
+    post_step: Optional[Callable] = None
 
     def __init__(self, cfg, run=None, build: Optional[Callable] = None):
         self.cfg = cfg
@@ -139,8 +148,13 @@ class EntryRuntime:
                             labels.reshape(-1, *labels.shape[-2:]))
 
     def apply_eval(self, model, batch) -> torch.Tensor:
-        """Eval forward on device tensors: logits [B,Q,H,W,2]."""
+        """Eval forward on device tensors: logits [B,Q,H,W,2] (or [B,Q,h,w,2]
+        at feature resolution)."""
         return model(batch["sup_rgb"], batch["sup_mask"], batch["qry_rgb"])
+
+    def wrap_data(self, ds, loader, train: bool):
+        """The (dataset, loader) the runtime reads from ``ds``, ``loader``."""
+        return ds, loader
 
     # --- commands --------------------------------------------------------
     def test(self) -> Dict[str, float]:
@@ -149,6 +163,7 @@ class EntryRuntime:
         cfg, logger = self.cfg, self.logger
         device = resolve_device(cfg.dev.device)
         test_ds, test_loader, num_classes = datasets.load(cfg)
+        test_ds, test_loader = self.wrap_data(test_ds, test_loader, False)
         model = self.build_model(cfg, device)
         evaluator = Evaluator(cfg, self.eval_step(model, device),
                               datasets.get_val_labels(cfg, cfg.split), logger)
@@ -174,7 +189,8 @@ class EntryRuntime:
         return result
 
     def eval_step(self, model, device: torch.device) -> Callable:
-        return make_fast_eval_step(model, device, self.apply_eval)
+        return make_fast_eval_step(model, device, self.apply_eval,
+                                   self.device_keys)
 
     def _train(self) -> Dict:
         """Train on the device, with checkpoints of ``weights(model)``;
@@ -186,6 +202,8 @@ class EntryRuntime:
         np.random.seed(cfg.seed)
         train_ds, train_loader, _ = datasets.load(cfg, "train")
         val_ds, val_loader, num_classes = datasets.load(cfg, "eval_online")
+        train_ds, train_loader = self.wrap_data(train_ds, train_loader, True)
+        val_ds, val_loader = self.wrap_data(val_ds, val_loader, False)
         model = self.build_model(cfg, device).train()
         params = model.freeze()
         optimizer = solver.make_optimizer(cfg.tr, params)

@@ -6,6 +6,8 @@ Counterpart of ``pemp_tpu/core/losses.py`` (reference core/losses.py):
 - ``per_episode_cross_entropy``: the eval CE per episode;
 - ``cross_entropy_no_ignore``: plain mean CE, every pixel counted (PANet's
   alignment loss);
+- ``rpmms_loss``, ``pfenet_aux_loss``: RPMMs' three-term CE and PFENet's
+  auxiliary CE over its pyramid's bins;
 - ``cedt``: boundary-weighted CE, per-pixel CE times
   ``exp(-EDT(boundary)/sigma^2) + 1``, divided by the *total* weight,
   ignored pixels included (the reference divides by ``weight.sum()``,
@@ -72,6 +74,23 @@ def cedt(logits: torch.Tensor, labels: torch.Tensor,
     pix, _ = _pixel_ce(logits, labels)
     weight = edt_boundary_weight(labels, sigma, dtype=pix.dtype)
     return (pix * weight).sum() / weight.sum()
+
+
+def rpmms_loss(outs, labels: torch.Tensor) -> torch.Tensor:
+    """RPMMs' loss (reference rpmms.py:289-311): the CE without ignore of
+    each pyramid output, summed. outs: [B, Q, H, W, 2] logits at the
+    label size; labels [B*Q, H, W]."""
+    return sum(cross_entropy_no_ignore(o.reshape(-1, *o.shape[2:]), labels)
+               for o in outs)
+
+
+def pfenet_aux_loss(aux_outs, labels: torch.Tensor) -> torch.Tensor:
+    """PFENet's auxiliary loss (reference pfenet.py:276-284): the mean over
+    the pyramid's bins of the CE with ignore 255. aux_outs: [B, Q, H, W, 2]
+    logits at the label size; labels [B*Q, H, W]."""
+    losses = [cross_entropy(a.reshape(-1, *a.shape[2:]), labels)
+              for a in aux_outs]
+    return sum(losses) / len(losses)
 
 
 def get(cfg):

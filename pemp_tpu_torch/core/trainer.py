@@ -33,6 +33,7 @@ import torch
 
 from pemp_tpu_torch.core import checkpoint as ckpt_lib
 from pemp_tpu_torch.core import solver
+from pemp_tpu_torch.core.evaluator import to_device
 from pemp_tpu_torch.utils.timer import Timer
 
 
@@ -72,9 +73,11 @@ class Trainer:
     """Trains ``model`` (already in train mode, frozen parameters marked)
     with ``optimizer`` over ``params``, the parameters that train, through
     the hooks of ``runtime`` (``core/experiment.py``): ``apply_train``
-    gives the logits and auxiliary losses, ``compute_loss`` the loss. The
-    checkpoints hold the ``state_dict`` of ``weights`` (default ``model``;
-    the stage-2 cascade's is its stage 2)."""
+    gives the logits and auxiliary losses on the device arrays
+    ``device_keys``, ``compute_loss`` the loss, ``post_step`` (optional)
+    sees each step's logits. The checkpoints hold the ``state_dict`` of
+    ``weights`` (default ``model``; the stage-2 cascade's is its stage
+    2)."""
 
     def __init__(self, cfg, run, model: torch.nn.Module,
                  optimizer: torch.optim.Optimizer,
@@ -107,9 +110,10 @@ class Trainer:
     # --- one step -------------------------------------------------------
     def train_step(self, batch) -> torch.Tensor:
         """Forward, loss, backward, clip, optimizer step at the schedule's
-        LR; returns the detached loss (still on the device)."""
-        t = {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(self.device)
-             for k in ("sup_rgb", "sup_mask", "qry_rgb", "qry_msk")}
+        LR, then the runtime's ``post_step`` (if any) with the detached
+        logits and the host batch; returns the detached loss (still on
+        the device)."""
+        t = to_device(batch, self.runtime.device_keys, self.device)
         logits, aux = self.runtime.apply_train(self.model, t)
         loss = self.runtime.compute_loss(logits, t, aux)
         self.optimizer.zero_grad(set_to_none=True)
@@ -117,6 +121,8 @@ class Trainer:
         solver.clip_gradients(self.params, self.cfg.tr.grad_clip)
         solver.set_lr(self.optimizer, self.lr_policy.lr)
         self.optimizer.step()
+        if self.runtime.post_step is not None:
+            self.runtime.post_step(logits.detach(), batch)
         return loss.detach()
 
     # --- snapshots ------------------------------------------------------

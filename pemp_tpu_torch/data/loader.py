@@ -17,10 +17,14 @@ import numpy as np
 
 
 def _collate(episodes) -> Dict:
+    """Stacks each array key; ``cls`` becomes an int32 vector and the
+    sample names stay lists (one list of ``str`` per episode)."""
     batch = {}
     for key in episodes[0]:
         vals = [ep[key] for ep in episodes]
-        if key == "cls":
+        if key in ("sup_names", "qry_names"):
+            batch[key] = [list(v) for v in vals]
+        elif key == "cls":
             batch[key] = np.asarray(vals, np.int32)
         else:
             batch[key] = np.stack(vals)

@@ -1,7 +1,7 @@
 """Synthetic episodic dataset (dataset name ``SYNTH``).
 
 Copy of ``pemp_tpu/data/synthetic.py`` without its variable-size-GT
-emulation (``data.var_gt``) and its visualize names: procedurally generated
+emulation (``data.var_gt``): procedurally generated
 images and blob masks keyed by sample name, with the same episode
 contract and sampler semantics as the real PASCAL-5i / COCO-20i loaders,
 so equal seeds give the JAX package's episodes.
@@ -10,6 +10,8 @@ Episode contract (channels-last):
   sup_rgb  [S, H, W, 3] f32    sup_mask [S, H, W, 2] f32 (fg, bg)
   qry_rgb  [Q, H, W, 3] f32    qry_msk  [Q, H, W]    i32
   cls      int
+  sup_names, qry_names  lists of sample names (``ret_name``; CaNet's
+                        history store keys on them)
 """
 
 from __future__ import annotations
@@ -29,14 +31,17 @@ class SyntheticDataset:
     """Training episodes (``train``: every class but the split's 5,
     ``data.train_n`` episodes an epoch from ``data.seed``) or test
     episodes (the split's 5 val classes, ``data.test_n`` a round from
-    ``data.test_seed``)."""
+    ``data.test_seed``). ``ret_name`` adds the sample names to each
+    episode."""
 
-    def __init__(self, cfg, train: bool, split: int, shot: int, query: int):
+    def __init__(self, cfg, train: bool, split: int, shot: int, query: int,
+                 ret_name: bool = False):
         self.cfg = cfg
         self.train = train
         self.split = split
         self.shot = shot
         self.query = query
+        self.ret_name = ret_name
         self.height = cfg.data.height
         self.width = cfg.data.width
         val = list(range(split * 5 + 1, split * 5 + 6))
@@ -91,20 +96,25 @@ class SyntheticDataset:
 
     def get_episode(self, idx: int) -> Dict:
         cls, names = self.sampler.tasks[idx]
+        sup_names, qry_names = names[:self.shot], names[self.shot:]
         sup_rgb, sup_mask = [], []
-        for n in names[:self.shot]:
+        for n in sup_names:
             img, m = self._render(n)
             sup_rgb.append(img)
             sup_mask.append(np.stack([m, 1.0 - m], axis=-1))
         qry_rgb, qry_msk = [], []
-        for n in names[self.shot:]:
+        for n in qry_names:
             img, m = self._render(n)
             qry_rgb.append(img)
             qry_msk.append(m.astype(np.int32))
-        return {
+        ep = {
             "sup_rgb": np.stack(sup_rgb),
             "sup_mask": np.stack(sup_mask),
             "qry_rgb": np.stack(qry_rgb),
             "qry_msk": np.stack(qry_msk),
             "cls": cls,
         }
+        if self.ret_name:
+            ep["sup_names"] = sup_names
+            ep["qry_names"] = qry_names
+        return ep

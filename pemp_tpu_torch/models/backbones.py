@@ -67,11 +67,14 @@ def _stage_plan(layers: Sequence[int]):
 
 class ResNet(nn.Module):
     """Dilated ResNet: ``layers=(3,4,6)`` is the 3-stage ResNet-50 trunk,
-    ``(3,4,23)`` ResNet-101 (tests build ``(1,1,1)``)."""
+    ``(3,4,23)`` ResNet-101 (tests build ``(1,1,1)``). ``ret_features``
+    returns every stage's output (CaNet and RPMMs take layer2's and
+    layer3's), else the last stage's."""
 
     def __init__(self, layers: Sequence[int] = (3, 4, 6),
-                 init_channels: int = 3):
+                 init_channels: int = 3, ret_features: bool = False):
         super().__init__()
+        self.ret_features = ret_features
         self.conv1 = Conv(init_channels, 64, 7, stride=2, padding=3,
                           bias=False)
         self.bn1 = BatchNorm(64)
@@ -91,11 +94,13 @@ class ResNet(nn.Module):
         self.num_stages = len(_stage_plan(layers))
         self.out_channels = inplanes
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor):
         x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+        feats = []
         for si in range(1, self.num_stages + 1):
             x = getattr(self, f"layer{si}")(x)
-        return x
+            feats.append(x)
+        return feats if self.ret_features else x
 
 
 class CommModule(nn.Linear):

@@ -3,8 +3,9 @@ downsampling, output resize.
 
 Counterpart of ``pemp_tpu/models/common.py`` (``PurifierV1``,
 ``PurifierV2``, ``downsample_masks``, ``output_resize``,
-``RESNET_LAYERS``), plus ``FewShotModel``: the init, the frozen backbone
-BatchNorms and the dropout generator every model of the port shares.
+``RESNET_LAYERS``), plus ``FewShotModel``: the init, the frozen trunk
+and the dropout generator every model of the port shares, and the
+layout and autocast helpers of CaNet, RPMMs and PFENet.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import torch
 from torch import nn
 
 from pemp_tpu_torch.models.layers import (
-    ASPP, ASPPV2, Conv, DropBlock, Dropout2d, KaimingConv,
+    ASPP, ASPPV2, Conv, DropBlock, Dropout2d, KaimingConv, NormalConv,
 )
 from pemp_tpu_torch.ops.resize import resize_bilinear_align_corners, resize_nearest
 
@@ -24,23 +25,31 @@ RESNET_LAYERS = {"resnet50": (3, 4, 6), "resnet101": (3, 4, 23)}
 
 
 class FewShotModel(nn.Module):
-    """What every model of the port shares: the init, the frozen backbone
-    BNs and the dropout generator. Subclasses set ``encoder`` (with a
-    ``backbone``) and, the PEMP stages, ``ctr``."""
+    """What every model of the port shares: the init, the frozen trunk
+    and the dropout generator. Subclasses set ``encoder`` (with a
+    ``backbone``) or override ``trunk``, and, the PEMP stages, ``ctr``."""
 
-    # module types under ``encoder.backbone`` whose parameters do not
-    # train (every ResNet; VGG16 has none, so nothing of it is frozen).
+    # module types under the trunk whose parameters do not train (every
+    # ResNet's BNs; VGG16 has none, so nothing of it is frozen).
     # The JAX package's regex ``backbone/.*bn`` also matches its
     # ``downsample_bn``; here that module is ``layerK.0.downsample.1``, so
-    # the rule goes by module type, not by name.
+    # the rule goes by module type, not by name. ``(nn.Module,)`` freezes
+    # the whole trunk (CaNet, PFENet).
     FROZEN = (nn.BatchNorm2d,)
+
+    def trunk(self) -> List[nn.Module]:
+        """The modules ``FROZEN`` applies under: ``encoder.backbone``
+        (CaNet's trunk is ``encoder``, RPMMs' ``model_res``, PFENet's
+        ``layer0``-``layer4``, as in the reference checkpoints)."""
+        return [self.encoder.backbone]
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Re-draw every weight from ``generator`` with the JAX package's
         inits: torch's defaults for convs and linears (kaiming-uniform
         a=sqrt(5)), kaiming-normal (relu gain, fan_in) for the VGG convs
-        (``KaimingConv``), U(+-1/sqrt(fan_in)) biases, BN ones/zeros with
+        (``KaimingConv``), normal(0, 0.01) for CaNet's head
+        (``NormalConv``), U(+-1/sqrt(fan_in)) biases, BN ones/zeros with
         fresh running stats, and ``ctr`` from U[0,1) like ``torch.rand``
         (reference pemp_stage1.py:105)."""
         for m in self.modules():
@@ -48,6 +57,9 @@ class FewShotModel(nn.Module):
                 nn.init.kaiming_normal_(m.weight, mode="fan_in",
                                         nonlinearity="relu",
                                         generator=generator)
+            elif isinstance(m, NormalConv):
+                nn.init.normal_(m.weight, 0.0, NormalConv.STD,
+                                generator=generator)
             elif isinstance(m, (nn.Conv2d, nn.Linear)):
                 nn.init.kaiming_uniform_(m.weight, a=math.sqrt(5),
                                          generator=generator)
@@ -61,13 +73,14 @@ class FewShotModel(nn.Module):
 
     def freeze(self) -> List[nn.Parameter]:
         """``requires_grad=False`` on the parameters of every ``FROZEN``
-        module under the backbone (those BNs stay in train mode, so they
-        still use and update batch statistics); returns the parameters
-        that train."""
-        for m in self.encoder.backbone.modules():
-            if isinstance(m, self.FROZEN):
-                for p in m.parameters(recurse=False):
-                    p.requires_grad_(False)
+        module under the trunk (its BNs stay in train mode, so they still
+        use and update batch statistics); returns the parameters that
+        train."""
+        for part in self.trunk():
+            for m in part.modules():
+                if isinstance(m, self.FROZEN):
+                    for p in m.parameters(recurse=False):
+                        p.requires_grad_(False)
         return [p for p in self.parameters() if p.requires_grad]
 
     def set_dropout_generator(self, generator: Optional[torch.Generator]
@@ -114,6 +127,22 @@ def downsample_masks(sup_mask: torch.Tensor, hw: Tuple[int, int]):
     m = resize_nearest(sup_mask.reshape(b * s, H, W, 2), hw)
     m = m.reshape(b, s, hw[0] * hw[1], 2)
     return m[..., 0], m[..., 1]
+
+
+def autocast(x: torch.Tensor, dtype: torch.dtype):
+    """bf16 autocast on ``x``'s device when ``dtype`` is bf16."""
+    return torch.autocast(x.device.type, dtype=torch.bfloat16,
+                          enabled=dtype == torch.bfloat16)
+
+
+def nhwc(x: torch.Tensor) -> torch.Tensor:
+    """A channels_last NCHW tensor viewed as NHWC."""
+    return x.permute(0, 2, 3, 1)
+
+
+def nchw(x: torch.Tensor) -> torch.Tensor:
+    """An NHWC tensor viewed as NCHW (channels_last)."""
+    return x.permute(0, 3, 1, 2)
 
 
 def output_resize(logits: torch.Tensor, out_hw: Optional[Tuple[int, int]]):

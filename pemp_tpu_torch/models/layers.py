@@ -10,10 +10,12 @@ torch's conventions on NHWC Flax modules; here they are torch's own:
   the unbiased batch variance, two-pass batch statistics);
 - ``KaimingConv`` is ``nn.Conv2d`` drawn kaiming-normal (relu gain,
   fan_in) by ``FewShotModel.reset_parameters``: the VGG16 convs'
-  ``kaiming_normal_relu`` init;
+  ``kaiming_normal_relu`` init; ``NormalConv`` is drawn from
+  normal(0, 0.01), CaNet's head init;
 - ``max_pool_torch`` is ``nn.MaxPool2d(3, 2, 1, ceil_mode=True)`` for the
-  ResNet stem; VGG16 pools with ``nn.MaxPool2d(3, stride, 1)`` (floor
-  mode), which differs from it at even sizes;
+  ResNet stem; VGG16 and PFENet's deep-base stem pool with
+  ``nn.MaxPool2d(3, stride, 1)`` (floor mode), which differs from it at
+  even sizes;
 - ``Dropout2d`` and ``DropBlock`` draw from an explicit generator (set by
   the trainer), which ``nn.Dropout2d`` cannot take.
 
@@ -39,6 +41,15 @@ class KaimingConv(nn.Conv2d):
     kaiming-normal (relu gain, fan_in) instead of torch's default
     (the JAX package's ``kaiming_normal_relu``); its bias keeps torch's
     U(+-1/sqrt(fan_in))."""
+
+
+class NormalConv(nn.Conv2d):
+    """A ``Conv`` whose weight ``FewShotModel.reset_parameters`` draws from
+    normal(0, 0.01) (CaNet's head and the residual blocks RPMMs shares
+    with it: the JAX package's ``canet_normal_init``); its bias keeps
+    torch's U(+-1/sqrt(fan_in))."""
+
+    STD = 0.01
 
 
 def max_pool_torch() -> nn.MaxPool2d:
@@ -90,10 +101,12 @@ class ASPP(nn.Module):
     networks/backbones.py:279-321; ``pemp_tpu/models/layers.py:231-262``):
     a global-pool branch (1x1 conv, ReLU, Dropout2d, broadcast), a 1x1
     branch and 3x3 branches at dilation 6, 12 and 18, then the ``layer6``
-    1x1 tail. Keys follow the reference: ``aspp_k.0`` conv, ``layer6``."""
+    1x1 tail; without the ``tail`` it returns the 5 x ``midc`` channel
+    concatenation (RPMMs). Keys follow the reference: ``aspp_k.0`` conv,
+    ``layer6``."""
 
     def __init__(self, inc: int = 256, midc: int = 256, outc: int = 512,
-                 drop_rate: float = 0.5):
+                 drop_rate: float = 0.5, tail: bool = True):
         super().__init__()
         for k, (ksize, dil) in enumerate([(1, 1), (1, 1), (3, 6), (3, 12),
                                           (3, 18)]):
@@ -101,7 +114,7 @@ class ASPP(nn.Module):
             setattr(self, f"aspp_{k}", nn.Sequential(
                 Conv(inc, midc, ksize, padding=pad, dilation=dil), nn.ReLU(),
                 Dropout2d(drop_rate)))
-        self.layer6 = Conv(5 * midc, outc, 1)
+        self.layer6 = Conv(5 * midc, outc, 1) if tail else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, w = x.shape[-2:]
@@ -109,7 +122,7 @@ class ASPP(nn.Module):
         g = g.expand(-1, -1, h, w)
         out = torch.cat([g, self.aspp_1(x), self.aspp_2(x), self.aspp_3(x),
                          self.aspp_4(x)], dim=1)
-        return self.layer6(out)
+        return out if self.layer6 is None else self.layer6(out)
 
 
 class ASPPV2(nn.Module):

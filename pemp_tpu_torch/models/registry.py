@@ -16,12 +16,15 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 
 from pemp_tpu_torch.models import baseline as _baseline
+from pemp_tpu_torch.models import canet as _canet
 from pemp_tpu_torch.models import panet as _panet
 from pemp_tpu_torch.models import pemp_stage1 as _s1
 from pemp_tpu_torch.models import pemp_stage2 as _s2
+from pemp_tpu_torch.models import pfenet as _pfenet
+from pemp_tpu_torch.models import rpmms as _rpmms
 
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
-NOT_PORTED = ("canet", "rpmms", "pfenet")
+NOT_PORTED = ()
 
 
 def _dtype(cfg) -> torch.dtype:
@@ -61,11 +64,30 @@ def build_pemp_stage2(cfg):
         dist_scalar=net.dist_scalar, compute_dtype=_dtype(cfg))
 
 
+def build_canet(cfg):
+    net = cfg.net
+    return _canet.CaNet(
+        drop_rate=net.drop_rate, use_history=net.history,
+        freeze_backbone=net.freeze_backbone, compute_dtype=_dtype(cfg))
+
+
+def build_rpmms(cfg):
+    return _rpmms.RPMMs(drop_rate=cfg.net.drop_rate,
+                        compute_dtype=_dtype(cfg))
+
+
+def build_pfenet(cfg):
+    return _pfenet.PFENet(shot=cfg.shot, compute_dtype=_dtype(cfg))
+
+
 REGISTRY: Dict[str, Tuple[Any, Callable]] = {
     "baseline": (_baseline.NetConfig, build_baseline),
     "panet": (_panet.NetConfig, build_panet),
     "pemp_stage1": (_s1.NetConfig, build_pemp_stage1),
     "pemp_stage2": (_s1.NetConfig, build_pemp_stage2),
+    "canet": (_canet.NetConfig, build_canet),
+    "rpmms": (_rpmms.NetConfig, build_rpmms),
+    "pfenet": (_pfenet.NetConfig, build_pfenet),
 }
 
 

@@ -103,9 +103,11 @@ def test_registry_builds_the_ported_families_only():
     cfg = baseline_entry.ex.assemble("test", {"split": "0"})
     assert isinstance(registry.build("baseline", cfg), Baseline)
     assert type(registry.net_config("panet")) is type(cfg.net)
-    for name in ("canet", "rpmms", "pfenet"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            registry.build(name, cfg)
+    # every family is ported (tests/test_torch_zoo_entry.py builds them)
+    assert registry.NOT_PORTED == ()
+    assert set(registry.REGISTRY) == {
+        "baseline", "panet", "pemp_stage1", "pemp_stage2", "canet", "rpmms",
+        "pfenet"}
     with pytest.raises(KeyError):
         registry.net_config("bogus")
     cfg.dev.precision = "f16"

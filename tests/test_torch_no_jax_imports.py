@@ -33,7 +33,9 @@ def test_the_scan_sees_the_package():
     assert "pemp_tpu_torch/ops/kernels/mpm.py" in names
     for new in ("core/experiment.py", "models/registry.py",
                 "models/baseline.py", "models/panet.py", "entry/baseline.py",
-                "entry/panet.py"):
+                "entry/panet.py", "data/history.py", "models/canet.py",
+                "models/rpmms.py", "models/pfenet.py", "entry/canet.py",
+                "entry/rpmms.py", "entry/pfenet.py"):
         assert f"pemp_tpu_torch/{new}" in names
     assert "chip_smoke.py" in names and len(names) > 20
 

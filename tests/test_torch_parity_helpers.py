@@ -1,16 +1,30 @@
 """Helpers the port's parity tests share (no tests of its own): JAX
 variables drawn from numpy, float64 trees carried into the port's
-``state_dict``, and the per-leaf comparison at a tolerance relative to
-each leaf's largest magnitude.
+``state_dict``, the per-leaf comparison at a tolerance relative to each
+leaf's largest magnitude, one train step on each side, and a fixture
+that runs a module's torch on one thread.
 """
 
 import numpy as np
+import pytest
 import torch
 
 import jax
 from flax import traverse_util
 
 from pemp_tpu_torch.utils.convert import state_dict_from_jax
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Torch on one thread for the module that imports this fixture: at
+    toy sizes one thread is as fast, and the suite's parallel workers
+    would otherwise oversubscribe the cores (each worker's torch starts
+    one thread a core)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def tree64(tree):
@@ -89,3 +103,63 @@ def episode(seed, b, s, q, h, w, dtype=np.float64):
     fg = (rng.rand(b, s, h, w, 1) > 0.5).astype(dtype)
     qry = rng.randn(b, q, h, w, 3).astype(dtype)
     return sup, np.concatenate([fg, 1 - fg], -1), qry
+
+
+def jax_sgd_step(loss_fn, params, frozen, tr_cfg):
+    """One jitted JAX train step at HIGHEST matmul precision: ``loss_fn(p)
+    -> (loss, new batch_stats)``; returns (loss, grads, new batch_stats,
+    the params after the package's optimizer with the ``frozen``
+    patterns masked out)."""
+    from pemp_tpu.core import solver as jax_solver
+    with jax.default_matmul_precision("highest"):
+        (loss, stats), grads = jax.jit(jax.value_and_grad(
+            loss_fn, has_aux=True))(params)
+        tx = jax_solver.make_optimizer(tr_cfg, jax_solver.trainable_mask(
+            params, frozen))
+        updates, _ = tx.update(grads, tx.init(params), params)
+        new = jax_solver.apply_updates(params, updates, tr_cfg.lr)
+    return float(loss), grads, stats, new
+
+
+def assert_port_step_matches(port, loss_t, want, tr_cfg, rel,
+                             zero_grads=()):
+    """Backward of the port's ``loss_t`` and one step of the port's
+    optimizer over ``port.freeze()``'s parameters, held against
+    ``jax_sgd_step``'s ``want`` (loss, grads, stats, params): the loss,
+    every trainable gradient, every BN running stat and every parameter
+    after the step, each leaf within ``rel`` of its largest magnitude.
+    ``zero_grads``: biases whose gradient is zero in exact arithmetic (a
+    conv bias ahead of a train-mode BN, which removes it), held to zero on
+    both sides within ``rel`` of their weight's largest gradient instead.
+    Returns the names of the frozen parameters."""
+    from pemp_tpu_torch.core import solver
+    loss, grads, stats, new = want
+    trained = port.freeze()
+    opt = solver.make_optimizer(tr_cfg, trained)
+    opt.zero_grad(set_to_none=True)
+    loss_t.backward()
+    np.testing.assert_allclose(float(loss_t.detach()), loss, rtol=rel)
+    got = {k: p.grad for k, p in port.named_parameters() if p.requires_grad}
+    frozen = {k for k, p in port.named_parameters() if not p.requires_grad}
+    want_g = sd64(grads, {})
+    assert set(got) | frozen == set(want_g)
+    assert all(g is not None for g in got.values())
+    for k in zero_grads:
+        scale = rel * want_g[k.rsplit(".", 1)[0] + ".weight"].abs().max()
+        assert got[k].abs().max() <= scale and want_g[k].abs().max() <= scale
+    assert_leaves_close(got, {k: want_g[k] for k in got
+                              if k not in zero_grads}, rel, "grad")
+    solver.clip_gradients(trained, tr_cfg.grad_clip)
+    opt.step()
+    # the params tree tells the layout: carry the stats beside it
+    after = sd64(new, stats)
+    state = port.state_dict()
+    running = {k for k in after if ".running_" in k}
+    assert running and set(after) == {k for k in state
+                                      if not k.endswith("_tracked")}
+    assert_leaves_close({k: state[k] for k in running},
+                        {k: after[k] for k in running}, rel, "running stats")
+    assert_leaves_close({k: p.detach() for k, p in port.named_parameters()},
+                        {k: after[k] for k in after if k not in running}, rel,
+                        "sgd step")
+    return frozen

@@ -1,7 +1,8 @@
 """state_dict_from_jax: every conv, BN and linear leaf of a JAX PEMP
-stage-1, stage-2, Baseline or PANet model lands in the right tensor of the
-port, and the port's keys are the reference checkpoint layout that
-tools/export_reference_ckpt.py writes wherever it has one. Exact equality:
+stage-1, stage-2, Baseline, PANet, CaNet, RPMMs or PFENet model lands in
+the right tensor of the port, and the port's keys are the reference
+checkpoint layout that tools/export_reference_ckpt.py writes wherever it
+has one. Exact equality:
 the conversion only transposes and copies. Stage 2 with ``vgg16`` has no
 reference layout; its trees round-trip into the port's ``PEMPStage2`` and
 give the JAX forward (float64, rel 1e-6 of the largest logit).
@@ -15,13 +16,19 @@ import jax
 import jax.numpy as jnp
 
 from pemp_tpu.models.baseline import Baseline as JaxBaseline
+from pemp_tpu.models.canet import CaNet as JaxCaNet
 from pemp_tpu.models.panet import PANet as JaxPANet
 from pemp_tpu.models.pemp_stage1 import PEMPStage1 as JaxPEMPStage1
 from pemp_tpu.models.pemp_stage2 import PEMPStage2 as JaxPEMPStage2
+from pemp_tpu.models.pfenet import PFENet as JaxPFENet
+from pemp_tpu.models.rpmms import RPMMs as JaxRPMMs
 from pemp_tpu_torch.models.baseline import Baseline
+from pemp_tpu_torch.models.canet import CaNet
 from pemp_tpu_torch.models.panet import PANet
 from pemp_tpu_torch.models.pemp_stage1 import PEMPStage1
 from pemp_tpu_torch.models.pemp_stage2 import PEMPStage2
+from pemp_tpu_torch.models.pfenet import PFENet
+from pemp_tpu_torch.models.rpmms import RPMMs
 from pemp_tpu_torch.utils.convert import state_dict_from_jax
 from tests.test_torch_parity_helpers import draw_variables, episode, tree64
 from tools.export_reference_ckpt import export_trained
@@ -120,15 +127,38 @@ def test_stage2_state_dict_from_jax_matches_the_reference_export():
 
 
 JAX_MODELS = {"pemp_stage1": (JaxPEMPStage1, PEMPStage1),
-              "baseline": (JaxBaseline, Baseline), "panet": (JaxPANet, PANet)}
+              "baseline": (JaxBaseline, Baseline), "panet": (JaxPANet, PANet),
+              "canet": (JaxCaNet, CaNet), "rpmms": (JaxRPMMs, RPMMs),
+              "pfenet": (JaxPFENet, PFENet)}
+# the families whose one layout takes no backbone argument, and the
+# extra inputs of their init
+ZOO = {"canet": lambda: ((jnp.zeros((1, 1, 5, 5, 2)),), {}),
+       "rpmms": lambda: ((), {"mu_init": [jnp.zeros((1, 256, k))
+                                          for k in (1, 3, 6)]}),
+       "pfenet": lambda: ((), {})}
+# (JAX block, its port key, JAX head conv path, its port key)
+ZOO_LEAVES = {
+    "canet": ("layer3_0", "encoder.layer3.0.downsample.1",
+              ("residual_1", "conv2"), "residual_1.3"),
+    "rpmms": ("layer3_0", "model_res.layer3.0.downsample.1",
+              ("layer6", "aspp_4"), "layer6.aspp_4.0"),
+    "pfenet": ("layer4_0", "layer4.0.downsample.1",
+               ("inner_cls_3", "cls"), "inner_cls.3.3")}
 
 
 def _family_trees(name, backbone, seed):
-    """JAX trees of a stage-1, Baseline or PANet model, filled from numpy."""
+    """JAX trees of a stage-1, Baseline, PANet, CaNet, RPMMs or PFENet
+    model, filled from numpy."""
     x = jnp.zeros((1, 1, 33, 33, 3))
     m = jnp.zeros((1, 1, 33, 33, 2))
-    shapes = jax.eval_shape(lambda: JAX_MODELS[name][0](
-        backbone=backbone).init({"params": jax.random.PRNGKey(0)}, x, m, x))
+    if name in ZOO:
+        model = JAX_MODELS[name][0]()
+        extra, kwargs = ZOO[name]()
+    else:
+        model = JAX_MODELS[name][0](backbone=backbone)
+        extra, kwargs = (), {}
+    shapes = jax.eval_shape(lambda: model.init(
+        {"params": jax.random.PRNGKey(0)}, x, m, x, *extra, **kwargs))
     rng = np.random.RandomState(seed)
     fill = lambda s: rng.randn(*s.shape).astype(np.float32)  # noqa: E731
     return (jax.tree_util.tree_map(fill, shapes["params"]),
@@ -137,11 +167,13 @@ def _family_trees(name, backbone, seed):
 
 @pytest.mark.parametrize("name,backbone", [
     ("pemp_stage1", "vgg16"), ("baseline", "vgg16"), ("baseline", "resnet50"),
-    ("panet", "vgg16")])
+    ("panet", "vgg16"), ("canet", "resnet50"), ("rpmms", "resnet50"),
+    ("pfenet", "resnet50v2")])
 def test_state_dict_from_jax_keys_equal_the_reference_export(name, backbone):
     params, stats = _family_trees(name, backbone, seed=2)
     sd = state_dict_from_jax(params, stats)
-    port = JAX_MODELS[name][1](backbone=backbone)
+    port = (JAX_MODELS[name][1]() if name in ZOO
+            else JAX_MODELS[name][1](backbone=backbone))
     port.load_state_dict(sd, strict=True)
     got = {k: v for k, v in port.state_dict().items()
            if not k.endswith("num_batches_tracked")}
@@ -149,7 +181,19 @@ def test_state_dict_from_jax_keys_equal_the_reference_export(name, backbone):
     assert set(ref) == set(got)
     for k, v in ref.items():
         np.testing.assert_array_equal(got[k].numpy(), v, err_msg=k)
-    if backbone == "vgg16":
+    if name in ZOO:
+        # a trunk BN and a head conv where each family keeps them
+        stat, bn_key, conv, conv_key = ZOO_LEAVES[name]
+        np.testing.assert_array_equal(
+            got[f"{bn_key}.running_var"].numpy(),
+            stats["backbone"][stat]["downsample_bn"]["BatchNorm_0"]["var"])
+        node = params
+        for part in conv:
+            node = node[part]
+        np.testing.assert_array_equal(
+            got[f"{conv_key}.weight"].numpy(),
+            node["Conv_0"]["kernel"].transpose(3, 2, 0, 1))
+    elif backbone == "vgg16":
         np.testing.assert_array_equal(
             got["encoder.backbone.features.28.weight"].numpy(),
             params["backbone"]["conv12"]["Conv_0"]["kernel"]
@@ -211,6 +255,9 @@ def test_vgg16cm_trees_round_trip_and_give_the_jax_forward():
     (("head", "conv1"), "Conv_0"),
     (("backbone", "layer1"), "Conv_0"),
     (("backbone", "conv1"), "Dense_0"),
+    (("residual_1", "conv3"), "Conv_0"),          # CaNet
+    (("residule1", "bn1"), "BatchNorm_0"),        # RPMMs
+    (("down_query_conv", "extra"), "Conv_0"),     # PFENet
 ])
 def test_state_dict_from_jax_rejects_unknown_paths(path, layer):
     tree = leaf = {}
