@@ -32,6 +32,13 @@ SYNTH episodes):
   no trunk gradient, the trunk's BN statistics move, every head
   gradient finite), which launch no kernel (``canet_path``,
   ``rpmms_path``, ``pfenet_path``);
+- a real run (``run_path``), in a temporary working directory: a seeded
+  torchvision-layout ResNet-50 in ``data/`` (the stage-1 trunk equal to
+  it on the card), stage 1's observed ``train`` with ``-p`` and
+  ``g.mongodb`` (its run records), a ``test exp_id=<id>`` run, stage 2's
+  ``train`` behind it from the same file (its padded channels zero) and
+  ``visualize`` (its files, K1/K2 once an episode with indices), with the
+  host time of the file's load and of the records, and PIL's version;
 
 and checks that each path went through the kernels and agrees with the
 plain version. The phases ``minplus`` (the EDT kernel, bit-exact, also on
@@ -145,6 +152,22 @@ RPMMS_ARGS = ZOO_ARGS + ["data.height=481", "data.width=481", "tr.lr=0.0035",
 PFENET_ARGS = ZOO_ARGS + ["data.height=473", "data.width=473",
                           "tr.lr=0.0025", "data.train_n=24",
                           "tr.total_epochs=1"]
+# a recorded train run's folder: its checkpoints and the JAX CLI's records
+# (REVISION too where the checkout is a git repository)
+RUN_FILES = {"bestckpt.pt", "ckpt.pt", "config.json", "metrics.json",
+             "sources"}
+# the run_path phase: stage 1 (3 steps, one epoch, its online eval and
+# chained test), a test run of its snapshot, stage 2 behind it (2 steps),
+# and visualize at test batch 1 (one episode a batch)
+RUN1_ARGS = [a for a in TRAIN_ARGS if not a.startswith("data.train_n=")] + [
+    "data.train_n=12", "g.mongodb=True", "-p"]
+RUN2_ARGS = [a for a in STAGE2_ARGS if not a.startswith("data.train_n=")] + [
+    "data.train_n=8", "g.mongodb=True"]
+VIS_EPISODES = 4
+VIS_ARGS = ["visualize", "with", "split=0", "data.dataset=SYNTH",
+            "data.height=401", "data.width=401", "shot=1", "query=1",
+            "data.test_bs=1", f"data.test_n={VIS_EPISODES}",
+            "dev.precision=bf16", "seed=1234"]
 # K1-K5's launches per train step and per eval batch of one mpm chain
 STEP_LAUNCHES = {"assign": 1, "match": 1, "match_bwd": 1, "assign_bwd": 1,
                  "minplus": 2}
@@ -154,6 +177,12 @@ EVAL_LAUNCHES = {"assign": 1, "match": 1, "match_bwd": 0, "assign_bwd": 0,
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def check_run_files(files, what: str) -> None:
+    if set(files) - {"REVISION"} != RUN_FILES:
+        raise AssertionError(f"{what} run dir holds {files}, want "
+                             f"{sorted(RUN_FILES)} (and REVISION)")
 
 
 def nvidia_smi() -> str:
@@ -514,7 +543,8 @@ def main_path_phase(torch, K):
 
     K.reset_launches()
     t0 = time.perf_counter()
-    result = entry.main(MAIN_ARGS)
+    with tempfile.TemporaryDirectory() as tmp:      # the test run's records
+        result = entry.main(MAIN_ARGS + [f"g.model_dir={tmp}"])
     wall = time.perf_counter() - t0
     launches = dict(K.launches)
     if not math.isfinite(result["miou"]) or not math.isfinite(result["loss"]):
@@ -923,8 +953,7 @@ def train_path_phase(torch, K, M):
         raise AssertionError(f"train losses {losses}")
     if launches != want:
         raise AssertionError(f"train path launches {launches}, want {want}")
-    if not {ckpt_lib.CKPT, ckpt_lib.BEST} <= set(files):
-        raise AssertionError(f"run dir holds {files}")
+    check_run_files(files, "train path")
     if not math.isfinite(result["test"]["miou"]):
         raise AssertionError(f"chained test {result['test']}")
     # frozen backbone BN: affine bit-identical, running stats moved
@@ -1098,8 +1127,7 @@ def stage2_path_phase(torch, K, M):
         raise AssertionError(f"stage-2 train losses {losses}")
     if launches != want:
         raise AssertionError(f"stage-2 path launches {launches}, want {want}")
-    if files != sorted([ckpt_lib.BEST, ckpt_lib.CKPT]):
-        raise AssertionError(f"stage-2 run dir holds {files}")
+    check_run_files(files, "stage-2 path")
     if not math.isfinite(result["test"]["miou"]):
         raise AssertionError(f"stage-2 chained test {result['test']}")
     keys = PEMPStage2().state_dict()
@@ -1409,8 +1437,7 @@ def vgg_path_phase(torch, K, M, plain):
         if run["launches"] != want:
             raise AssertionError(f"vgg stage {stage} launches "
                                  f"{run['launches']}, want {want}")
-        if run["files"] != sorted([ckpt_lib.BEST, ckpt_lib.CKPT]):
-            raise AssertionError(f"vgg stage {stage} run dir {run['files']}")
+        check_run_files(run["files"], f"vgg stage {stage}")
         if not math.isfinite(run["result"]["test"]["miou"]):
             raise AssertionError(f"vgg stage {stage} chained test "
                                  f"{run['result']['test']}")
@@ -1611,9 +1638,9 @@ def family_path_phase(torch, K, M, name, runtime_cls, args, runtime_of=None,
         raise AssertionError(f"{name} train losses {losses}")
     if any(launches.values()):
         raise AssertionError(f"{name} launched a kernel: {launches}")
-    if not math.isfinite(result["test"]["miou"]) or len(files) != 2:
-        raise AssertionError(f"{name} chained test {result['test']}, run "
-                             f"files {files}")
+    if not math.isfinite(result["test"]["miou"]):
+        raise AssertionError(f"{name} chained test {result['test']}")
+    check_run_files(files, name)
     runtime = runtime(cfg)
     model = entry.build_model(cfg, device)
     tbatch = first_batch(datasets, cfg, "train", runtime)
@@ -1784,6 +1811,303 @@ def pfenet_check(torch, runtime, model, cfg, device, tbatch, ebatch,
             "trunk_bn_stats_changed": changed}
 
 
+def torchvision_resnet50(torch, seed: int):
+    """A seeded state_dict in torchvision's ResNet-50 layout at its
+    published shapes (``conv1``, ``bn1``, ``layer1``-``layer4``, ``fc``:
+    ~100 MB at float32), as ``data/resnet50-19c8e357.pth`` holds it."""
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def put(key, *shape):
+        sd[key] = torch.randn(shape, generator=g)
+
+    def bn(key, c):
+        for t in ("weight", "bias", "running_mean"):
+            put(f"{key}.{t}", c)
+        sd[f"{key}.running_var"] = torch.rand(c, generator=g) + 0.5
+
+    put("conv1.weight", 64, 3, 7, 7)
+    bn("bn1", 64)
+    inplanes = 64
+    for si, (n, p) in enumerate(zip((3, 4, 6, 3), (64, 128, 256, 512)), 1):
+        for bi in range(n):
+            key = f"layer{si}.{bi}"
+            put(f"{key}.conv1.weight", p, inplanes if bi == 0 else 4 * p, 1, 1)
+            put(f"{key}.conv2.weight", p, p, 3, 3)
+            put(f"{key}.conv3.weight", 4 * p, p, 1, 1)
+            for ci, c in ((1, p), (2, p), (3, 4 * p)):
+                bn(f"{key}.bn{ci}", c)
+            if bi == 0:
+                put(f"{key}.downsample.0.weight", 4 * p, inplanes, 1, 1)
+                bn(f"{key}.downsample.1", 4 * p)
+        inplanes = 4 * p
+    put("fc.weight", 1000, 2048)
+    put("fc.bias", 1000)
+    return sd
+
+
+class HostTimer:
+    """Host-clock seconds spent in the patched callables, by name."""
+
+    def __init__(self):
+        self.s, self.calls = {}, {}
+
+    def wrap(self, name, fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.s[name] = self.s.get(name, 0.0) + time.perf_counter() - t0
+                self.calls[name] = self.calls.get(name, 0) + 1
+        return timed
+
+
+def trunk_vs_file(torch, got, sd, device, prefix, pads=None):
+    """The trunk tensors of ``got`` (under ``prefix``; the CMs' linears and
+    the BN counters aside) that differ from the file ``sd``, on the card;
+    ``pads``: {key: n} tensors whose last ``n`` input channels must be
+    zero and the rest the file's."""
+    pads = pads or {}
+    bad = []
+    for key, value in got.items():
+        if (not key.startswith(prefix) or ".linear" in key
+                or key.endswith("num_batches_tracked")):
+            continue
+        src = sd[key[len(prefix):]].to(device)
+        n = pads.get(key[len(prefix):-len(".weight")], 0)
+        if n:
+            same = (torch.equal(value[:, :-n], src)
+                    and torch.count_nonzero(value[:, -n:]).item() == 0)
+        else:
+            same = torch.equal(value, src)
+        if not same:
+            bad.append(key)
+    return bad
+
+
+def run_path_phase(torch, K, M):
+    """A real run through the user's entry points, at full width in a
+    temporary working directory: a seeded torchvision ResNet-50 file in
+    ``data/``, the pretrained stage-1 trunk bit-equal to it on the card;
+    ``pemp_stage1 train`` observed (records, Mongo documents, ``-p``, the
+    chained test), then ``test exp_id=<id>`` in a run folder of its own;
+    ``pemp_stage2 train`` behind that run from the same file (the stem's
+    prior channel and the CMs' +2 input channels zero, every other trunk
+    tensor the file's before the first step); ``visualize`` of the
+    stage-1 run (its files, K1/K2 once an episode with indices). Host
+    times: each command's wall, the file's load, the records' writes."""
+    import os
+    from unittest import mock
+
+    import PIL
+
+    from pemp_tpu_torch import config as config_lib
+    from pemp_tpu_torch.entry import pemp_stage1 as entry1
+    from pemp_tpu_torch.entry import pemp_stage2 as entry2
+    from pemp_tpu_torch.models import pemp_stage1 as stage1
+    from pemp_tpu_torch.models import registry
+    from pemp_tpu_torch.utils import observers, pretrained
+
+    device = torch.device("cuda")
+    timer = HostTimer()
+    cwd, static = os.getcwd(), os.environ.get("PEMP_HTTP_STATIC")
+    out = {"phase": "run_path", "pil_version": PIL.__version__}
+    launches = {}
+
+    def counted_run(what, main, argv):
+        K.reset_launches()
+        M.reset_launches()
+        t0 = time.perf_counter()
+        result = main(argv)
+        out[f"{what}_wall_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches[what] = {**K.launches, **M.launches, **K.backward_calls}
+        return result
+
+    def records(run_dir, what, scalars):
+        files = sorted(p.name for p in run_dir.iterdir())
+        want = {"config.json", "sources", "mongo"} | (
+            RUN_FILES if scalars else set())
+        if set(files) - {"REVISION"} != want:
+            raise AssertionError(f"{what} run dir holds {files}")
+        (mongo,) = [json.loads(ln) for ln in
+                    (run_dir / "mongo" / "runs.json").read_text().splitlines()]
+        if mongo["status"] != "COMPLETED":
+            raise AssertionError(f"{what} Mongo status {mongo['status']}")
+        out[f"{what}_run_files"] = files
+        if scalars:
+            metrics = json.loads((run_dir / "metrics.json").read_text())
+            if set(metrics) != {"train_loss", "val_loss", "val_mIoU",
+                                "val_bIoU"} or not all(
+                    len(v) == 1 and math.isfinite(v[0][1])
+                    for v in metrics.values()):
+                raise AssertionError(f"{what} metrics.json {metrics}")
+            out[f"{what}_metrics"] = metrics
+
+    def want_train(steps, evals, chains):
+        want = {k: (chains if k in ("assign", "match") else 1)
+                * (steps * STEP_LAUNCHES[k] + evals * EVAL_LAUNCHES[k])
+                for k in STEP_LAUNCHES}
+        want["mpm_backward"] = steps
+        return want
+
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        os.environ["PEMP_HTTP_STATIC"] = str(Path(tmp) / "static")
+        try:
+            md = f"g.model_dir={Path(tmp) / 'model_dir'}"
+            # 1. the pretrained file and the stage-1 trunk built from it
+            path = Path(pretrained.PRETRAINED_FILES["resnet50"])
+            path.parent.mkdir()
+            sd = torchvision_resnet50(torch, 1234)
+            torch.save(sd, path)
+            out["pretrained_file_mb"] = path.stat().st_size / 2 ** 20
+            t0 = time.perf_counter()
+            pretrained.load_state_dict(path)
+            out["pretrained_load_ms"] = (time.perf_counter() - t0) * 1e3
+            cfg1 = entry1.ex.assemble("train", dict(
+                a.split("=", 1) for a in RUN1_ARGS[2:] if "=" in a))
+            with mock.patch.object(pretrained, "try_load_backbone",
+                                   timer.wrap("pretrained",
+                                              pretrained.try_load_backbone)):
+                got = entry1.build_model(cfg1, device).state_dict()
+            out["pretrained_init_ms"] = timer.s["pretrained"] * 1e3
+            seeded = registry.build("pemp_stage1", cfg1)
+            seeded.reset_parameters(torch.Generator().manual_seed(cfg1.seed))
+            seeded = seeded.state_dict()
+            prefix = "encoder.backbone."
+            bad = trunk_vs_file(torch, got, sd, device, prefix)
+            head_moved = [k for k in got if not k.startswith(prefix)
+                          and not torch.equal(got[k], seeded[k].to(device))]
+            has_layer4 = any(k.startswith(f"{prefix}layer4") for k in got)
+            if bad or head_moved or has_layer4:
+                raise AssertionError(
+                    f"pretrained stage 1: trunk tensors off the file {bad}, "
+                    f"head tensors off the seeded draw {head_moved}, "
+                    f"layer4 {has_layer4}")
+            out["pretrained_trunk_tensors"] = sum(
+                k.startswith(prefix) and not k.endswith("num_batches_tracked")
+                for k in got)
+            del got, seeded
+
+            # 2. stage 1 train (observed, -p, Mongo), then a test run
+            patches = [mock.patch.object(config_lib.Run, "log_scalar",
+                                         timer.wrap("log_scalar",
+                                                    config_lib.Run.log_scalar)),
+                       mock.patch.object(config_lib.Experiment, "open_run",
+                                         timer.wrap("open_run",
+                                                    config_lib.Experiment
+                                                    .open_run)),
+                       mock.patch.object(observers.MongoRunObserver, "finish",
+                                         timer.wrap("mongo_finish",
+                                                    observers.MongoRunObserver
+                                                    .finish))]
+            for p in patches:
+                p.start()
+            try:
+                r1 = counted_run("stage1_train", entry1.main, RUN1_ARGS + [md])
+                out["records_host_ms_per_epoch"] = (
+                    timer.s["log_scalar"] + timer.s["mongo_finish"]) \
+                    * 1e3 / cfg1.tr.total_epochs
+                out["open_run_host_ms"] = timer.s["open_run"] * 1e3
+                run1 = r1["train"]["run_id"]
+                rt = counted_run("stage1_test", entry1.main, MAIN_ARGS[:1] + [
+                    "with", *MAIN_ARGS[2:], "data.test_n=16", md,
+                    "g.mongodb=True", f"exp_id={run1}"])
+            finally:
+                for p in patches:
+                    p.stop()
+            steps = len(r1["train"]["losses"])
+            evals = 2 * -(-cfg1.data.test_n // cfg1.data.test_bs)
+            want = {"stage1_train": want_train(steps, evals, 1),
+                    "stage1_test": want_train(0, 2, 1)}
+            tag_dir = Path(tmp) / "model_dir" / "pemp_stage1"
+            records(tag_dir / str(run1), "stage1_train", True)
+            records(tag_dir / str(run1 + 1), "stage1_test", False)
+            if (steps != cfg1.data.train_n // cfg1.data.bs
+                    or not all(math.isfinite(x) for x in r1["train"]["losses"])
+                    or not math.isfinite(rt["miou"])
+                    or abs(rt["miou"] - r1["test"]["miou"]) > 1e-3):
+                raise AssertionError(f"stage-1 run {r1}, test run {rt}")
+
+            # 3. stage 2 behind the stage-1 run, from the same file
+            built = []
+            build2 = entry2.build_model
+
+            def keep(cfg, dev):
+                model = build2(cfg, dev)
+                if not built:       # before the first step
+                    built.append({k: v.clone() for k, v in
+                                  model.stage2.state_dict().items()})
+                return model
+
+            with mock.patch.object(entry2, "build_model", keep):
+                r2 = counted_run("stage2_train", entry2.main, RUN2_ARGS + [
+                    md, f"s1.id={run1}"])
+            pads = {"conv1": 1, **{f"layer{s}.0.{m}": 2 for s in (1, 2, 3)
+                                   for m in ("conv1", "downsample.0")}}
+            bad = trunk_vs_file(torch, built[0], sd, device, prefix, pads)
+            if bad:
+                raise AssertionError(f"stage-2 trunk off the file or its "
+                                     f"pads not zero: {bad}")
+            steps2 = len(r2["train"]["losses"])
+            want["stage2_train"] = want_train(steps2, evals, 2)
+            records(Path(tmp) / "model_dir" / "pemp_stage2"
+                    / str(r2["train"]["run_id"]), "stage2_train", True)
+            if not math.isfinite(r2["test"]["miou"]):
+                raise AssertionError(f"stage-2 run {r2}")
+
+            # 4. visualize the stage-1 run: K1/K2 once an episode, indices
+            flags = []
+            chain = stage1.mpm_chain_packed
+
+            def chain_flags(*args, **kwargs):
+                flags.append(kwargs.get("return_indices", False))
+                return chain(*args, **kwargs)
+
+            with mock.patch.object(stage1, "mpm_chain_packed", chain_flags):
+                folder = Path(counted_run("visualize", entry1.main, VIS_ARGS + [
+                    md, f"exp_id={run1}"]))
+            want["visualize"] = want_train(0, VIS_EPISODES, 1)
+            episodes = sorted(p for p in folder.iterdir())
+            kinds = [sorted(re.sub(r".*_((sup|qry)_[a-z]+)_synth.*", r"\1",
+                                   f.name) for f in ep.iterdir())
+                     for ep in episodes]
+            data = [json.loads((ep / "data.json").read_text())
+                    for ep in episodes]
+            if (len(episodes) != VIS_EPISODES or flags != [True] * len(flags)
+                    or len(flags) != VIS_EPISODES
+                    or any(k != ["data.json", "qry_color", "qry_img",
+                                 "qry_msk", "qry_pred", "sup_img", "sup_msk"]
+                           for k in kinds)
+                    or any(set(d) != {"acc", "cls_id", "cls_name", "qry",
+                                      "sup"} for d in data)):
+                raise AssertionError(f"visualize: {len(episodes)} episodes, "
+                                     f"chain return_indices {flags}, files "
+                                     f"{kinds}, data {data}")
+            out["visualize_folder"] = folder.name
+            out["visualize_data"] = data
+        finally:
+            os.chdir(cwd)
+            if static is None:
+                os.environ.pop("PEMP_HTTP_STATIC", None)
+            else:
+                os.environ["PEMP_HTTP_STATIC"] = static
+    if launches != want:
+        raise AssertionError(f"run path launches {launches}, want {want}")
+    out.update({"launches": launches, "launches_expected": want,
+                "stage1_losses": r1["train"]["losses"],
+                "stage1_chained_test": r1["test"], "stage1_test_run": rt,
+                "stage2_losses": r2["train"]["losses"],
+                "stage2_chained_test": r2["test"],
+                "record_calls": timer.calls,
+                "records_timing": "host clock (time.perf_counter)"})
+    emit(out)
+    return {k: sum(counts[k] for counts in launches.values())
+            for k in STEP_LAUNCHES}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1827,6 +2151,7 @@ def main() -> int:
     other["pfenet_path"] = family_path_phase(
         torch, K, M, "pfenet", "PFENetRuntime", PFENET_ARGS,
         check=pfenet_check)
+    run_launches = run_path_phase(torch, K, M)
 
     # one row per TPU kernel K1-K5. assign and match are one __global__
     # each; the chain (K3, mpm.py:342) is those two launches on the packed
@@ -1845,6 +2170,7 @@ def main() -> int:
          "train_path_launches": train_launches[name],
          "stage2_path_launches": stage2_launches[name],
          "vgg_path_launches": vgg_launches[name],
+         "run_path_launches": run_launches[name],
          "max_abs_err": worst[name], "ms": times[name],
          "plain_ms": times[f"{name}_plain"], "bound_ms": bounds[name][0],
          "bound_by": bounds[name][1], "library_ms": None}
@@ -1857,6 +2183,7 @@ def main() -> int:
         "train_path_launches": train_launches["match"],
         "stage2_path_launches": stage2_launches["match"],
         "vgg_path_launches": vgg_launches["match"],
+        "run_path_launches": run_launches["match"],
         "max_abs_err": worst["chain"], "ms": times["chain"],
         "plain_ms": times["chain_plain"], "bound_ms": bounds["chain"][0],
         "bound_by": bounds["chain"][1], "library_ms": None,
@@ -1871,6 +2198,7 @@ def main() -> int:
                             for k in ("match_bwd", "assign_bwd")},
         "stage2_path_launches": stage2_launches["mpm_backward"],
         "vgg_path_launches": vgg_launches["mpm_backward"],
+        "run_path_launches": run_launches["match_bwd"],
         "max_abs_err": bw_worst, "ms": bw_times["bfloat16"],
         "ms_no_spin": bw_times["bfloat16_no_spin"],
         "plain_ms": bw_times["bfloat16_plain"],
@@ -1887,6 +2215,7 @@ def main() -> int:
         "launches": train_launches["minplus"], "max_abs_err": 0.0,
         "stage2_path_launches": stage2_launches["minplus"],
         "vgg_path_launches": vgg_launches["minplus"],
+        "run_path_launches": run_launches["minplus"],
         "ms": mp_times["phase1"] + mp_times["phase2"],
         "plain_ms": mp_times["phase1_plain"] + mp_times["phase2_plain"],
         "bound_ms": mp_bounds["phase1"][0] + mp_bounds["phase2"][0],

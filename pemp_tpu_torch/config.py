@@ -8,28 +8,42 @@ frozen stage 1) and the per-entry ``net``, plus the top-level keys;
 dotted ``a.b=value`` overrides; the ``print_config`` and ``help``
 commands.
 
-``train`` records its run into ``<g.model_dir>/<tag>/<id>/`` (an
-auto-incremented integer id; ``resume=True exp_id=<id>`` reuses the
-directory) unless ``-u`` / ``--unobserved`` or ``g.fileStorage=False``.
-The JAX CLI's ``config.json``/``metrics.json`` observers and its ``-p``
-flag are not ported; ``test`` records no run.
+``train`` and ``test`` record their run into ``<g.model_dir>/<tag>/<id>/``
+(an auto-incremented integer id; ``resume=True exp_id=<id>`` reuses the
+directory) unless ``-u`` / ``--unobserved`` or ``g.fileStorage=False``, as
+the JAX CLI does (``pemp_tpu/config/cli.py:118-231``): ``config.json``
+(the flattened config, ``repr`` values; ``config.resume.json`` on
+resume), ``sources/<entry>.py`` and ``REVISION`` (best effort),
+``metrics.json`` (``Run.log_scalar``: ``{name: [[step, value], ...]}``,
+preloaded on resume), and with ``g.mongodb`` the Mongo documents of
+``utils/observers.py``; the run ends ``COMPLETED``, ``FAILED`` or
+``INTERRUPTED`` (ctrl-C, or a training run stopped by a signal).
+``-p`` / ``--print-config`` prints the config, then runs the command.
 """
 
 from __future__ import annotations
 
 import ast
 import copy
+import inspect
+import json
+import shutil
+import subprocess
 import sys
 from dataclasses import dataclass, field, fields, is_dataclass
 from pathlib import Path
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+from pemp_tpu_torch.utils.observers import maybe_attach
 
 
 @dataclass
 class GlobalConfig:
     """Scope ``g``: run directories (reference config.py:14-19)."""
     model_dir: str = "model_dir"        # model_dir/<tag>/<exp_id>/<ckpt>
-    fileStorage: bool = True            # record train runs into model_dir
+    fileStorage: bool = True            # record runs into model_dir
+    mongodb: bool = False               # Omniboard/Mongo documents (files)
+    mongo_port: int = 7000              # reference config.py:19
 
 
 @dataclass
@@ -43,6 +57,8 @@ class DeviceConfig:
 class DataConfig:
     """Scope ``data`` (reference data_kits/datasets.py:13-31)."""
     dataset: str = "PASCAL"             # SYNTH (PASCAL, COCO not ported yet)
+    mean: Tuple[float, float, float] = (0.485, 0.456, 0.406)
+    std: Tuple[float, float, float] = (0.229, 0.224, 0.225)
     height: int = 401
     width: int = 401
     bs: int = 4                         # training episodes per step
@@ -90,6 +106,16 @@ class TestConfig:
 
 
 @dataclass
+class VizConfig:
+    """Scope ``p``: the single episode ``visualize`` draws when ``cls`` >
+    0 (reference entry/pemp_stage1.py:35-39): support names ``sup``
+    (comma-separated) and query name ``qry``."""
+    cls: int = 0
+    sup: str = ""
+    qry: str = ""
+
+
+@dataclass
 class Stage1RefConfig:
     """Scope ``s1``: the frozen stage-1 checkpoint of the stage-2 cascade
     (reference entry/pemp_stage2.py:39-42): ``ckpt`` as a path, else
@@ -108,7 +134,7 @@ class Config:
     query: int = 1
     split: int = -1                     # REQUIRED for train/test
     seed: int = 1234                    # weight init and dropout seed
-    ckpt: str = ""                      # .pt checkpoint; "" = init from seed
+    ckpt: str = ""                      # .pt or .msgpack; "" = init from seed
     exp_id: int = -1                    # look for ckpt in model_dir/tag/exp_id
     loss: str = "ce"                    # ce | cedt
     sigma: float = 5.0                  # cedt EDT bandwidth
@@ -120,6 +146,7 @@ class Config:
     data: DataConfig = field(default_factory=DataConfig)
     tr: TrainConfig = field(default_factory=TrainConfig)
     te: TestConfig = field(default_factory=TestConfig)
+    p: VizConfig = field(default_factory=VizConfig)
     s1: Stage1RefConfig = field(default_factory=Stage1RefConfig)
     # ``net`` is installed per entry with the model's own dataclass.
     net: Any = None
@@ -174,6 +201,8 @@ def apply_overrides(cfg: Any, overrides: Dict[str, Any]) -> Any:
                 value = str(value)
             elif isinstance(current, list) and isinstance(value, tuple):
                 value = list(value)
+            elif isinstance(current, tuple) and isinstance(value, list):
+                value = tuple(value)
         setattr(obj, leaf, value)
     return cfg
 
@@ -198,11 +227,31 @@ def format_config(cfg: Any) -> str:
 
 
 class Run:
-    """One experiment run: its id and directory (None when not recorded)."""
+    """One experiment run: its id, directory (None when not recorded) and
+    scalar log, and the observers that see it (``utils/observers.py``)."""
 
     def __init__(self, run_id: Optional[int], run_dir: Optional[Path]):
         self._id = run_id
         self.run_dir = run_dir
+        self._scalars: Dict[str, List] = {}
+        self.observers: List = []
+        metrics = None if run_dir is None else run_dir / "metrics.json"
+        if metrics is not None and metrics.exists():
+            # a resumed run reuses its directory: keep the history, or the
+            # first log_scalar after the resume would drop it
+            self._scalars = json.loads(metrics.read_text())
+
+    def log_scalar(self, name: str, value: float, step: int) -> None:
+        self._scalars.setdefault(name, []).append([step, float(value)])
+        if self.run_dir is not None:
+            (self.run_dir / "metrics.json").write_text(
+                json.dumps(self._scalars))
+        for obs in self.observers:
+            obs.log_scalar(name, value, step)
+
+    def finish(self, status: str = "COMPLETED", result=None) -> None:
+        for obs in self.observers:
+            obs.finish(status, result)
 
 
 def _next_run_id(tag_dir: Path) -> int:
@@ -210,9 +259,48 @@ def _next_run_id(tag_dir: Path) -> int:
     return max(existing, default=0) + 1
 
 
+def config_record(cfg) -> Dict[str, str]:
+    """The flattened config with ``repr`` values (``config.json``)."""
+    return {k: repr(v) for k, v in flatten_config(cfg).items()}
+
+
+def snapshot_sources(run_dir: Path, entry_file: Optional[str]) -> None:
+    """Best effort: the entry's source under ``sources/`` and the git
+    revision of the checkout it lies in as ``REVISION``."""
+    if entry_file is None:
+        return
+    entry = Path(entry_file)
+    try:
+        (run_dir / "sources").mkdir(exist_ok=True)
+        shutil.copy2(entry, run_dir / "sources" / entry.name)
+        rev = subprocess.run(["git", "rev-parse", "HEAD"], cwd=entry.parent,
+                             capture_output=True, text=True, timeout=5)
+    except (OSError, subprocess.SubprocessError):
+        return
+    if rev.returncode == 0:
+        (run_dir / "REVISION").write_text(rev.stdout)
+
+
+def result_record(result):
+    """A command's result as the JAX CLI records it: a test's
+    ``"Loss: ..., mIoU: ..., bIoU: ..."`` line (a train run's, of its
+    chained test), ``"PREEMPTED"`` for a training run stopped by a
+    signal, anything else as it is."""
+    if isinstance(result, dict) and result.get("train", {}).get("preempted"):
+        return "PREEMPTED"
+    if isinstance(result, dict):
+        result = result.get("test", result)
+    if isinstance(result, dict) and "miou" in result:
+        return (f"Loss: {result['loss']:.4f}, mIoU: {result['miou'] * 100:.2f}"
+                f", bIoU: {result['biou'] * 100:.2f}")
+    return result
+
+
 class Experiment:
-    """Named command registry: ``<command> [with a.b=v ...] [-u]``. A
+    """Named command registry: ``<command> [with a.b=v ...] [-u] [-p]``. A
     command is called with (cfg, run)."""
+
+    RECORDED = ("train", "test")
 
     def __init__(self, name: str, config):
         self.name = name
@@ -236,40 +324,54 @@ class Experiment:
                              f"run to resume> (got exp_id={cfg.exp_id})")
         return cfg
 
-    @staticmethod
-    def open_run(cfg, command: str, observed: bool = True) -> Run:
-        """The run of ``command``: ``train`` (observed, ``g.fileStorage``)
-        gets ``<g.model_dir>/<tag>/<id>/``, a new id or, on resume, the
-        ``exp_id`` it continues; anything else records nothing."""
-        if not (observed and command == "train" and cfg.g.fileStorage):
+    def open_run(self, cfg, command: str, observed: bool = True) -> Run:
+        """The run of ``command``: ``train`` and ``test`` (observed,
+        ``g.fileStorage``) get ``<g.model_dir>/<tag>/<id>/`` with their
+        records, a new id or, on resume, the ``exp_id`` it continues, and
+        the Mongo observer when ``g.mongodb``; anything else records
+        nothing."""
+        if not (observed and command in self.RECORDED and cfg.g.fileStorage):
             return Run(None, None)
         tag_dir = Path(cfg.g.model_dir) / str(cfg.tag)
         tag_dir.mkdir(parents=True, exist_ok=True)
-        if cfg.resume:
-            run_dir = tag_dir / str(cfg.exp_id)
+        if command == "train" and cfg.resume:
+            # the original config.json, sources and REVISION record what
+            # produced the earlier epochs; the resume's config goes beside
+            run_id, run_dir = cfg.exp_id, tag_dir / str(cfg.exp_id)
             run_dir.mkdir(parents=True, exist_ok=True)
-            return Run(cfg.exp_id, run_dir)
-        while True:     # atomic id allocation against concurrent runs
-            run_id = _next_run_id(tag_dir)
-            try:
-                (tag_dir / str(run_id)).mkdir(parents=True, exist_ok=False)
-                return Run(run_id, tag_dir / str(run_id))
-            except FileExistsError:
-                continue
+            (run_dir / "config.resume.json").write_text(
+                json.dumps(config_record(cfg), indent=2))
+        else:
+            while True:     # atomic id allocation against concurrent runs
+                run_id = _next_run_id(tag_dir)
+                run_dir = tag_dir / str(run_id)
+                try:
+                    run_dir.mkdir(parents=True, exist_ok=False)
+                    break
+                except FileExistsError:
+                    continue
+            (run_dir / "config.json").write_text(
+                json.dumps(config_record(cfg), indent=2))
+            snapshot_sources(run_dir, inspect.getsourcefile(
+                self.commands[command]))
+        run = Run(run_id, run_dir)
+        maybe_attach(run, cfg, self.name, command)
+        return run
 
     def run_commandline(self, argv: Optional[List[str]] = None):
         argv = list(sys.argv[1:] if argv is None else argv)
         if not argv or argv[0] in ("help", "-h", "--help"):
-            print(f"usage: {self.name} <command> [with k=v ...] [-u]")
+            print(f"usage: {self.name} <command> [with k=v ...] [-u] [-p]")
             print("commands:", ", ".join(sorted(self.commands)))
             return None
         command, rest = argv[0], argv[1:]
         overrides: Dict[str, Any] = {}
-        observed = True
-        expect_with = True
+        observed, print_cfg, expect_with = True, False, True
         for token in rest:
             if token in ("-u", "--unobserved"):
                 observed = False
+            elif token in ("-p", "--print-config"):
+                print_cfg = True
             elif token == "with" and expect_with:
                 expect_with = False
             elif "=" in token:
@@ -281,5 +383,19 @@ class Experiment:
             raise SystemExit(f"Unknown command '{command}'. "
                              f"Available: {', '.join(sorted(self.commands))}")
         cfg = self.assemble(command, overrides)
-        return self.commands[command](cfg, self.open_run(cfg, command,
-                                                         observed))
+        run = self.open_run(cfg, command, observed)
+        if print_cfg and command != "print_config":
+            print(format_config(cfg))
+        try:
+            result = self.commands[command](cfg, run)
+        except KeyboardInterrupt:
+            run.finish("INTERRUPTED")
+            raise
+        except Exception:
+            run.finish("FAILED")
+            raise
+        record = result_record(result)
+        # a training run stopped by a signal is resumable, not COMPLETED
+        run.finish("INTERRUPTED" if record == "PREEMPTED" else "COMPLETED",
+                   record)
+        return result

@@ -17,11 +17,16 @@ between families goes through the hooks:
 - ``device_keys``: the batch arrays the steps move to the device;
 - ``wrap_data(ds, loader, train)``: wraps the train, online-eval and test
   data (CaNet's history adapter);
+- ``apply_visualize(model, batch)``: the forward with the response map
+  (the PEMP entries' ``visualize``, ``core/visualize.py``);
 - ``post_step(logits, batch)``: optional, after every train step (CaNet's
   history write-back).
 
-The entries under ``pemp_tpu_torch/entry/`` subclass it. The JAX
-runtime's mesh, fused-step and pretrained-backbone hooks are not ported.
+The entries under ``pemp_tpu_torch/entry/`` subclass it. A model not
+loaded from a checkpoint starts from ``seed`` and, when its ImageNet file
+is in ``data/``, takes its trunk from it (``utils/pretrained.py``, the
+JAX runtime's ``maybe_load_pretrained``). The JAX runtime's mesh and
+fused-step hooks are not ported.
 """
 
 from __future__ import annotations
@@ -45,6 +50,8 @@ from pemp_tpu_torch.core.trainer import Trainer
 from pemp_tpu_torch.data import datasets
 from pemp_tpu_torch.device import resolve_device
 from pemp_tpu_torch.models import registry
+from pemp_tpu_torch.utils import pretrained
+from pemp_tpu_torch.utils.convert import state_dict_from_jax
 
 
 def get_logger(name: str) -> logging.Logger:
@@ -72,34 +79,47 @@ def set_precision(precision: str) -> torch.dtype:
 
 
 def find_checkpoint(cfg) -> Optional[Path]:
-    """``ckpt`` as a path, else ``g.model_dir/<tag>/<exp_id>/<ckpt>``;
-    None when no checkpoint is asked for (init from ``seed``)."""
+    """The checkpoint ``ckpt`` names, by ``find_snapshot``'s lookup (a
+    path, else a file of run ``exp_id`` or, failing that, of the newest
+    run of ``tag``); None when ``ckpt`` is empty (init from ``seed``)."""
     if not cfg.ckpt:
         return None
-    path = Path(cfg.ckpt)
-    if not path.exists() and cfg.exp_id >= 0:
-        path = Path(cfg.g.model_dir) / str(cfg.tag) / str(cfg.exp_id) / cfg.ckpt
-    if not path.exists():
-        raise FileNotFoundError(f"checkpoint '{cfg.ckpt}' not found")
-    return path
+    return ckpt_lib.find_snapshot(cfg.g.model_dir, cfg.tag, cfg.exp_id,
+                                  cfg.ckpt)
 
 
 def load_weights(model, path: Path) -> None:
-    """Load a ``.pt`` checkpoint (the trainer's ``{"model": ...}`` dict or a
-    bare state_dict) into ``model``, every key present."""
+    """Load a checkpoint into ``model``, every key present: a ``.pt`` (the
+    trainer's ``{"model": ...}`` dict or a bare state_dict) or the JAX
+    package's ``.msgpack`` (its variables through ``state_dict_from_jax``;
+    a weights-only restore)."""
+    path = Path(path)
     if path.suffix == ".msgpack":
-        raise NotImplementedError(
-            "reading the JAX package's .msgpack checkpoints is not ported "
-            "yet; convert with state_dict_from_jax and torch.save a .pt")
-    model.load_state_dict(ckpt_lib.model_state(ckpt_lib.load(path)))
+        tree = ckpt_lib.read_jax_checkpoint(path)
+        sd = state_dict_from_jax(_numpy(tree["params"]),
+                                 _numpy(tree["batch_stats"]))
+    else:
+        sd = ckpt_lib.model_state(ckpt_lib.load(path))
+    model.load_state_dict(sd, strict=True)
 
 
-def init_weights(model, cfg) -> None:
-    """``model``'s weights from the checkpoint ``cfg.ckpt`` names, or drawn
-    from ``cfg.seed`` when it names none."""
+def _numpy(tree):
+    """A checkpoint tree with its bfloat16 tensors as float32 numpy
+    (exact), which ``state_dict_from_jax`` takes."""
+    if isinstance(tree, dict):
+        return {k: _numpy(v) for k, v in tree.items()}
+    return tree.float().numpy() if torch.is_tensor(tree) else tree
+
+
+def init_weights(model, cfg, name: str) -> None:
+    """``model``'s weights from the checkpoint ``cfg.ckpt`` names or, when
+    it names none, drawn from ``cfg.seed``, the trunk of the registry's
+    model ``name`` then taken from its ImageNet file when that is on disk
+    (``utils/pretrained.py``)."""
     path = find_checkpoint(cfg)
     if path is None:
         model.reset_parameters(torch.Generator().manual_seed(cfg.seed))
+        pretrained.try_load_backbone(name, cfg, model, get_logger(cfg.tag))
     else:
         load_weights(model, path)
 
@@ -129,7 +149,7 @@ class EntryRuntime:
         (the trainer's ``{"model": ...}`` dict or a bare state_dict)."""
         set_precision(cfg.dev.precision)
         model = registry.build(cls.name, cfg)
-        init_weights(model, cfg)
+        init_weights(model, cfg, cls.name)
         return model.to(device, memory_format=torch.channels_last).eval()
 
     def weights(self, model: torch.nn.Module) -> torch.nn.Module:
@@ -156,12 +176,20 @@ class EntryRuntime:
         """The (dataset, loader) the runtime reads from ``ds``, ``loader``."""
         return ds, loader
 
+    def apply_visualize(self, model, batch) -> tuple:
+        """``visualize``'s forward (the PEMP stages): feature-resolution
+        logits [B,Q,h,w,2] and the response map [B,Q,h,w]."""
+        return model(batch["sup_rgb"], batch["sup_mask"], batch["qry_rgb"],
+                     out_hw=None, ret_ind=True)
+
     # --- commands --------------------------------------------------------
     def test(self) -> Dict[str, float]:
-        """The ``test`` command: returns loss, mIoU, bIoU (fractions), the
-        episodes/s of the eval steps and the device the run used."""
+        """The ``test`` command (of run ``exp_id``'s snapshot when it names
+        no ``ckpt``): returns loss, mIoU, bIoU (fractions), the episodes/s
+        of the eval steps and the device the run used."""
         cfg, logger = self.cfg, self.logger
         device = resolve_device(cfg.dev.device)
+        self.resolve_snapshot()
         test_ds, test_loader, num_classes = datasets.load(cfg)
         test_ds, test_loader = self.wrap_data(test_ds, test_loader, False)
         model = self.build_model(cfg, device)
@@ -177,6 +205,17 @@ class EntryRuntime:
                     f"{result['miou'] * 100:.2f}, bIoU: "
                     f"{result['biou'] * 100:.2f}")
         return result
+
+    def resolve_snapshot(self, required: bool = False) -> None:
+        """``ckpt`` becomes the path of the snapshot ``find_snapshot``
+        finds: when ``exp_id`` names a run and ``ckpt`` is empty (that
+        run's ``bestckpt``, else ``ckpt``, ``.pt`` or the JAX package's
+        ``.msgpack``), or always when ``required`` (``visualize``; then
+        without either, the newest run's of ``tag``)."""
+        cfg = self.cfg
+        if required or (not cfg.ckpt and cfg.exp_id >= 0):
+            cfg.ckpt = str(ckpt_lib.find_snapshot(cfg.g.model_dir, cfg.tag,
+                                                  cfg.exp_id, cfg.ckpt))
 
     def train(self) -> Dict:
         """The ``train`` command: ``{"train": <the training summary>}`` plus,

@@ -86,6 +86,7 @@ class Trainer:
                  logger: Optional[logging.Logger] = None,
                  weights: Optional[torch.nn.Module] = None):
         self.cfg = cfg
+        self.run = run
         self.model = model
         self.weights = model if weights is None else weights
         self.optimizer = optimizer
@@ -155,8 +156,17 @@ class Trainer:
 
     def maybe_resume(self) -> int:
         """Restore from this run's ``ckpt.pt`` if present; returns the
-        epoch it records (0 without a checkpoint)."""
+        epoch it records (0 without a checkpoint). A JAX ``.msgpack``
+        (``ckpt``, or the run's only ``ckpt``) raises ``ValueError``."""
         path = self.model_dir / ckpt_lib.CKPT
+        jax_ckpt = path.with_suffix(".msgpack")
+        if Path(self.cfg.ckpt).suffix == ".msgpack" or (
+                not path.exists() and jax_ckpt.exists()):
+            raise ValueError(
+                "resume needs the port's ckpt.pt: a JAX .msgpack checkpoint "
+                "holds optax optimizer state, which the port's optimizer "
+                "cannot take; start a new run with ckpt=<file.msgpack> to "
+                "load its weights only")
         if not path.exists():
             return 0
         payload = ckpt_lib.load(path)
@@ -250,8 +260,15 @@ class Trainer:
         return float(mloss), miou, biou, best
 
     def log_result(self, epoch, train_loss, val_loss, val_miou, val_biou,
-                   best, speed):
+                   best, speed, **extra):
+        """The epoch's line in the log, and its scalars in the run's
+        records under the JAX package's names (``train_loss``,
+        ``val_loss``, ``val_mIoU``, ``val_bIoU``, then ``extra``)."""
         msg = self.template.format(
             epoch, self.cfg.tr.total_epochs, self.lr_policy.lr, train_loss,
             val_loss, val_miou * 100, val_biou * 100, speed)
         self.logger.info(msg + " (best)" * best)
+        for name, value in (("train_loss", train_loss), ("val_loss", val_loss),
+                            ("val_mIoU", val_miou), ("val_bIoU", val_biou),
+                            *extra.items()):
+            self.run.log_scalar(name, float(value), epoch)

@@ -7,16 +7,23 @@ Counterpart of ``entry/pemp_stage1.py`` of the JAX package:
         [dev.device=cpu] [k=v ...] [-u]
     python -m pemp_tpu_torch.entry.pemp_stage1 test with split=0 \
         data.dataset=SYNTH [ckpt=weights.pt] [dev.device=cpu] [k=v ...]
+    python -m pemp_tpu_torch.entry.pemp_stage1 visualize with split=0 \
+        data.dataset=SYNTH exp_id=<run id> [p.cls=<k> p.sup=.. p.qry=..]
 
-Both run on CUDA unless ``dev.device=cpu``. ``train`` initialises the
+All run on CUDA unless ``dev.device=cpu``. ``train`` initialises the
 model from ``seed``, trains it (SGD, gradient clip 1.1, the backbone BNs
 frozen), records the run into ``g.model_dir/<tag>/<id>/`` and, when the
 run is recorded, chains into ``test`` with ``exp_id=<id>
 ckpt=bestckpt.pt``. ``test`` initialises the model from ``seed`` or loads
-a ``.pt`` checkpoint (the trainer's, or a bare state_dict such as one
-written from ``pemp_tpu_torch.utils.convert.state_dict_from_jax``) and
-runs the 5-round evaluator (``core/experiment.py``). ``net.backbone``:
-resnet50 (default), resnet101 or vgg16. ``visualize`` is not ported yet.
+a checkpoint: the trainer's ``.pt``, a bare state_dict, or the JAX
+package's ``.msgpack`` (``ckpt=<path>``, or ``exp_id=<run id>`` alone for
+that run's best snapshot), and runs the 5-round evaluator
+(``core/experiment.py``). ``net.backbone``:
+resnet50 (default), resnet101 or vgg16. ``visualize`` dumps the response
+maps of a run's snapshot (``exp_id``, ``ckpt``) for the result viewer
+(``core/visualize.py``). A model not loaded from a checkpoint takes its
+trunk from ``data/<torchvision file>`` when that is there
+(``utils/pretrained.py``).
 """
 
 from __future__ import annotations
@@ -54,7 +61,8 @@ def train(cfg, run):
 
 @ex.command
 def visualize(cfg, run):
-    raise SystemExit(f"{NAME} visualize is not yet ported to pemp_tpu_torch")
+    from pemp_tpu_torch.core.visualize import evaluate_and_save
+    return evaluate_and_save(Stage1Runtime(cfg, run, build_model))
 
 
 def main(argv: Optional[List[str]] = None):

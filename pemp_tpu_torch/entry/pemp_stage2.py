@@ -20,7 +20,9 @@ initialised from ``seed`` or loaded from ``ckpt``, as in stage 1's entry;
 ``ckpt.pt``/``bestckpt.pt`` holding stage 2's weights only, and chains
 into ``test``. The gradient clip is 1.1 when ``net.backbone2`` (or, when
 empty, ``net.backbone``) is ``vgg16``, and off otherwise (reference
-:80-82). ``visualize`` is not ported yet.
+:80-82). ``visualize`` dumps the cascade's response maps of a stage-2
+run's snapshot (``exp_id``, ``ckpt``) for the result viewer
+(``core/visualize.py``).
 """
 
 from __future__ import annotations
@@ -65,7 +67,7 @@ class Stage2Runtime(EntryRuntime):
         load_weights(stage1, path)
         get_logger(cfg.tag).info(f"Stage-1 (frozen) initialized from {path}")
         stage2 = registry.build(NAME, cfg)
-        init_weights(stage2, cfg)
+        init_weights(stage2, cfg, NAME)
         model = PEMPCascade(stage1, stage2)
         return model.to(device, memory_format=torch.channels_last).eval()
 
@@ -88,7 +90,8 @@ def train(cfg, run):
 
 @ex.command
 def visualize(cfg, run):
-    raise SystemExit(f"{NAME} visualize is not yet ported to pemp_tpu_torch")
+    from pemp_tpu_torch.core.visualize import evaluate_and_save
+    return evaluate_and_save(Stage2Runtime(cfg, run, build_model))
 
 
 def main(argv: Optional[List[str]] = None):

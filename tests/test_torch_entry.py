@@ -34,9 +34,10 @@ def tmp_path(tmp_path):
 
 
 @pytest.mark.parametrize("precision", ["f32", "bf16"])
-def test_entry_test_runs_on_cpu(precision):
+def test_entry_test_runs_on_cpu(tmp_path, precision):
     result = entry.main(["test", "with", *SMALL, "dev.device=cpu",
-                         f"dev.precision={precision}"])
+                         f"dev.precision={precision}",
+                         f"g.model_dir={tmp_path}"])
     assert result["device"] == "cpu"
     for key in ("loss", "miou", "biou"):
         assert math.isfinite(result[key]), result
@@ -58,18 +59,18 @@ def test_entry_loads_a_checkpoint(tmp_path):
         entry.build_model(cfg, torch.device("cpu"))
 
 
-def test_entry_without_cpu_request_needs_cuda():
+def test_entry_without_cpu_request_needs_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        entry.main(["test", "with", *SMALL])
+        entry.main(["test", "with", *SMALL, f"g.model_dir={tmp_path}"])
     with pytest.raises(RuntimeError):
         resolve_device()
     assert resolve_device("cpu").type == "cpu"
 
 
 @pytest.mark.parametrize("argv", [["train", "with", "split=0", "resume=True"],
-                                  ["visualize", "with", "split=0"],
+                                  ["visualize", "with", "p.bogus=1"],
                                   ["bogus"], ["test", "with", "net.bogus=1"],
                                   ["test", "with", "data.dataset=SYNTH"]])
 def test_entry_refuses_what_is_not_there(argv):

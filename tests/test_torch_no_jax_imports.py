@@ -1,6 +1,9 @@
 """Static scan: nothing under pemp_tpu_torch/ and nothing in chip_smoke.py
-or kernel_times.py imports jax, flax or pemp_tpu (any module of it). A sys.modules check
-would prove nothing here, because jax is preloaded in this environment.
+or kernel_times.py imports jax, flax or pemp_tpu (any module of it), nor
+msgpack or pymongo (the port reads the JAX checkpoints and writes the
+Mongo documents itself). A sys.modules check would prove nothing here,
+because jax is preloaded in this environment
+(``tests/test_torch_checkpoint_msgpack.py`` runs one in a fresh process).
 """
 
 import ast
@@ -9,7 +12,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pemp_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pemp_tpu", "msgpack",
+             "pymongo")
 FILES = sorted((ROOT / "pemp_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "kernel_times.py"]
 
@@ -35,7 +39,9 @@ def test_the_scan_sees_the_package():
                 "models/baseline.py", "models/panet.py", "entry/baseline.py",
                 "entry/panet.py", "data/history.py", "models/canet.py",
                 "models/rpmms.py", "models/pfenet.py", "entry/canet.py",
-                "entry/rpmms.py", "entry/pfenet.py"):
+                "entry/rpmms.py", "entry/pfenet.py", "utils/pretrained.py",
+                "utils/observers.py", "core/visualize.py",
+                "core/checkpoint.py"):
         assert f"pemp_tpu_torch/{new}" in names
     assert "chip_smoke.py" in names and len(names) > 20
 

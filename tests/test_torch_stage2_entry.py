@@ -6,7 +6,8 @@ Stage 1's ``train`` writes a checkpoint; stage 2's ``train`` with
 reference keys) and chains into ``test``; the frozen stage 1's weights and
 BN buffers are bit-equal after training. Without a stage-1 checkpoint
 ``test`` raises ``FileNotFoundError``; without ``dev.device=cpu`` and with
-no CUDA the entry raises; ``visualize`` is not ported.
+no CUDA the entry raises; ``visualize`` without a stage-2 snapshot raises
+``FileNotFoundError`` (``tests/test_torch_visualize.py`` draws one).
 """
 
 import math
@@ -24,6 +25,14 @@ SMALL = ["split=0", "data.dataset=SYNTH", "data.height=33", "data.width=33",
          "data.bs=2", "data.train_n=4", "data.test_bs=2", "data.test_n=4",
          "te.epochs=1", "loss=cedt", "data.num_workers=2", "tr.total_epochs=1",
          "dev.precision=f32"]
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's ``tmp_path``, removed with the checkpoints the test wrote
+    into it once the test ends."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")
@@ -59,8 +68,10 @@ def test_stage2_trains_records_stage2_keys_and_chains_into_test(
     assert result["test"]["miou"] == pytest.approx(train["best_iou"])
 
     run_dir = stage1_run / "pemp_stage2" / "1"
-    assert {p.name for p in run_dir.iterdir()} == {ckpt_lib.CKPT,
-                                                   ckpt_lib.BEST}
+    # the checkpoints and the run's records (REVISION only in a checkout)
+    assert {p.name for p in run_dir.iterdir()} - {"REVISION"} == {
+        ckpt_lib.CKPT, ckpt_lib.BEST, "config.json", "metrics.json",
+        "sources"}
     want = PEMPStage2().state_dict()
     for name in (ckpt_lib.CKPT, ckpt_lib.BEST):
         got = ckpt_lib.load(run_dir / name)["model"]
@@ -89,10 +100,10 @@ def test_stage2_trains_records_stage2_keys_and_chains_into_test(
         assert not torch.equal(seeded[key], trained[key]), key
 
 
-def test_stage2_test_takes_s1_ckpt_as_a_path(stage1_run):
+def test_stage2_test_takes_s1_ckpt_as_a_path(stage1_run, tmp_path):
     path = stage1_run / "pemp_stage1" / "1" / ckpt_lib.CKPT
     result = entry2.main(["test", "with", *SMALL, "dev.device=cpu",
-                          f"s1.ckpt={path}"])
+                          f"s1.ckpt={path}", f"g.model_dir={tmp_path}"])
     assert math.isfinite(result["miou"]) and result["device"] == "cpu"
 
 
@@ -113,9 +124,12 @@ def test_stage2_entry_needs_cuda_unless_asked_for_the_cpu(stage1_run):
                      "s1.id=1"])
 
 
-def test_stage2_visualize_is_not_ported():
-    with pytest.raises(SystemExit, match="not yet ported"):
-        entry2.main(["visualize", "with", *SMALL, "dev.device=cpu"])
+def test_stage2_visualize_is_not_ported(tmp_path):
+    """``visualize`` is ported now: it draws a stage-2 run's snapshot, and
+    without one it raises."""
+    with pytest.raises(FileNotFoundError):
+        entry2.main(["visualize", "with", *SMALL, "dev.device=cpu",
+                     f"g.model_dir={tmp_path}"])
 
 
 def test_stage2_config_has_no_grad_clip_and_the_s1_scope():

@@ -168,3 +168,106 @@ def test_cascade_train_step_matches_jax(step):
     after = cascade.stage1.state_dict()
     assert set(after) == set(step["stage1"])
     assert all(torch.equal(after[k], v) for k, v in step["stage1"].items())
+
+
+EPOCHS, STEPS = 4, 5
+TRAJ_REL = 1e-6     # tests/test_train_parity.py's trajectory tolerance
+LAYERS = (1, 1, 1)
+
+
+@pytest.mark.slow
+def test_pemp_stage2_20step_trajectory_matches_jax(x64, monkeypatch):
+    """4 epochs of 5 train steps of the cascade through the port's
+    ``Trainer.train_step`` (cedt, SGD momentum 0.9, wd 5e-4, no clip, the
+    per-epoch ``period_step`` LR: 0.1x every 2 epochs) against the JAX
+    package's optimizer and ``LRPolicy`` from the same float64 weights, a
+    fresh episode batch a step, as tests/test_train_parity.py:1076-1077
+    holds the JAX package to torch: every step's loss, and after the last
+    step stage 2's parameters and BN running statistics, each leaf within
+    1e-6 of its largest magnitude. One bottleneck a ResNet stage on both
+    sides, so that the JAX gradient, taken eagerly (ROADMAP.md section 3,
+    F2), stays cheap."""
+    from pemp_tpu.models import common as jax_common
+    from pemp_tpu_torch.config import Run
+    from pemp_tpu_torch.core.trainer import Trainer
+    from pemp_tpu_torch.entry import pemp_stage2 as entry
+    from tests.test_torch_parity_helpers import episode
+
+    monkeypatch.setitem(jax_common.RESNET_LAYERS, "resnet50", LAYERS)
+    x, m = jnp.zeros((1, S, H, W, 3)), jnp.zeros((1, S, H, W, 2))
+    jax1 = JaxPEMPStage1(backbone="resnet50", protos=3, drop_rate=0.0,
+                         dtype=jnp.float64)
+    jax2 = JaxPEMPStage2(backbone="resnet50", protos=3, drop_rate=0.0,
+                         spq=S + Q, dtype=jnp.float64)
+    p1, s1 = draw_variables(jax1, (x, m, x), 2)
+    p2, s2 = draw_variables(jax2, (x, m, x, jnp.zeros((1, Q, H, W))), 3)
+    stage1 = PEMPStage1(backbone="resnet50", protos=3, drop_rate=0.0,
+                        layers=LAYERS)
+    stage1.load_state_dict(state_dict_from_jax(p1, s1))
+    stage2 = PEMPStage2(backbone="resnet50", protos=3, drop_rate=0.0,
+                        layers=LAYERS)
+    stage2.load_state_dict(state_dict_from_jax(p2, s2))
+    cascade = PEMPCascade(stage1, stage2).double().train()
+    v1 = {"params": tree64(p1), "batch_stats": tree64(s1)}
+    params, stats = tree64(p2), tree64(s2)
+
+    cfg = entry.ex.assemble("train", {
+        "split": "0", "loss": "cedt", "sigma": str(SIGMA), "tr.lr": str(LR),
+        "tr.lrp": "period_step", "tr.lr_step": "2", "tr.lr_rate": "0.1",
+        "dev.device": "cpu"})
+    runtime = entry.Stage2Runtime(cfg)
+    assert cfg.tr.grad_clip == 0.0
+    trained = cascade.freeze()
+    opt = solver.make_optimizer(cfg.tr, trained)
+    lr_policy = solver.LRPolicy(cfg.tr, EPOCHS * STEPS)
+    trainer = Trainer(cfg, Run(None, None), cascade, opt, trained, runtime,
+                      lr_policy, torch.device("cpu"), weights=stage2)
+
+    tx, opt_state, jax_lr, _ = jax_solver.get(
+        cfg.tr, params, JaxPEMPStage2.FROZEN["resnet50"], EPOCHS * STEPS)
+    def loss_fn(p, st, args, prior, labels):
+        out, mutated = jax2.apply(
+            {"params": p, "batch_stats": st}, *args, prior, out_hw=(H, W),
+            train=True, mutable=["batch_stats"])
+        return (jax_losses.cedt(out.reshape(B * Q, H, W, 2), labels, SIGMA,
+                                use_pallas=False), mutated["batch_stats"])
+
+    # stage 1 is frozen and its BN updates dropped (entry/pemp_stage2.py)
+    prior_fn = jax.jit(lambda v, args: jnp.argmax(jax1.apply(
+        v, *args, out_hw=(H, W), train=True, mutable=["batch_stats"])[0],
+        -1).astype(jnp.float64))
+    data_rng = np.random.RandomState(78)
+    with jax.default_matmul_precision("highest"):
+        for epoch in range(EPOCHS):
+            for j in range(STEPS):
+                sup, mask, qry = episode(data_rng.randint(2 ** 31), B, S, Q,
+                                         H, W)
+                labels = data_rng.randint(0, 2, (B * Q, H, W))
+                labels[:, :5, :7] = 255
+                args = [jnp.asarray(a) for a in (sup, mask, qry)]
+                assert lr_policy.lr == pytest.approx(jax_lr.lr, rel=1e-15)
+                with jax.disable_jit():
+                    (loss, stats), grads = jax.value_and_grad(
+                        loss_fn, has_aux=True)(params, stats, args,
+                                               prior_fn(v1, args),
+                                               jnp.asarray(labels))
+                updates, opt_state = tx.update(grads, opt_state, params)
+                params = jax_solver.apply_updates(params, updates, jax_lr.lr)
+                ours = float(trainer.train_step({
+                    "sup_rgb": sup, "sup_mask": mask, "qry_rgb": qry,
+                    "qry_msk": labels.reshape(B, Q, H, W).astype(np.int32)}))
+                np.testing.assert_allclose(
+                    ours, float(loss), rtol=TRAJ_REL,
+                    err_msg=f"epoch {epoch} step {j} loss")
+            jax_lr.step_epoch()
+            lr_policy.step_epoch()
+    assert lr_policy.lr == pytest.approx(LR * 0.01)
+    state = stage2.state_dict()
+    want_stats = sd64({}, stats)
+    assert_leaves_close({k: state[k] for k in want_stats}, want_stats,
+                        TRAJ_REL, "stage-2 running stats after 20 steps")
+    want = sd64(params, {})
+    # the CM linears' biases: zero gradient in exact arithmetic (see the
+    # one-step test), so only weight decay and momentum move them
+    assert_leaves_close({k: p.detach() for k, p in stage2.named_parameters()},
+                        want, TRAJ_REL, "stage-2 params after 20 steps")

@@ -46,8 +46,10 @@ def test_train_records_a_run_and_chains_into_test(tmp_path):
     assert len(train["losses"]) == 2
     assert all(math.isfinite(x) for x in train["losses"])
     run_dir = tmp_path / "pemp_stage1" / "1"
-    assert {p.name for p in run_dir.iterdir()} == {ckpt_lib.CKPT,
-                                                   ckpt_lib.BEST}
+    # the checkpoints and the run's records (REVISION only in a checkout)
+    assert {p.name for p in run_dir.iterdir()} - {"REVISION"} == {
+        ckpt_lib.CKPT, ckpt_lib.BEST, "config.json", "metrics.json",
+        "sources"}
     payload = ckpt_lib.load(run_dir / ckpt_lib.CKPT)
     assert payload["epoch"] == 1
     assert payload["extra"]["best_epoch"] == 1

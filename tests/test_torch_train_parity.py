@@ -16,6 +16,13 @@ a float32 low part.
 Tolerance: per leaf, max abs error <= 1e-7 of the leaf's largest
 magnitude (at float64 the floor is ~1e-10; at float32 chaotic
 cancellation alone moves gradients by ~1e-2).
+
+``test_pemp_stage1_20step_trajectory_matches_jax`` (``slow``) runs 20
+steps of the port's trainer against the JAX package's, at 1e-6; run as a
+script, this file prints how far the JAX package drifts from itself over
+those steps:
+
+    JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_train_parity.py
 """
 
 import re
@@ -54,17 +61,13 @@ def x64():
 
 
 @pytest.fixture(scope="module")
-def step(x64):
-    """The JAX side of one train step, and the port loaded with the same
-    float64 weights."""
-    rng = np.random.RandomState(10)
-    sup = rng.randn(B, S, H, W, 3)
-    fg = (rng.rand(B, S, H, W, 1) > 0.5).astype(np.float64)
-    mask = np.concatenate([fg, 1 - fg], -1)
-    qry = rng.randn(B, Q, H, W, 3)
-    labels = rng.randint(0, 2, (B * Q, H, W)).astype(np.int32)
-    labels[:, :5, :7] = 255
+def jax_init(x64):
+    return _jax_init()
 
+
+def _jax_init():
+    """The JAX model at float64 and its init (float32 values), every BN's
+    affine and running statistics randomised from numpy."""
     model = JaxPEMPStage1(backbone="resnet50", protos=3, drop_rate=0.0,
                           dtype=jnp.float64)
     variables = jax.jit(lambda k: model.init(
@@ -85,6 +88,29 @@ def step(x64):
         draw = (0.1 * bn_rng.randn(*leaf.shape) if path[-1] == "mean"
                 else bn_rng.uniform(0.5, 1.5, leaf.shape))
         leaf[...] = draw.astype(np.float32)
+    return model, params, stats
+
+
+def _episode(rng):
+    """Support and query images, [fg, bg] masks, labels with an ignored
+    corner (255), float64."""
+    sup = rng.randn(B, S, H, W, 3)
+    fg = (rng.rand(B, S, H, W, 1) > 0.5).astype(np.float64)
+    mask = np.concatenate([fg, 1 - fg], -1)
+    qry = rng.randn(B, Q, H, W, 3)
+    labels = rng.randint(0, 2, (B * Q, H, W)).astype(np.int32)
+    labels[:, :5, :7] = 255
+    return sup, mask, qry, labels
+
+
+@pytest.fixture(scope="module")
+def step(jax_init):
+    """The JAX side of one train step, and the port loaded with the same
+    float64 weights."""
+    sup, mask, qry, labels = _episode(np.random.RandomState(10))
+    model, params, stats = jax_init
+    params = jax.tree_util.tree_map(np.copy, params)
+    stats = jax.tree_util.tree_map(np.copy, stats)
     port = PEMPStage1(backbone="resnet50", protos=3, drop_rate=0.0)
     port.load_state_dict(state_dict_from_jax(params, stats))
     params, stats = tree64(params), tree64(stats)
@@ -157,3 +183,123 @@ def test_clipped_sgd_step_with_frozen_bn_matches_jax(step):
         assert torch.equal(after[k].detach(), step["before"][k])
     for p in port.parameters():
         p.requires_grad_(True)
+
+
+N_STEPS = 20
+TRAJ_REL = 1e-6     # tests/test_train_parity.py's trajectory tolerance
+
+
+@pytest.mark.slow
+def test_pemp_stage1_20step_trajectory_matches_jax(jax_init):
+    """20 consecutive train steps of the port's ``Trainer.train_step``
+    (cedt, clip 1.1, SGD momentum 0.9, wd 5e-4, the per-step poly LR of
+    ``solver.LRPolicy``) against the JAX package's optimizer and
+    ``LRPolicy`` from the same float64 weights, a fresh episode batch a
+    step (as ``_run_trajectory`` in tests/test_train_parity.py:832 feeds
+    its 20-step test, :935-936): every step's loss, and after the last the
+    parameters and the BN running statistics, each leaf within 1e-6 of
+    its largest magnitude.
+
+    Fresh batches, as there: with one noise batch repeated, the JAX
+    package drifts from itself (its weights moved by 1e-15 relative) past
+    1e-6 within 20 steps, so no port could match it; with fresh batches
+    that drift stays far below (``python tests/test_torch_train_parity.py``
+    prints both, step by step)."""
+    from pemp_tpu_torch.config import Run
+    from pemp_tpu_torch.core.trainer import Trainer
+    from pemp_tpu_torch.entry import pemp_stage1 as entry
+
+    model, params, stats = jax_init
+    port = PEMPStage1(backbone="resnet50", protos=3, drop_rate=0.0)
+    port.load_state_dict(state_dict_from_jax(params, stats))
+    port = port.double().train()
+    params, stats = tree64(params), tree64(stats)
+
+    cfg = entry.ex.assemble("train", {
+        "split": "0", "loss": "cedt", "sigma": str(SIGMA), "tr.lr": str(LR),
+        "tr.lrp": "poly", "tr.power": "0.9", "dev.device": "cpu"})
+    trained = port.freeze()
+    opt = solver.make_optimizer(cfg.tr, trained)
+    lr_policy = solver.LRPolicy(cfg.tr, N_STEPS)
+    trainer = Trainer(cfg, Run(None, None), port, opt, trained,
+                      entry.Stage1Runtime(cfg), lr_policy,
+                      torch.device("cpu"))
+    tx, opt_state, jax_lr, _ = jax_solver.get(
+        cfg.tr, params, JaxPEMPStage1.FROZEN["resnet50"], N_STEPS)
+
+    def loss_fn(p, st, sup, mask, qry, labels):
+        out, mutated = model.apply(
+            {"params": p, "batch_stats": st}, sup, mask, qry, out_hw=(H, W),
+            train=True, mutable=["batch_stats"])
+        return (jax_losses.cedt(out.reshape(B * Q, H, W, 2), labels, SIGMA,
+                                use_pallas=False), mutated["batch_stats"])
+
+    data_rng = np.random.RandomState(77)
+    with jax.default_matmul_precision("highest"):
+        grad_fn = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+        for j in range(N_STEPS):
+            sup, mask, qry, labels = _episode(data_rng)
+            assert lr_policy.lr == pytest.approx(jax_lr.lr, rel=1e-15)
+            (loss, stats), grads = grad_fn(params, stats, *map(
+                jnp.asarray, (sup, mask, qry, labels)))
+            updates, opt_state = tx.update(grads, opt_state, params)
+            params = jax_solver.apply_updates(params, updates, jax_lr.lr)
+            jax_lr.step_step()
+            ours = float(trainer.train_step({
+                "sup_rgb": sup, "sup_mask": mask, "qry_rgb": qry,
+                "qry_msk": labels.reshape(B, Q, H, W)}))
+            lr_policy.step_step()
+            np.testing.assert_allclose(ours, float(loss), rtol=TRAJ_REL,
+                                       err_msg=f"step {j} loss")
+    state = port.state_dict()
+    want_stats = sd64({}, stats)
+    assert_leaves_close({k: state[k] for k in want_stats}, want_stats,
+                        TRAJ_REL, "running stats after 20 steps")
+    assert_leaves_close({k: p.detach() for k, p in port.named_parameters()},
+                        sd64(params, {}), TRAJ_REL, "params after 20 steps")
+
+
+def _jax_drift(fresh: bool):
+    """Per step, the relative difference of the JAX package's loss from
+    its own with every weight moved by 1e-15 relative, over the 20 steps
+    of the trajectory test: a fresh batch a step, or its first batch
+    repeated."""
+    model, params, stats = _jax_init()
+    tr = SimpleNamespace(**vars(TR_CFG), lrp="poly", power=0.9, lr_end=0.0)
+    frozen = JaxPEMPStage1.FROZEN["resnet50"]
+
+    def loss_fn(p, st, sup, mask, qry, labels):
+        out, mutated = model.apply(
+            {"params": p, "batch_stats": st}, sup, mask, qry, out_hw=(H, W),
+            train=True, mutable=["batch_stats"])
+        return (jax_losses.cedt(out.reshape(B * Q, H, W, 2), labels, SIGMA,
+                                use_pallas=False), mutated["batch_stats"])
+
+    runs = []
+    for scale in (1.0, 1.0 + 1e-15):
+        p = jax.tree_util.tree_map(lambda x: np.float64(x) * scale,
+                                   tree64(params))
+        st = tree64(stats)
+        tx, opt_state, lr, _ = jax_solver.get(tr, p, frozen, N_STEPS)
+        data_rng, losses = np.random.RandomState(77), []
+        with jax.default_matmul_precision("highest"):
+            grad_fn = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+            batch = _episode(data_rng)
+            for _ in range(N_STEPS):
+                (loss, st), grads = grad_fn(p, st, *map(jnp.asarray, batch))
+                updates, opt_state = tx.update(grads, opt_state, p)
+                p = jax_solver.apply_updates(p, updates, lr.lr)
+                lr.step_step()
+                losses.append(float(loss))
+                if fresh:
+                    batch = _episode(data_rng)
+        runs.append(np.array(losses))
+    return np.abs(runs[1] - runs[0]) / np.abs(runs[0])
+
+
+if __name__ == "__main__":
+    # JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_train_parity.py
+    jax.config.update("jax_enable_x64", True)
+    for fresh in (False, True):
+        print("fresh batches" if fresh else "one batch repeated",
+              " ".join(f"{d:.3g}" for d in _jax_drift(fresh)))
