@@ -39,6 +39,20 @@ SYNTH episodes):
   ``train`` behind it from the same file (its padded channels zero) and
   ``visualize`` (its files, K1/K2 once an episode with indices), with the
   host time of the file's load and of the records, and PIL's version;
+- real data (``real_data_path``), in a temporary directory: a PASCAL
+  VOC tree (all 20 classes, JPEGs at 500x375-like sizes, {0, 255} PNG
+  masks) and a COCO tree (the 80 category ids, 640x480-like JPEGs,
+  polygons with fractional vertices, multi-ring, compressed and
+  uncompressed RLEs); stage 1's ``train`` on PASCAL (4 steps, cedt, the
+  default loader threads), ``test`` runs of its snapshot at test batch 1
+  and 4 on the original-resolution GT: the TP/FP/FN counts equal with
+  the forward run one episode at a time, the batched forward's within
+  the argmax tolerance (cuDNN's algorithms depend on the batch size); COCO's file lists, a ``test`` and two train steps, the C++
+  rasterizer against its numpy version on every annotation; the real
+  batches' f32 step, eval batch and EDT against their plain versions;
+  the loader's host ms a batch, the train step fed by it against the
+  same step fed by SYNTH, its wait on the loader and the card's idle
+  share;
 
 and checks that each path went through the kernels and agrees with the
 plain version. The phases ``minplus`` (the EDT kernel, bit-exact, also on
@@ -168,6 +182,40 @@ VIS_ARGS = ["visualize", "with", "split=0", "data.dataset=SYNTH",
             "data.height=401", "data.width=401", "shot=1", "query=1",
             "data.test_bs=1", f"data.test_n={VIS_EPISODES}",
             "dev.precision=bf16", "seed=1234"]
+# the real_data_path phase: PEMP stage 1 on miniature PASCAL-5i and
+# COCO-20i trees written in their on-disk layouts at VOC- and COCO-like
+# original sizes (h, w), JPEG images, {0, 255} PNG masks and polygon /
+# RLE annotations
+VOC_SIZES = ((375, 500), (500, 375), (333, 500), (500, 333))
+VOC_PER_CLASS = 6
+COCO_SIZES = ((480, 640), (427, 640), (640, 480), (640, 427))
+COCO_PER_CAT = 2
+REAL_TRAIN_N = 16
+REAL_TEST_N = 8
+# scripts/pemp_stage1.sh's step (batch 4, cedt, split 0) on the PASCAL
+# tree, cut to REAL_TRAIN_N episodes; the online eval and chained test at
+# test batch 4; data.num_workers at its default
+REAL_ARGS = [a for a in TRAIN_ARGS if not a.startswith(
+    ("data.dataset=", "data.train_n=", "data.test_bs=", "data.test_n="))] + [
+    "data.dataset=PASCAL", f"data.train_n={REAL_TRAIN_N}", "data.test_bs=4",
+    f"data.test_n={REAL_TEST_N}"]
+REAL_TEST_ARGS = ["test"] + [a for a in REAL_ARGS[1:] if not a.startswith(
+    ("data.bs=", "data.train_n=", "tr.", "loss=", "data.test_bs="))]
+# COCO: a test at batch 4 and two train steps (one online eval batch),
+# unobserved
+COCO_TEST_ARGS = [a.replace("data.dataset=PASCAL", "data.dataset=COCO")
+                  for a in REAL_TEST_ARGS] + ["data.test_bs=4", "-u"]
+COCO_TRAIN_ARGS = [a.replace("data.dataset=PASCAL", "data.dataset=COCO")
+                   for a in REAL_ARGS if not a.startswith(
+                       ("data.train_n=", "data.test_n="))] + [
+    "data.train_n=8", "data.test_n=4", "-u"]
+# the loader's timings: batches rendered one after the other on one
+# thread, and train steps fed by the loader (after LOADER_WARM steps)
+LOADER_BATCHES = 6
+FED_STEPS = 10
+LOADER_WARM = 2
+
+
 # K1-K5's launches per train step and per eval batch of one mpm chain
 STEP_LAUNCHES = {"assign": 1, "match": 1, "match_bwd": 1, "assign_bwd": 1,
                  "minplus": 2}
@@ -1515,44 +1563,9 @@ def vgg_path_phase(torch, K, M, plain):
     batch = first_batch(datasets, cfg1_32, "train")
     tt = {k: torch.from_numpy(batch[k]).to(device)
           for k in ("sup_rgb", "sup_mask", "qry_rgb", "qry_msk")}
-    loss_fn = loss_lib.get(cfg1_32)
-
-    def grads(model):
-        model.zero_grad(set_to_none=True)
-        logits = model(tt["sup_rgb"], tt["sup_mask"], tt["qry_rgb"])
-        loss = loss_fn(logits.reshape(-1, *logits.shape[-3:]),
-                       tt["qry_msk"].reshape(-1, *tt["qry_msk"].shape[-2:]))
-        loss.backward()
-        return loss.item(), {k: p.grad.clone() for k, p in
-                             model.named_parameters() if p.requires_grad}
-
-    before = dict(K.launches)
-    loss_k, grads_k = grads(base32)
-    if any(K.launches[k] == before[k] for k in K.launches):
-        raise AssertionError(f"the kernel vgg step skipped an mpm kernel: "
-                             f"{before} -> {K.launches}")
-    before = dict(K.launches)
-    with mock.patch.object(stage1, "mpm_chain_packed", plain_chain):
-        loss_p, grads_p = grads(base32)
-    torch.cuda.synchronize()
-    if K.launches != before:
-        raise AssertionError("the plain vgg step launched an mpm kernel")
-    rel = {k: ((grads_k[k] - grads_p[k]).norm()
-               / grads_p[k].norm().clamp(min=1e-30)).item() for k in grads_p}
-    worst_leaf = max(rel, key=rel.get)
-    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-    f32_step = {"loss_kernels": loss_k, "loss_plain": loss_p,
-                "loss_rel_err": loss_rel, "grad_max_rel_l2": rel[worst_leaf],
-                "grad_worst_leaf": worst_leaf, "grad_leaves": len(rel),
-                "grad_rel_l2": rel,
-                "tolerance": {"loss_rtol": TRAIN_LOSS_RTOL,
-                              "grad_rel_l2": TRAIN_GRAD_RTOL}}
-    if loss_rel > TRAIN_LOSS_RTOL or rel[worst_leaf] > TRAIN_GRAD_RTOL:
-        emit({"phase": "vgg_path", "failed": {"f32_step_vs_plain": f32_step}})
-        raise AssertionError(f"f32 vgg step kernels vs plain: loss rel "
-                             f"{loss_rel}, worst grad {worst_leaf} rel L2 "
-                             f"{rel[worst_leaf]}")
-    del base32, grads_k, grads_p
+    f32_step = f32_step_vs_plain(torch, K, base32, tt,
+                                 loss_lib.get(cfg1_32), "vgg")
+    del base32
 
     # the steady steps of both stages, and their launches per train step
     # and per eval batch
@@ -1945,13 +1958,6 @@ def run_path_phase(torch, K, M):
                 raise AssertionError(f"{what} metrics.json {metrics}")
             out[f"{what}_metrics"] = metrics
 
-    def want_train(steps, evals, chains):
-        want = {k: (chains if k in ("assign", "match") else 1)
-                * (steps * STEP_LAUNCHES[k] + evals * EVAL_LAUNCHES[k])
-                for k in STEP_LAUNCHES}
-        want["mpm_backward"] = steps
-        return want
-
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
         os.environ["PEMP_HTTP_STATIC"] = str(Path(tmp) / "static")
@@ -2020,8 +2026,8 @@ def run_path_phase(torch, K, M):
                     p.stop()
             steps = len(r1["train"]["losses"])
             evals = 2 * -(-cfg1.data.test_n // cfg1.data.test_bs)
-            want = {"stage1_train": want_train(steps, evals, 1),
-                    "stage1_test": want_train(0, 2, 1)}
+            want = {"stage1_train": predicted(steps, evals, 1),
+                    "stage1_test": predicted(0, 2, 1)}
             tag_dir = Path(tmp) / "model_dir" / "pemp_stage1"
             records(tag_dir / str(run1), "stage1_train", True)
             records(tag_dir / str(run1 + 1), "stage1_test", False)
@@ -2052,7 +2058,7 @@ def run_path_phase(torch, K, M):
                 raise AssertionError(f"stage-2 trunk off the file or its "
                                      f"pads not zero: {bad}")
             steps2 = len(r2["train"]["losses"])
-            want["stage2_train"] = want_train(steps2, evals, 2)
+            want["stage2_train"] = predicted(steps2, evals, 2)
             records(Path(tmp) / "model_dir" / "pemp_stage2"
                     / str(r2["train"]["run_id"]), "stage2_train", True)
             if not math.isfinite(r2["test"]["miou"]):
@@ -2069,7 +2075,7 @@ def run_path_phase(torch, K, M):
             with mock.patch.object(stage1, "mpm_chain_packed", chain_flags):
                 folder = Path(counted_run("visualize", entry1.main, VIS_ARGS + [
                     md, f"exp_id={run1}"]))
-            want["visualize"] = want_train(0, VIS_EPISODES, 1)
+            want["visualize"] = predicted(0, VIS_EPISODES, 1)
             episodes = sorted(p for p in folder.iterdir())
             kinds = [sorted(re.sub(r".*_((sup|qry)_[a-z]+)_synth.*", r"\1",
                                    f.name) for f in ep.iterdir())
@@ -2106,6 +2112,537 @@ def run_path_phase(torch, K, M):
     emit(out)
     return {k: sum(counts[k] for counts in launches.values())
             for k in STEP_LAUNCHES}
+
+
+def predicted(steps, evals, chains=1):
+    """K1-K5's launches (and the K4 backward passes) of ``steps`` train
+    steps and ``evals`` eval batches of ``chains`` mpm chains each."""
+    want = {k: (chains if k in ("assign", "match") else 1)
+            * (steps * STEP_LAUNCHES[k] + evals * EVAL_LAUNCHES[k])
+            for k in STEP_LAUNCHES}
+    want["mpm_backward"] = steps
+    return want
+
+
+def smooth_jpeg(rng, h, w, path):
+    """A JPEG of natural-image-like statistics (low-resolution noise
+    upsampled): noise JPEGs decode about twice as slowly as photos."""
+    import numpy as np
+    from PIL import Image
+    low = rng.randint(0, 256, (h // 16 + 1, w // 16 + 1, 3)).astype(np.uint8)
+    Image.fromarray(low).resize((w, h), Image.BILINEAR).save(path, quality=90)
+
+
+def blob(rng, h, w):
+    """An ellipse mask of random centre and radii, bool [h, w]."""
+    import numpy as np
+    cy, cx = rng.randint(h // 4, 3 * h // 4), rng.randint(w // 4, 3 * w // 4)
+    ry, rx = rng.randint(h // 8, h // 3), rng.randint(w // 8, w // 3)
+    yy, xx = np.ogrid[:h, :w]
+    return (yy - cy) ** 2 / ry ** 2 + (xx - cx) ** 2 / rx ** 2 <= 1.0
+
+
+def write_voc_tree(root: Path, seed: int = 0) -> int:
+    """A PASCAL VOC tree (``JPEGImages/``, ``Binary_map_aug/{train,val}/
+    <cls>/`` masks and ``<cls>.txt`` lists) of all 20 classes, train and
+    val, VOC_PER_CLASS samples each at VOC_SIZES; returns the image
+    count."""
+    import numpy as np
+    from PIL import Image
+    rng = np.random.RandomState(seed)
+    (root / "JPEGImages").mkdir(parents=True)
+    n = 0
+    for subset in ("train", "val"):
+        for cls in range(1, 21):
+            cdir = root / "Binary_map_aug" / subset / str(cls)
+            cdir.mkdir(parents=True)
+            names = []
+            for i in range(VOC_PER_CLASS):
+                h, w = VOC_SIZES[n % len(VOC_SIZES)]
+                name = f"{subset}_{cls:02d}_{i}"
+                smooth_jpeg(rng, h, w, root / "JPEGImages" / f"{name}.jpg")
+                Image.fromarray(blob(rng, h, w).astype(np.uint8) * 255).save(
+                    cdir / f"{name}.png")
+                names.append(name)
+                n += 1
+            (root / "Binary_map_aug" / subset / f"{cls}.txt").write_text(
+                "\n".join(names) + "\n")
+    return n
+
+
+def rle_counts(mask):
+    """Column-major run lengths of a {0, 1} mask, from a 0-run."""
+    import numpy as np
+    flat = mask.T.ravel().astype(np.int8)
+    edges = np.flatnonzero(np.diff(flat)) + 1
+    bounds = np.concatenate([[0], edges, [flat.size]])
+    counts = np.diff(bounds).tolist()
+    return counts if flat[0] == 0 else [0] + counts
+
+
+def rle_string(counts) -> str:
+    """COCO's compressed count string of run lengths."""
+    s = []
+    for i, c in enumerate(counts):
+        x = int(c) - (int(counts[i - 2]) if i > 2 else 0)
+        more = True
+        while more:
+            ch = x & 0x1F
+            x >>= 5
+            more = x != (-1 if ch & 0x10 else 0)
+            s.append(chr((ch | 0x20 if more else ch) + 48))
+    return "".join(s)
+
+
+def write_coco_tree(root: Path, seed: int = 0) -> dict:
+    """A COCO tree (``annotations/instances_{train,val}2014.json``,
+    ``{train,val}2014/`` JPEGs) over the 80 original category ids,
+    COCO_PER_CAT images each a subset at COCO_SIZES. Each image holds an
+    instance of its category as a polygon with fractional vertices (every
+    third image two rings), a second instance (every fifth an
+    uncompressed RLE, every seventh a compressed one, else a polygon),
+    and another category's instance; returns the counts of each kind."""
+    import numpy as np
+    from pemp_tpu_torch.data.coco import CV_SPLIT
+    rng = np.random.RandomState(seed)
+    cats = [c for split in CV_SPLIT for c in split]
+    (root / "annotations").mkdir(parents=True)
+    kinds = {"images": 0, "polygon": 0, "multi_ring": 0, "rle": 0,
+             "rle_string": 0}
+
+    def ring(cy, cx, ry, rx, k=12):
+        t = np.sort(rng.uniform(0, 2 * np.pi, k))
+        r = rng.uniform(0.6, 1.0, k)
+        return np.stack([cx + rx * r * np.cos(t), cy + ry * r * np.sin(t)],
+                        1).ravel().round(2).tolist()
+
+    for subset in ("train2014", "val2014"):
+        (root / subset).mkdir()
+        images, anns = [], []
+        for cat in cats:
+            for i in range(COCO_PER_CAT):
+                img_id = len(images) + 1
+                h, w = COCO_SIZES[img_id % len(COCO_SIZES)]
+                name = f"COCO_{subset}_{img_id:012d}.jpg"
+                smooth_jpeg(rng, h, w, root / subset / name)
+                images.append({"id": img_id, "height": h, "width": w,
+                               "file_name": name})
+                segs = [[ring(h / 2, w / 3, h / 4, w / 5)]]
+                if img_id % 3 == 0:
+                    segs[0].append(ring(h / 3, 3 * w / 4, h / 8, w / 10))
+                    kinds["multi_ring"] += 1
+                if img_id % 5 == 0:
+                    segs.append({"size": [h, w],
+                                 "counts": rle_counts(blob(rng, h, w))})
+                    kinds["rle"] += 1
+                elif img_id % 7 == 0:
+                    segs.append({"size": [h, w], "counts": rle_string(
+                        rle_counts(blob(rng, h, w)))})
+                    kinds["rle_string"] += 1
+                else:
+                    segs.append([ring(3 * h / 4, w / 2, h / 6, w / 6)])
+                other = cats[(cats.index(cat) + 1) % len(cats)]
+                for c, seg in [(cat, s) for s in segs] + [
+                        (other, [ring(h / 4, 3 * w / 4, h / 8, w / 8)])]:
+                    anns.append({"id": len(anns) + 1, "image_id": img_id,
+                                 "category_id": c, "segmentation": seg,
+                                 "iscrowd": int(isinstance(seg, dict))})
+                kinds["polygon"] += len(segs) + 1 - isinstance(segs[1], dict)
+        kinds["images"] += len(images)
+        (root / "annotations" / f"instances_{subset}.json").write_text(
+            json.dumps({"images": images, "annotations": anns,
+                        "categories": [{"id": c} for c in cats]}))
+    return kinds
+
+
+def f32_step_vs_plain(torch, K, model, t, loss_fn, what):
+    """One float32 train step's loss and gradients of ``model`` on the
+    device tensors ``t``, with the mpm kernels and with the plain mpm:
+    the loss within TRAIN_LOSS_RTOL, every gradient within
+    TRAIN_GRAD_RTOL (relative L2)."""
+    from unittest import mock
+
+    from pemp_tpu_torch.models import pemp_stage1 as stage1
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        model.set_dropout_generator(
+            torch.Generator(device="cuda").manual_seed(7))
+        logits = model(t["sup_rgb"], t["sup_mask"], t["qry_rgb"])
+        loss = loss_fn(logits.reshape(-1, *logits.shape[-3:]),
+                       t["qry_msk"].reshape(-1, *t["qry_msk"].shape[-2:]))
+        loss.backward()
+        return loss.item(), {k: p.grad.clone() for k, p in
+                             model.named_parameters() if p.requires_grad}
+
+    before = dict(K.launches)
+    loss_k, grads_k = grads()
+    if any(K.launches[k] == before[k] for k in K.launches):
+        raise AssertionError(f"the kernel {what} step skipped an mpm kernel: "
+                             f"{before} -> {K.launches}")
+    before = dict(K.launches)
+    with mock.patch.object(stage1, "mpm_chain_packed", plain_chain):
+        loss_p, grads_p = grads()
+    torch.cuda.synchronize()
+    if K.launches != before:
+        raise AssertionError(f"the plain {what} step launched an mpm kernel")
+    rel = {k: ((grads_k[k] - grads_p[k]).norm()
+               / grads_p[k].norm().clamp(min=1e-30)).item() for k in grads_p}
+    worst = max(rel, key=rel.get)
+    out = {"loss_kernels": loss_k, "loss_plain": loss_p,
+           "loss_rel_err": abs(loss_k - loss_p) / abs(loss_p),
+           "grad_max_rel_l2": rel[worst], "grad_worst_leaf": worst,
+           "grad_leaves": len(rel), "grad_rel_l2": rel,
+           "tolerance": {"loss_rtol": TRAIN_LOSS_RTOL,
+                         "grad_rel_l2": TRAIN_GRAD_RTOL}}
+    if out["loss_rel_err"] > TRAIN_LOSS_RTOL or rel[worst] > TRAIN_GRAD_RTOL:
+        raise AssertionError(f"f32 {what} step kernels vs plain: {out}")
+    return out
+
+
+def loader_costs(cfg, mode):
+    """Host ms to render one batch of ``mode`` on one thread (median of
+    LOADER_BATCHES), decoding every image (``data.cache=False``) and
+    from decoded images in host RAM (``data.cache=True``, after one
+    pass); each episode's draws seeded alike."""
+    import random
+
+    from pemp_tpu_torch.data import datasets
+    from pemp_tpu_torch.data.loader import _collate
+    out = {}
+    for cache in (False, True):
+        cfg = copy.deepcopy(cfg)
+        cfg.data.cache = cache
+        ds, loader, _ = datasets.load(cfg, mode)
+        ds.sample_tasks()
+        chunks = list(loader._batches())[:LOADER_BATCHES]
+        for rep in range(1 + cache):      # the cached pass after a warm one
+            samples = []
+            for chunk in chunks:
+                random.seed(chunk[0])
+                t0 = time.perf_counter()
+                _collate([ds.get_episode(i) for i in chunk])
+                samples.append((time.perf_counter() - t0) * 1e3)
+        key = "cached" if cache else "decoded"
+        out[f"{mode}_batch_host_ms_{key}"] = statistics.median(samples)
+    return out
+
+
+def fed_steps(torch, trainer, loader):
+    """Train steps fed by ``loader``'s background threads, as the train
+    loop runs them (no synchronize between steps): the mean ms a step
+    and the mean ms the step waited on the loader's queue, over FED_STEPS
+    steps after LOADER_WARM."""
+    it = iter(loader)
+    for _ in range(LOADER_WARM):
+        trainer.train_step(next(it))
+    torch.cuda.synchronize()
+    wait = 0.0
+    t0 = time.perf_counter()
+    for _ in range(FED_STEPS):
+        w0 = time.perf_counter()
+        batch = next(it)
+        wait += time.perf_counter() - w0
+        trainer.train_step(batch)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    del it
+    return {"step_ms": total / FED_STEPS * 1e3,
+            "loader_wait_ms": wait / FED_STEPS * 1e3}
+
+
+def real_data_path_phase(torch, K, M):
+    """PEMP stage 1 at full width on the real-data layer: miniature
+    PASCAL and COCO trees written in a temporary directory; ``train`` on
+    PASCAL (cedt, 4 steps, online eval, chained test), then ``test`` runs
+    of its snapshot at test batch 1 and 4 whose TP/FP/FN counts on the
+    original-resolution GT must be equal (batch 4 with the forward one
+    episode at a time; batched, within MAIN_AGREE); K1-K5's launches against
+    the prediction from the step and batch counts; on a real batch the
+    f32 step, an eval batch and the EDT with the kernels against their
+    plain versions; COCO's file lists, a ``test`` and two train steps,
+    the C++ rasterizer loaded and equal to its numpy version on every
+    annotation; the loader's host ms a batch, the train step fed by it
+    against the same step fed by SYNTH, its wait on the loader and the
+    card's idle share."""
+    from unittest import mock
+
+    import numpy as np
+
+    from pemp_tpu_torch.config import Run
+    from pemp_tpu_torch.core import evaluator as evaluator_mod
+    from pemp_tpu_torch.core import losses as loss_lib
+    from pemp_tpu_torch.core import solver
+    from pemp_tpu_torch.core.trainer import Trainer
+    from pemp_tpu_torch.data import datasets, mask_ops
+    from pemp_tpu_torch.data.coco_index import COCOIndex
+    from pemp_tpu_torch.entry import pemp_stage1 as entry
+    from pemp_tpu_torch.models import pemp_stage1 as stage1
+    from pemp_tpu_torch.ops import edt
+
+    device = torch.device("cuda")
+    out = {"phase": "real_data_path"}
+    start = time.perf_counter()
+    launches, want = {}, {}
+    rounds = {}
+
+    class Recorded(evaluator_mod.FewShotMetric):
+        """Keeps every eval round's counts, by the run in ``current``."""
+        current = None
+
+        def __init__(self, classes):
+            super().__init__(classes)
+            rounds.setdefault(Recorded.current, []).append(self)
+
+    def counted_run(what, argv, expect):
+        K.reset_launches()
+        M.reset_launches()
+        Recorded.current = what
+        t0 = time.perf_counter()
+        with mock.patch.object(evaluator_mod, "FewShotMetric", Recorded):
+            result = entry.main(argv)
+        out[f"{what}_wall_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches[what] = {**K.launches, **M.launches, **K.backward_calls}
+        want[what] = expect
+        return result
+
+    def batches(n, bs):
+        return -(-n // bs)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        voc, coco, md = tmp / "voc", tmp / "coco", f"g.model_dir={tmp / 'md'}"
+        t0 = time.perf_counter()
+        out["voc_images"] = write_voc_tree(voc)
+        out["coco_annotations"] = write_coco_tree(coco)
+        out["write_trees_s"] = time.perf_counter() - t0
+        voc_arg, coco_arg = f"data.base_dir={voc}", f"data.base_dir={coco}"
+
+        # 1. PASCAL: train (observed: a snapshot), then its two test runs
+        cfg = entry.ex.assemble("train", dict(
+            a.split("=", 1) for a in REAL_ARGS[2:] + [voc_arg]))
+        steps = cfg.data.train_n // cfg.data.bs
+        evals = 2 * batches(cfg.data.test_n, cfg.data.test_bs)
+        r = counted_run("pascal_train", REAL_ARGS + [voc_arg, md],
+                        predicted(steps, evals))
+        run_id = r["train"]["run_id"]
+        if len(r["train"]["losses"]) != steps or not all(
+                math.isfinite(x) for x in r["train"]["losses"] + [
+                    r["test"]["miou"], r["test"]["loss"]]):
+            raise AssertionError(f"PASCAL train run {r}")
+        out["pascal_train"] = {"losses": r["train"]["losses"],
+                               "chained_test": r["test"]}
+        # test batch 1 and 4 on the original-resolution GT. cuDNN picks
+        # its convolution algorithms by batch size, so the batched
+        # forward is not bit-identical to four forwards of one episode
+        # (bf16 and f32 alike): the counts of "test_bs4_per_episode"
+        # (the forward one episode at a time, everything after it
+        # batched: the list of GTs, the per-episode resize, the metric
+        # accumulation) must equal batch 1's; the batched run as users
+        # run it may differ only at near ties, within MAIN_AGREE
+        orig = entry.Stage1Runtime.apply_eval
+
+        def per_episode(self, model, t):
+            b = t["qry_rgb"].shape[0]
+            return torch.cat([orig(self, model, {k: v[i:i + 1]
+                                                 for k, v in t.items()})
+                              for i in range(b)])
+
+        tests = {}
+        for what, bs, forward in (("test_bs1", 1, orig),
+                                  ("test_bs4_per_episode", 4, per_episode),
+                                  ("test_bs4", 4, orig)):
+            n_forward = REAL_TEST_N if forward is per_episode else batches(
+                REAL_TEST_N, bs)
+            with mock.patch.object(entry.Stage1Runtime, "apply_eval",
+                                   forward):
+                tests[what] = counted_run(
+                    f"pascal_{what}", REAL_TEST_ARGS + [
+                        voc_arg, md, f"exp_id={run_id}",
+                        f"data.test_bs={bs}"], predicted(0, n_forward))
+            tests[what]["counts"] = [m.stat.tolist()
+                                     for m in rounds[f"pascal_{what}"]]
+        out["pascal_tests"] = tests
+        one = np.asarray(tests["test_bs1"]["counts"])
+        exact = np.asarray(tests["test_bs4_per_episode"]["counts"])
+        batched = np.asarray(tests["test_bs4"]["counts"])
+        # a pixel whose prediction flips moves one count of the bg row
+        # (TP or FP); the valid pixels: the bg row's TP + FP + FN and the
+        # classes' TP
+        flips = int(np.abs(batched - one)[:, 0, :2].sum())
+        pixels = int(one[:, 0].sum() + one[:, 1:, 0].sum())
+        out["batched_vs_bs1"] = {"bg_row_count_moves": flips,
+                                 "pixels": pixels,
+                                 "share_agreeing": 1 - flips / pixels,
+                                 "counts_diff": (batched - one).tolist()}
+        if (not np.array_equal(exact, one) or not one.sum()
+                or 1 - flips / pixels < MAIN_AGREE):
+            emit({"phase": "real_data_path", "failed": {
+                "counts": {k: v["counts"] for k, v in tests.items()},
+                "batched_vs_bs1": out["batched_vs_bs1"]}})
+            raise AssertionError("test batch 1 and 4: counts differ")
+        cfg_test = entry.ex.assemble("test", dict(
+            a.split("=", 1) for a in REAL_TEST_ARGS[2:] + [
+                voc_arg, "data.test_bs=4"]))
+        ds, loader, _ = datasets.load(cfg_test, "test")
+        ds.sample_tasks()
+        ebatch = next(iter(loader))
+        gt_sizes = sorted({tuple(g.shape[-2:]) for g in ebatch["qry_msk"]})
+        if (cfg.data.height, cfg.data.width) in gt_sizes or len(gt_sizes) < 2:
+            raise AssertionError(f"test GT sizes {gt_sizes}")
+        out["test_gt_sizes"] = gt_sizes
+
+        # 2. COCO: the file lists, a test run and two train steps
+        cfg_coco = entry.ex.assemble("train", dict(
+            a.split("=", 1) for a in COCO_TRAIN_ARGS[2:] if "=" in a))
+        cfg_coco.data.base_dir = str(coco)
+        t0 = time.perf_counter()
+        mask_ops.get_lib()                  # g++, from the checkout's source
+        out["rasterizer_build_ms"] = (time.perf_counter() - t0) * 1e3
+        gen = {}
+        for mode in ("train", "test"):
+            t0 = time.perf_counter()
+            datasets.load(cfg_coco, mode)
+            gen[mode] = (time.perf_counter() - t0) * 1e3
+        out["coco_file_list_ms"] = gen
+        lists = {p.name: {c: len(v) for c, v in json.loads(
+            p.read_text()).items() if v} for p in coco.glob("*_list_*.json")}
+        if sorted(lists) != ["train2014_list_16.json", "val2014_list_0.json"]:
+            raise AssertionError(f"COCO file lists {sorted(lists)}")
+        out["coco_list_images"] = {k: sum(v.values())
+                                   for k, v in lists.items()}
+        calls = mask_ops.native_calls
+        rc = counted_run("coco_test", COCO_TEST_ARGS + [coco_arg],
+                         predicted(0, batches(REAL_TEST_N, 4)))
+        rt = counted_run("coco_train", COCO_TRAIN_ARGS + [coco_arg, md],
+                         predicted(2, 1))
+        if not (math.isfinite(rc["miou"]) and len(rt["train"]["losses"]) == 2
+                and all(math.isfinite(x) for x in rt["train"]["losses"])):
+            raise AssertionError(f"COCO runs: test {rc}, train {rt}")
+        out["coco_test"] = rc
+        out["coco_train_losses"] = rt["train"]["losses"]
+        # the C++ rasterizer loaded, used, and equal to numpy everywhere
+        bad, n_ann = [], 0
+        t_native = t_numpy = 0.0
+        for subset in ("train2014", "val2014"):
+            index = COCOIndex(coco / "annotations" / f"instances_{subset}.json")
+            for ann in index.anns.values():
+                meta = index.imgs[ann["image_id"]]
+                h, w = meta["height"], meta["width"]
+                t0 = time.perf_counter()
+                a = mask_ops.ann_to_mask(ann, h, w)
+                t1 = time.perf_counter()
+                b = mask_ops.ann_to_mask(ann, h, w, native=False)
+                t_native += t1 - t0
+                t_numpy += time.perf_counter() - t1
+                n_ann += 1
+                if not np.array_equal(a, b) or not a.any():
+                    bad.append(ann["id"])
+        if not mask_ops.loaded() or mask_ops.native_calls <= calls or bad:
+            raise AssertionError(f"rasterizer: loaded {mask_ops.loaded()}, "
+                                 f"native calls {calls} -> "
+                                 f"{mask_ops.native_calls}, differing or "
+                                 f"empty annotations {bad}")
+        out["rasterizer"] = {
+            "native_loaded": True, "library": mask_ops.lib_path().name,
+            "annotations_equal_numpy": n_ann,
+            "native_calls_in_runs": mask_ops.native_calls - calls,
+            "native_ms_per_annotation": t_native / n_ann * 1e3,
+            "numpy_ms_per_annotation": t_numpy / n_ann * 1e3}
+
+        # 3. the kernels against their plain versions on real batches
+        model = entry.build_model(cfg, device)
+        step = evaluator_mod.make_fast_eval_step(model, device,
+                                                 entry.Stage1Runtime(
+                                                     cfg).apply_eval,
+                                                 with_logits=True)
+        before = dict(K.launches)
+        ck, lk, fk = step(ebatch)
+        with mock.patch.object(stage1, "mpm_chain_packed", plain_chain):
+            cp, lp, fp = step(ebatch)
+        torch.cuda.synchronize()
+        if K.launches["assign"] != before["assign"] + 1:
+            raise AssertionError("the kernel eval batch launched no assign")
+        err = float(np.abs(fk - fp).max())
+        pixels = sum(int(np.prod(g.shape)) for g in ebatch["qry_msk"])
+        count_diff = int(np.abs(ck - cp).sum()) / 2
+        out["eval_batch_vs_plain"] = {
+            "feature_logits_max_abs_err": err,
+            "pixels_counted_differently": count_diff,
+            "share_agreeing": 1 - count_diff / pixels,
+            "loss_rel_err": float(np.abs(lk - lp).max() / np.abs(lp).max())}
+        if err > LOGIT_ATOL or 1 - count_diff / pixels < MAIN_AGREE:
+            raise AssertionError(f"real eval batch kernels vs plain: "
+                                 f"{out['eval_batch_vs_plain']}")
+        cfg32 = copy.deepcopy(cfg)
+        cfg32.dev.precision = "f32"
+        base32 = entry.build_model(cfg32, device).train()
+        base32.freeze()
+        tbatch = first_batch(datasets, cfg32, "train")
+        tt = {k: torch.from_numpy(tbatch[k]).to(device)
+              for k in ("sup_rgb", "sup_mask", "qry_rgb", "qry_msk")}
+        out["f32_step_vs_plain"] = f32_step_vs_plain(
+            torch, K, base32, tt, loss_lib.get(cfg32), "real-data")
+        del base32
+        feature = edt.boundary_map(tt["qry_msk"].reshape(
+            -1, *tt["qry_msk"].shape[-2:]))
+        if not torch.equal(edt.edt2(feature).cpu(), edt.edt2(feature.cpu())):
+            raise AssertionError("real labels: EDT on the card differs from "
+                                 "the CPU plain EDT")
+        out["edt2_card_bit_equals_cpu"] = True
+
+        # 4. the loader's cost, and the train step fed by it
+        costs = loader_costs(cfg, "train")
+        costs.update(loader_costs(cfg_test, "test"))
+        out["loader"] = costs
+        model.train()
+        params = model.freeze()
+        trainer = Trainer(cfg, Run(None, None), model,
+                          solver.make_optimizer(cfg.tr, params), params,
+                          entry.Stage1Runtime(cfg),
+                          solver.LRPolicy(cfg.tr, 100), device)
+        model.set_dropout_generator(
+            torch.Generator(device=device).manual_seed(0))
+        n = (LOADER_WARM + FED_STEPS) * cfg.data.bs
+        fed = {}
+        for name, extra in (("synth", {"data.dataset": "SYNTH"}),
+                            ("pascal_decoded", {"data.cache": "False"}),
+                            ("pascal_cached", {})):
+            fcfg = entry.ex.assemble("train", {
+                **dict(a.split("=", 1) for a in REAL_ARGS[2:] + [voc_arg]),
+                "data.train_n": str(n), "data.seed": "4321", **extra})
+            ds_f, loader_f, _ = datasets.load(fcfg, "train")
+            ds_f.sample_tasks()
+            fed[name] = fed_steps(torch, trainer, loader_f)
+        prof = device_profile(torch, lambda: trainer.train_step(tbatch), {
+            "mpm_kernels": ["assign_kernel", "match_kernel"],
+            "mpm_backward_kernels": ["match_bwd_kernel", "assign_bwd_kernel"],
+            "minplus_kernel": ["minplus_kernel"]})
+        device_ms = prof["device_us_total"] / 1e3
+        for v in fed.values():
+            v["device_idle_share"] = 1 - device_ms / v["step_ms"]
+        out["fed_train_step"] = fed
+        out["train_step_device_ms"] = device_ms
+        out["profile"] = prof
+        del trainer, model
+
+    if launches != want:
+        raise AssertionError(f"real data path launches {launches}, want "
+                             f"{want}")
+    out.update({"wall_s": time.perf_counter() - start,
+                "launches": launches, "launches_expected": want,
+                "args": {"pascal_train": REAL_ARGS,
+                         "pascal_test": REAL_TEST_ARGS,
+                         "coco_test": COCO_TEST_ARGS,
+                         "coco_train": COCO_TRAIN_ARGS},
+                "timing": "host clock (time.perf_counter)",
+                "tolerance": {"logit_atol": LOGIT_ATOL, "agree": MAIN_AGREE,
+                              "counts_bs1_vs_bs4_per_episode": "equal",
+                              "counts_bs1_vs_bs4_batched":
+                                  "share_agreeing >= agree"}})
+    emit(out)
+    return {k: sum(c[k] for c in launches.values()) for k in STEP_LAUNCHES}
 
 
 def main() -> int:
@@ -2152,6 +2689,7 @@ def main() -> int:
         torch, K, M, "pfenet", "PFENetRuntime", PFENET_ARGS,
         check=pfenet_check)
     run_launches = run_path_phase(torch, K, M)
+    real_launches = real_data_path_phase(torch, K, M)
 
     # one row per TPU kernel K1-K5. assign and match are one __global__
     # each; the chain (K3, mpm.py:342) is those two launches on the packed
@@ -2171,6 +2709,7 @@ def main() -> int:
          "stage2_path_launches": stage2_launches[name],
          "vgg_path_launches": vgg_launches[name],
          "run_path_launches": run_launches[name],
+         "real_data_path_launches": real_launches[name],
          "max_abs_err": worst[name], "ms": times[name],
          "plain_ms": times[f"{name}_plain"], "bound_ms": bounds[name][0],
          "bound_by": bounds[name][1], "library_ms": None}
@@ -2184,6 +2723,7 @@ def main() -> int:
         "stage2_path_launches": stage2_launches["match"],
         "vgg_path_launches": vgg_launches["match"],
         "run_path_launches": run_launches["match"],
+        "real_data_path_launches": real_launches["match"],
         "max_abs_err": worst["chain"], "ms": times["chain"],
         "plain_ms": times["chain_plain"], "bound_ms": bounds["chain"][0],
         "bound_by": bounds["chain"][1], "library_ms": None,
@@ -2199,6 +2739,7 @@ def main() -> int:
         "stage2_path_launches": stage2_launches["mpm_backward"],
         "vgg_path_launches": vgg_launches["mpm_backward"],
         "run_path_launches": run_launches["match_bwd"],
+        "real_data_path_launches": real_launches["match_bwd"],
         "max_abs_err": bw_worst, "ms": bw_times["bfloat16"],
         "ms_no_spin": bw_times["bfloat16_no_spin"],
         "plain_ms": bw_times["bfloat16_plain"],
@@ -2216,6 +2757,7 @@ def main() -> int:
         "stage2_path_launches": stage2_launches["minplus"],
         "vgg_path_launches": vgg_launches["minplus"],
         "run_path_launches": run_launches["minplus"],
+        "real_data_path_launches": real_launches["minplus"],
         "ms": mp_times["phase1"] + mp_times["phase2"],
         "plain_ms": mp_times["phase1_plain"] + mp_times["phase2_plain"],
         "bound_ms": mp_bounds["phase1"][0] + mp_bounds["phase2"][0],

@@ -56,7 +56,7 @@ class DeviceConfig:
 @dataclass
 class DataConfig:
     """Scope ``data`` (reference data_kits/datasets.py:13-31)."""
-    dataset: str = "PASCAL"             # SYNTH (PASCAL, COCO not ported yet)
+    dataset: str = "PASCAL"             # PASCAL | COCO | SYNTH
     mean: Tuple[float, float, float] = (0.485, 0.456, 0.406)
     std: Tuple[float, float, float] = (0.229, 0.224, 0.225)
     height: int = 401
@@ -68,8 +68,11 @@ class DataConfig:
     seed: int = 1234                    # training episode stream
     test_seed: int = 5678
     one_cls: int = 0                    # restrict sampling to a single class id
-    cache: bool = True                  # cache rendered images in host RAM
-    num_workers: int = 4                # host render worker threads
+    cache: bool = True                  # cache decoded images in host RAM
+    num_workers: int = 4                # host decode worker threads
+    base_dir: str = ""                  # dataset root ("" = DEFAULT_ROOTS)
+    var_gt: bool = False                # SYNTH only: emulate PASCAL's
+                                        # variable-size test-time query GT
 
 
 @dataclass

@@ -1,12 +1,16 @@
 """Few-shot evaluation: the on-device eval step and the 5-round loop.
 
 Counterpart of ``Evaluator`` (``pemp_tpu/core/trainer.py:112-224``,
-reference core/base_trainer.py:59-102) with the fixed-size-GT fast step
-of ``pemp_tpu/core/experiment.py:181-223``: the batch goes to the device,
-and logits, align-corners resize (of feature-resolution logits), argmax,
-TP/FP/FN counts and the per-episode CE all stay there; one host fetch per
-batch brings back the counts and losses. Query GT of another size than
-the input (PASCAL's test protocol) is not ported yet.
+reference core/base_trainer.py:59-102) with the on-device eval steps of
+``pemp_tpu/core/experiment.py:181-300``: the batch goes to the device,
+and the feature-resolution logits' align-corners resize, argmax, TP/FP/FN
+counts and per-episode CE all stay there; one host fetch per batch
+brings back the counts and losses. Query GT at the input's size resizes
+the whole batch at once; GT at other sizes (PASCAL's and COCO's test
+protocol: each query GT at its original resolution, a list of arrays
+from the loader) resizes each episode's logits to its own GT size, with
+the metrics of the JAX package's host-exact path
+(``Evaluator._episode_metrics``).
 """
 
 from __future__ import annotations
@@ -41,27 +45,43 @@ def make_fast_eval_step(model: torch.nn.Module, device: torch.device,
     """batch (numpy) -> (counts [B, 2, 3] int64, losses [B] float64);
     ``apply(model, tensors)`` is the eval forward (default: the model
     called on the support images, masks and query images) on the arrays
-    ``keys``. Logits at another size than the query's (feature
-    resolution) are resized to it (align_corners) first; ``with_logits``
-    also returns ``apply``'s logits as float32 numpy (CaNet's history
-    write-back)."""
+    ``keys`` but the query GT. Its logits (feature resolution, or the
+    query's size) are resized (align_corners) to each query GT's size,
+    which may differ between episodes (``qry_msk`` a list of [Q, H', W']
+    arrays); ``with_logits`` also returns ``apply``'s logits as float32
+    numpy (CaNet's history write-back)."""
+    in_keys = tuple(k for k in keys if k != "qry_msk")
 
-    @torch.no_grad()
-    def step(batch):
-        t = to_device(batch, keys, device)
-        feat = apply(model, t)                          # [B,Q,h,w,2]
-        out_hw = tuple(t["qry_rgb"].shape[2:4])
-        logits = (feat if tuple(feat.shape[2:4]) == out_hw
-                  else output_resize(feat, out_hw))     # [B,Q,H,W,2]
-        labels = t["qry_msk"]                           # [B,Q,H,W]
+    def metrics(logits, labels):
+        """logits [B,Q,H',W',2], labels [B,Q,H',W'] -> ([B, 6], [B])."""
         b, nq = logits.shape[:2]
         losses = per_episode_cross_entropy(logits.reshape(b, nq, -1, 2),
                                            labels.reshape(b, nq, -1))
         # all Q queries share the episode's fg class: counts add over Q
         counts = tp_fp_fn(logits.argmax(dim=-1), labels).sum(dim=1)
+        return counts.reshape(b, 6), losses
+
+    @torch.no_grad()
+    def step(batch):
+        t = to_device(batch, in_keys, device)
+        feat = apply(model, t)                          # [B,Q,h,w,2]
+        gt = batch["qry_msk"]
+        if isinstance(gt, np.ndarray):
+            labels = [torch.from_numpy(gt).to(device)]
+            logits = [feat]
+        else:                   # one GT size an episode
+            labels = [torch.from_numpy(np.ascontiguousarray(g)).to(device)
+                      [None] for g in gt]
+            logits = [feat[i:i + 1] for i in range(len(gt))]
+        parts = [metrics(output_resize(lg, tuple(lb.shape[-2:])),
+                         lb.reshape(lg.shape[:2] + lb.shape[-2:]))
+                 for lg, lb in zip(logits, labels)]
+        counts = torch.cat([c for c, _ in parts])
+        losses = torch.cat([lo for _, lo in parts])
+        b = counts.shape[0]
         # one fetch: counts (< 2^53, exact in f64) beside the losses
-        host = torch.cat([counts.reshape(b, 6).double(),
-                          losses.double()[:, None]], dim=1).cpu().numpy()
+        host = torch.cat([counts.double(), losses.double()[:, None]],
+                         dim=1).cpu().numpy()
         out = host[:, :6].reshape(b, 2, 3).astype(np.int64), host[:, 6]
         if with_logits:
             return (*out, feat.float().cpu().numpy())
@@ -105,10 +125,6 @@ class Evaluator:
             inner = Accumulator(loss=[])
             dataset.sample_tasks()
             for batch in loader:
-                if batch["qry_msk"].shape[-2:] != batch["qry_rgb"].shape[2:4]:
-                    raise NotImplementedError(
-                        "query GT of another size than the input is not "
-                        "ported yet")
                 n_episodes += len(batch["cls"])
                 with timer.start():
                     counts, losses = self.step(batch)

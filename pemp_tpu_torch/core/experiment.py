@@ -13,7 +13,8 @@ between families goes through the hooks:
   logits and a dict of auxiliary losses;
 - ``compute_loss(logits, batch, aux)``: the loss the step minimises;
 - ``apply_eval(model, batch)``: the eval forward, returning the logits
-  (at the query's size or at feature resolution: the eval step resizes);
+  at feature resolution (the eval step resizes them to each query GT's
+  size, which may differ from the input's);
 - ``device_keys``: the batch arrays the steps move to the device;
 - ``wrap_data(ds, loader, train)``: wraps the train, online-eval and test
   data (CaNet's history adapter);
@@ -168,9 +169,10 @@ class EntryRuntime:
                             labels.reshape(-1, *labels.shape[-2:]))
 
     def apply_eval(self, model, batch) -> torch.Tensor:
-        """Eval forward on device tensors: logits [B,Q,H,W,2] (or [B,Q,h,w,2]
-        at feature resolution)."""
-        return model(batch["sup_rgb"], batch["sup_mask"], batch["qry_rgb"])
+        """Eval forward on device tensors: logits [B,Q,h,w,2] at feature
+        resolution."""
+        return model(batch["sup_rgb"], batch["sup_mask"], batch["qry_rgb"],
+                     out_hw=None)
 
     def wrap_data(self, ds, loader, train: bool):
         """The (dataset, loader) the runtime reads from ``ds``, ``loader``."""

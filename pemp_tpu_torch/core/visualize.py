@@ -9,7 +9,11 @@ binary prediction, the response map in the 6-colour palette and
 ``data.json`` into
 ``<PEMP_HTTP_STATIC or http/static>/<eid>_<ds>_<shot>shot_<tag>_s<split>
 [_misc][_c<k>]/<i>_<cls>/``, which ``http/viewer.py`` serves. Only the
-first episode of each batch is drawn, as in the JAX package.
+first episode of each batch is drawn, as in the JAX package. The query
+GT may have a size of its own (PASCAL's and COCO's test protocol): the
+prediction and the response map are drawn at it. File names carry the
+class name with ``/`` as ``_`` (PASCAL's "tv/monitor"; the JAX package
+writes it as is, into a folder that does not exist).
 """
 
 from __future__ import annotations
@@ -84,6 +88,7 @@ def evaluate_and_save(runtime, max_episodes: int = 50) -> str:
             break
         cls = int(batch["cls"][0])
         cname = datasets.get_class_name(cls, cfg.data.dataset)
+        fname = cname.replace("/", "_")
         logits, response = runtime.apply_visualize(
             model, to_device(batch, runtime.device_keys, device))
         logits = logits[0, 0].float().cpu().numpy()         # [h, w, 2]
@@ -116,17 +121,17 @@ def evaluate_and_save(runtime, max_episodes: int = 50) -> str:
         (save / "data.json").write_text(json.dumps(data))
 
         for j, n in enumerate(sup_names):
-            _save(save / f"{cname}_sup_img_{n}.jpg",
+            _save(save / f"{fname}_sup_img_{n}.jpg",
                   _denorm(batch["sup_rgb"][0, j], cfg))
-            _save(save / f"{cname}_sup_msk_{n}.png",
+            _save(save / f"{fname}_sup_msk_{n}.png",
                   (batch["sup_mask"][0, j, :, :, 0] * 255).astype(np.uint8))
-        _save(save / f"{cname}_qry_img_{qry_name}.jpg",
+        _save(save / f"{fname}_qry_img_{qry_name}.jpg",
               _denorm(batch["qry_rgb"][0, 0], cfg))
-        _save(save / f"{cname}_qry_msk_{qry_name}.png",
+        _save(save / f"{fname}_qry_msk_{qry_name}.png",
               (label * 255).astype(np.uint8))
-        _save(save / f"{cname}_qry_pred_{qry_name}.png",
+        _save(save / f"{fname}_qry_pred_{qry_name}.png",
               (pred * 255).astype(np.uint8))
-        _save(save / f"{cname}_qry_color_{qry_name}.png", color)
+        _save(save / f"{fname}_qry_color_{qry_name}.png", color)
         print(f"[{i:03d}][{cls:02d}] Accuracy: {acc:.3f}")
 
     runtime.logger.info(f"Visualization saved to {http_dir}")

@@ -18,7 +18,9 @@ import numpy as np
 
 def _collate(episodes) -> Dict:
     """Stacks each array key; ``cls`` becomes an int32 vector and the
-    sample names stay lists (one list of ``str`` per episode)."""
+    sample names stay lists (one list per episode). Query GT of sizes
+    that differ between episodes (the test GT at its original
+    resolution) stays a list of per-episode arrays."""
     batch = {}
     for key in episodes[0]:
         vals = [ep[key] for ep in episodes]
@@ -26,6 +28,8 @@ def _collate(episodes) -> Dict:
             batch[key] = [list(v) for v in vals]
         elif key == "cls":
             batch[key] = np.asarray(vals, np.int32)
+        elif any(v.shape != vals[0].shape for v in vals):
+            batch[key] = vals
         else:
             batch[key] = np.stack(vals)
     return batch

@@ -1,14 +1,16 @@
 """Synthetic episodic dataset (dataset name ``SYNTH``).
 
-Copy of ``pemp_tpu/data/synthetic.py`` without its variable-size-GT
-emulation (``data.var_gt``): procedurally generated
-images and blob masks keyed by sample name, with the same episode
-contract and sampler semantics as the real PASCAL-5i / COCO-20i loaders,
-so equal seeds give the JAX package's episodes.
+Copy of ``pemp_tpu/data/synthetic.py``: procedurally generated images
+and blob masks keyed by sample name, with the same episode contract and
+sampler semantics as the PASCAL-5i / COCO-20i loaders, so equal seeds
+give the JAX package's episodes. ``data.var_gt`` emulates PASCAL's test
+protocol without data: the test query GT is rendered at a size of its
+own per episode (reference data_kits/pascal_voc.py:229).
 
 Episode contract (channels-last):
   sup_rgb  [S, H, W, 3] f32    sup_mask [S, H, W, 2] f32 (fg, bg)
   qry_rgb  [Q, H, W, 3] f32    qry_msk  [Q, H, W]    i32
+                               ([Q, H', W'] with ``data.var_gt`` at test)
   cls      int
   sup_names, qry_names  lists of sample names (``ret_name``; CaNet's
                         history store keys on them)
@@ -72,14 +74,17 @@ class SyntheticDataset:
     def num_classes(self):
         return N_CLASSES
 
-    def _render(self, name: str):
-        """Deterministic image + blob mask for a sample name (cached when
-        ``data.cache``: the render is a pure function of the name)."""
-        if self.cfg.data.cache and name in self._render_cache:
-            return self._render_cache[name]
-        out = self._render_uncached(name, self.height, self.width)
+    def _render(self, name: str, size=None):
+        """Deterministic image + blob mask for a sample name at ``size``
+        (default: the input's; cached when ``data.cache``: the render is
+        a pure function of the name and the size)."""
+        h, w = size if size is not None else (self.height, self.width)
+        key = (name, h, w)
+        if self.cfg.data.cache and key in self._render_cache:
+            return self._render_cache[key]
+        out = self._render_uncached(name, h, w)
         if self.cfg.data.cache:
-            self._render_cache[name] = out
+            self._render_cache[key] = out
         return out
 
     @staticmethod
@@ -103,9 +108,17 @@ class SyntheticDataset:
             sup_rgb.append(img)
             sup_mask.append(np.stack([m, 1.0 - m], axis=-1))
         qry_rgb, qry_msk = [], []
+        gt_size = None
+        if self.cfg.data.var_gt and not self.train:
+            # one GT size per episode (from its first query's name), so
+            # the queries of an episode still stack
+            crc = zlib.crc32(qry_names[0].encode())
+            gt_size = (self.height + 1 + crc % 17, self.width + 1 + crc % 23)
         for n in qry_names:
             img, m = self._render(n)
             qry_rgb.append(img)
+            if gt_size is not None:
+                m = self._render(n, gt_size)[1]
             qry_msk.append(m.astype(np.int32))
         ep = {
             "sup_rgb": np.stack(sup_rgb),

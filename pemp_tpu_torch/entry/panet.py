@@ -42,7 +42,7 @@ class PANetRuntime(EntryRuntime):
 
     def apply_eval(self, model, batch):
         return model(batch["sup_rgb"], batch["sup_mask"], batch["qry_rgb"],
-                     align=False)
+                     out_hw=None, align=False)
 
 
 build_model = PANetRuntime.build_model

@@ -19,6 +19,7 @@ from pemp_tpu_torch.entry import baseline as baseline_entry
 from pemp_tpu_torch.entry import panet as panet_entry
 from pemp_tpu_torch.models import registry
 from pemp_tpu_torch.models.baseline import Baseline
+from pemp_tpu_torch.models.common import output_resize
 from pemp_tpu_torch.models.panet import PANet
 
 SMALL = ["split=0", "data.dataset=SYNTH", "data.height=33", "data.width=33",
@@ -98,7 +99,8 @@ def test_panet_loss_adds_loss_coef_times_align(coef):
     assert float(aux["align_loss"]) > 0
     assert float(loss) == pytest.approx(float(base)
                                         + coef * float(aux["align_loss"]))
-    assert torch.equal(eval_logits, logits)
+    # eval keeps feature resolution; the eval step resizes it
+    assert torch.equal(output_resize(eval_logits, (33, 33)), logits)
 
 
 def test_registry_builds_the_ported_families_only():

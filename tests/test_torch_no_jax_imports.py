@@ -1,7 +1,7 @@
 """Static scan: nothing under pemp_tpu_torch/ and nothing in chip_smoke.py
 or kernel_times.py imports jax, flax or pemp_tpu (any module of it), nor
 msgpack or pymongo (the port reads the JAX checkpoints and writes the
-Mongo documents itself). A sys.modules check would prove nothing here,
+Mongo documents itself); the COCO rasterizer is the port's own C++ copy. A sys.modules check would prove nothing here,
 because jax is preloaded in this environment
 (``tests/test_torch_checkpoint_msgpack.py`` runs one in a fresh process).
 """
@@ -41,9 +41,21 @@ def test_the_scan_sees_the_package():
                 "models/rpmms.py", "models/pfenet.py", "entry/canet.py",
                 "entry/rpmms.py", "entry/pfenet.py", "utils/pretrained.py",
                 "utils/observers.py", "core/visualize.py",
-                "core/checkpoint.py"):
+                "core/checkpoint.py", "data/transforms.py", "data/pascal.py",
+                "data/coco.py", "data/coco_index.py", "data/mask_ops.py",
+                "data/episodic.py"):
         assert f"pemp_tpu_torch/{new}" in names
     assert "chip_smoke.py" in names and len(names) > 20
+
+
+def test_the_rasterizer_builds_from_the_port_copy():
+    """The COCO rasterizer compiles the port's own copy of the C++ source
+    into the port's build directory, never the JAX package's ``native/``
+    (a static check: nothing is built here)."""
+    from pemp_tpu_torch.data import mask_ops
+    source = ROOT / "pemp_tpu_torch" / "data" / "native" / "coco_mask.cpp"
+    assert mask_ops.SOURCE == source and source.exists()
+    assert mask_ops.lib_path().parent == ROOT / "build" / "pemp_tpu_torch"
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())

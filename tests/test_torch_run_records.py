@@ -34,11 +34,10 @@ SMALL = ["split=0", "data.dataset=SYNTH", "data.height=33", "data.width=33",
          "data.num_workers=2", "g.mongodb=True"]
 PORT = ["dev.device=cpu", "dev.precision=f32"]
 # config.json: the JAX package's device scope ``tpu`` is the port's
-# ``dev``; the JAX-only data options and the log file are not ported
+# ``dev``; the log file is not ported
 CONFIG_ONLY_JAX = {"tpu.platform", "tpu.mesh", "tpu.precision",
                    "tpu.prefetch", "tpu.use_pallas", "tpu.compact_wire",
-                   "tpu.fuse_steps", "data.base_dir", "data.var_gt",
-                   "g.log_file"}
+                   "tpu.fuse_steps", "g.log_file"}
 CONFIG_ONLY_PORT = {"dev.device", "dev.precision"}
 RESULT = re.compile(r"Loss: \d+\.\d{4}, mIoU: \d+\.\d{2}, bIoU: \d+\.\d{2}")
 
@@ -163,9 +162,9 @@ def test_resume_keeps_the_metric_history(tmp_path):
 def test_statuses_of_a_failure_a_ctrl_c_and_a_stopped_run(tmp_path,
                                                           monkeypatch):
     md = f"g.model_dir={tmp_path}"
-    with pytest.raises(NotImplementedError):
-        entry.main(["test", "with", *SMALL, *PORT, md,
-                    "data.dataset=PASCAL"])
+    with pytest.raises(FileNotFoundError):        # no PASCAL tree there
+        entry.main(["test", "with", *SMALL, *PORT, md, "data.dataset=PASCAL",
+                    f"data.base_dir={tmp_path / 'missing'}"])
 
     def interrupted(cfg, device):
         raise KeyboardInterrupt
