@@ -53,6 +53,14 @@ SYNTH episodes):
   the loader's host ms a batch, the train step fed by it against the
   same step fed by SYNTH, its wait on the loader and the card's idle
   share;
+- the parallel layer (``parallel_path``; stage 1, ResNet-50, 401², bf16,
+  cedt): a compact-wire epoch fed by the device prefetcher bit-equal to
+  the serial one, one stage-2 eval batch's pageable and pinned copies,
+  the loader-fed step's idle share with and without the prefetcher, the
+  ``train`` entry under a ``torchrun``-style world of one over NCCL equal
+  to the plain run, and two ranks sharing the card over gloo against one
+  process at their global batch (f32 and bf16; subprocesses of this
+  script: ``chip_smoke.py parallel-worker ...`` and ``entry-run ...``);
 
 and checks that each path went through the kernels and agrees with the
 plain version. The phases ``minplus`` (the EDT kernel, bit-exact, also on
@@ -221,6 +229,37 @@ STEP_LAUNCHES = {"assign": 1, "match": 1, "match_bwd": 1, "assign_bwd": 1,
                  "minplus": 2}
 EVAL_LAUNCHES = {"assign": 1, "match": 1, "match_bwd": 0, "assign_bwd": 0,
                  "minplus": 0}
+
+# parallel_path: PEMP stage 1 (ResNet-50, c=512, p=3, 401x401, bf16, cedt,
+# SYNTH). PAR_STEPS prefetched and serial compact-wire steps on the same
+# batches; the NCCL world of one and the plain run (NCCL_ARGS, subprocesses,
+# cuDNN deterministic); WORLD_STEPS steps of two ranks sharing the card over
+# gloo at WORLD_BS episodes each against one process at twice that.
+PAR_STEPS = 6
+H2D_REPS = 10
+NCCL_ARGS = ["train", "with", "split=0", "data.dataset=SYNTH",
+             "data.height=401", "data.width=401", "shot=1", "query=1",
+             "data.bs=4", "data.train_n=8", "tr.total_epochs=1",
+             "data.test_bs=4", "data.test_n=8", "te.epochs=1", "loss=cedt",
+             "dev.precision=bf16", "seed=1234", "g.model_dir=md"]
+WORLD_OF_ONE_BACKEND = "nccl"
+WORLD_BS = 2
+WORLD_STEPS = 3
+WORLD_TIMEOUT_S = 600        # each subprocess of the phase
+# two ranks against one process (f32: TF32 off; bf16: the backbone's
+# autocast): the first step's global loss, relative (the same weights on
+# the global batch: the forward alone); every step's; the final state's
+# distance from the single process's over the change its steps made
+# (``update_rel``). Each rank's convolutions see half the batch, so cuDNN
+# takes other algorithms and rounds elsewhere: about 50 float32 ulps, or
+# 4 bfloat16 ulps, on the first loss; the mpm's max over p turns that
+# into larger gradient differences later. Measured on an H100 (first
+# loss, worst loss, update): f32 3.1e-6, 3.5e-4, 7.5e-6; bf16 1.7e-2,
+# 3.6e-2, 5.2e-4; each bound is about 3-20x that.
+WORLD_TOL = {"f32": {"first_loss_rtol": 2e-5, "loss_rtol": 2e-3,
+                     "update_rel_l2": 1e-4},
+             "bf16": {"first_loss_rtol": 5e-2, "loss_rtol": 1e-1,
+                      "update_rel_l2": 1e-2}}
 
 
 def emit(obj) -> None:
@@ -1627,7 +1666,6 @@ def family_path_phase(torch, K, M, name, runtime_cls, args, runtime_of=None,
     import importlib
     from unittest import mock
 
-    from pemp_tpu_torch.core.evaluator import to_device
     from pemp_tpu_torch.data import datasets
 
     entry = importlib.import_module(f"pemp_tpu_torch.entry.{name}")
@@ -1658,7 +1696,7 @@ def family_path_phase(torch, K, M, name, runtime_cls, args, runtime_of=None,
     model = entry.build_model(cfg, device)
     tbatch = first_batch(datasets, cfg, "train", runtime)
     ebatch = first_batch(datasets, cfg, runtime=runtime)
-    t = to_device(tbatch, runtime.device_keys, device)
+    t = to_card(tbatch, runtime.device_keys, device, cfg.dev.compact_wire)
     with torch.no_grad():
         logits, aux = runtime.apply_train(model.train(), t)
         loss = runtime.compute_loss(logits, t, aux)
@@ -1774,15 +1812,14 @@ def rpmms_check(torch, runtime, model, cfg, device, tbatch, ebatch, steady):
     """``rpmms_path``: the same eval batch twice gives bit-identical
     logits (the eval generator is seeded 0 for every batch); the three
     train outputs are finite and of feature resolution."""
-    from pemp_tpu_torch.core.evaluator import to_device
     from pemp_tpu_torch.models.canet import feat_size
 
-    t = to_device(ebatch, runtime.device_keys, device)
+    t = to_card(ebatch, runtime.device_keys, device, cfg.dev.compact_wire)
     with torch.no_grad():
         a = runtime.apply_eval(model.eval(), t)
         b = runtime.apply_eval(model, t)
-        outs, _ = runtime.apply_train(model.train(), to_device(
-            tbatch, runtime.device_keys, device))
+        outs, _ = runtime.apply_train(model.train(), to_card(
+            tbatch, runtime.device_keys, device, cfg.dev.compact_wire))
     h = feat_size(cfg.data.height)
     shape = (cfg.data.bs, 1, h, feat_size(cfg.data.width), 2)
     if not torch.equal(a, b) or len(outs) != 3 or not all(
@@ -2645,6 +2682,452 @@ def real_data_path_phase(torch, K, M):
     return {k: sum(c[k] for c in launches.values()) for k in STEP_LAUNCHES}
 
 
+def to_card(batch, keys, device, compact_wire=True):
+    """A host batch's arrays ``keys`` on ``device`` in the compute dtypes,
+    as the port's steps take them (``parallel/step.py``)."""
+    from pemp_tpu_torch.parallel.step import device_batch, unpack_batch
+    return unpack_batch(device_batch(batch, device, compact_wire, keys))
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+WORLD_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+             "MASTER_ADDR", "MASTER_PORT", "COORDINATOR_ADDRESS",
+             "NUM_PROCESSES", "PROCESS_ID")
+
+
+def sub_env(**world):
+    """This process's environment without a world, plus ``world``."""
+    import os
+    env = {k: v for k, v in os.environ.items() if k not in WORLD_ENV}
+    env.update({k: str(v) for k, v in world.items()})
+    return env
+
+
+def world_train(torch, K, M, precision, bs, steps, model_dir,
+                keep_init=False, extra=()):
+    """PEMP stage 1's ``train`` (``EntryRuntime._train``, unrecorded) at
+    ``bs`` episodes a process for ``steps`` steps and one online eval of
+    two batches of 4, in the world this process is in (``extra``: more
+    ``key=value`` overrides): the global losses, K1-K5's launches, the
+    final (and with ``keep_init`` the initial) state on the CPU, the world
+    and its backend, and each step's host ms (until its loss is on the
+    host, which follows the step's last kernel on the stream)."""
+    from unittest import mock
+
+    from pemp_tpu_torch.config import Run
+    from pemp_tpu_torch.core import experiment
+    from pemp_tpu_torch.core.trainer import Trainer
+    from pemp_tpu_torch.entry import pemp_stage1 as entry
+    from pemp_tpu_torch.parallel import mesh
+
+    world = mesh.process_count()
+    args = dict(a.split("=", 1) for a in TRAIN_ARGS[2:])
+    args.update({"data.bs": str(bs), "data.train_n": str(steps * bs * world),
+                 "data.test_bs": "4", "data.test_n": "8",
+                 "dev.precision": precision, "g.model_dir": str(model_dir)})
+    args.update(a.split("=", 1) for a in extra)
+    cfg = entry.ex.assemble("train", args)
+    kept = {}
+
+    def build(cfg, device):
+        kept["model"] = entry.build_model(cfg, device)
+        if keep_init:
+            kept["init"] = {k: v.detach().cpu().clone()
+                            for k, v in kept["model"].state_dict().items()}
+        return kept["model"]
+
+    step_s = []
+
+    class TimedTrainer(Trainer):
+        def train_step(self, batch):
+            t0 = time.perf_counter()
+            loss = super().train_step(batch)
+            loss.item()
+            step_s.append(time.perf_counter() - t0)
+            return loss
+
+    K.reset_launches()
+    M.reset_launches()
+    with mock.patch.object(experiment, "Trainer", TimedTrainer):
+        result = entry.Stage1Runtime(cfg, Run(None, None), build)._train()
+    return {"losses": result["losses"], "world": world,
+            "step_ms": [t * 1e3 for t in step_s],
+            "rank": mesh.process_index(),
+            "backend": (mesh.dist.get_backend() if mesh.dist.is_initialized()
+                        else None),
+            "launches": {**K.launches, **M.launches, **K.backward_calls},
+            "state": {k: v.detach().cpu()
+                      for k, v in kept["model"].state_dict().items()},
+            "init": kept.get("init")}
+
+
+def parallel_worker(argv) -> int:
+    """``chip_smoke.py parallel-worker <out> <precision> <bs> <steps>
+    [key=value ...]``: one rank of a world that ``torchrun``'s variables
+    describe (``world_train``, written with ``torch.save``), with the
+    cuDNN TF32 setting of ``main``'s process by then (off)."""
+    import torch
+    sys.path.insert(0, str(ROOT))
+    from pemp_tpu_torch.ops.kernels import minplus as M
+    from pemp_tpu_torch.ops.kernels import mpm as K
+    from pemp_tpu_torch.parallel import mesh
+    out, precision, bs, steps = argv[0], argv[1], int(argv[2]), int(argv[3])
+    extra = argv[4:]
+    torch.backends.cudnn.allow_tf32 = False
+    device = dict(a.split("=", 1) for a in extra).get("dev.device", "cuda")
+    if not mesh.initialize_distributed(device):
+        raise RuntimeError("parallel-worker: no world in the environment")
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            torch.save(world_train(torch, K, M, precision, bs, steps, tmp,
+                                   extra=extra), out)
+    finally:
+        mesh.dist.destroy_process_group()
+    return 0
+
+
+def entry_run(argv) -> int:
+    """``chip_smoke.py entry-run <out.json> <command> with ...``: PEMP
+    stage 1's command with cuDNN's deterministic algorithms, in the world
+    the environment names (none without one); writes the result, the
+    world and its backend."""
+    import torch
+    sys.path.insert(0, str(ROOT))
+    from pemp_tpu_torch.entry import pemp_stage1 as entry
+    from pemp_tpu_torch.parallel import mesh
+    torch.backends.cudnn.deterministic = True
+    seen = {"world": 1, "backend": None}
+    init = mesh.initialize_distributed
+
+    def spy(device="cuda"):
+        joined = init(device)
+        if mesh.dist.is_initialized():
+            seen.update(world=mesh.process_count(),
+                        backend=mesh.dist.get_backend())
+        return joined
+    mesh.initialize_distributed = spy
+    result = entry.main(argv[1:])
+    Path(argv[0]).write_text(json.dumps({**seen, "result": result}))
+    return 0
+
+
+def run_world(argv_of, env_of, n, timeout, cwd):
+    """``n`` subprocesses of this script (``argv_of(rank)``,
+    ``env_of(rank)``), each waited for at most ``timeout`` s and killed
+    after; raises unless every one exits 0."""
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                               *argv_of(r)], env=env_of(r), cwd=cwd,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(n)]
+    logs = []
+    try:
+        for p in procs:
+            try:
+                logs.append(p.communicate(timeout=timeout)[0])
+            except subprocess.TimeoutExpired:
+                p.kill()
+                logs.append(p.communicate()[0] + "\n[killed: timeout]")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"subprocess {r} of {n} exited "
+                                 f"{p.returncode}:\n{log[-4000:]}")
+    return logs
+
+
+def update_rel(got, want, init):
+    """How far ``got`` lies from ``want``, measured against the change
+    the steps made to ``want`` (from ``init``): the L2 norm of the
+    difference over that of the change, over every float tensor at once
+    (parameters and running statistics), and the worst single tensor's
+    largest difference over its largest change, with its key. Integer
+    tensors must be equal (inf otherwise)."""
+    diff2 = moved2 = 0.0
+    worst, where = 0.0, None
+    for key, w in want.items():
+        g = got[key]
+        if not w.is_floating_point():
+            if not (g == w).all():
+                return math.inf, math.inf, key
+            continue
+        d = g.double() - w.double()
+        m = w.double() - init[key].double()
+        diff2 += float((d * d).sum())
+        moved2 += float((m * m).sum())
+        dmax, mmax = float(d.abs().max()), float(m.abs().max())
+        rel = dmax / mmax if mmax else (0.0 if dmax == 0 else math.inf)
+        if rel > worst:
+            worst, where = rel, key
+    return math.sqrt(diff2 / moved2) if moved2 else math.inf, worst, where
+
+
+def parallel_path_phase(torch, K, M):
+    """The parallel layer on the card (PEMP stage 1, ResNet-50 at full
+    width, 401x401, bf16, cedt, SYNTH):
+
+    - a compact-wire epoch of PAR_STEPS steps fed by the
+      ``DevicePrefetcher`` against the same steps fed host batches
+      (cuDNN deterministic): losses and state bit-equal, the prefetched
+      device batch bit-equal to the plain path's; the prefetched epoch's
+      launches (this phase's row in the kernel table);
+    - one stage-2 eval batch (8 episodes) to the card: pageable float32
+      copies (the port's path before ``parallel/``), pinned float32 and
+      pinned compact wire, host clock;
+    - train steps fed by the loader's threads, serially and through the
+      prefetcher: step ms, wait on the loader, the device's idle share;
+    - the ``train`` entry under a ``torchrun``-style world of one over
+      NCCL against the same run without it (two subprocesses, cuDNN
+      deterministic): checkpoints, records and the chained test equal;
+    - two ranks sharing the card over gloo, WORLD_BS episodes each,
+      against one process at twice that, for WORLD_STEPS steps at f32 and
+      bf16: the ranks' losses and states equal, both within WORLD_TOL of
+      the single process, each rank's K1-K5 launches as predicted.
+    """
+    import numpy as np
+
+    from pemp_tpu_torch.config import Run
+    from pemp_tpu_torch.core import checkpoint as ckpt_lib
+    from pemp_tpu_torch.core import solver
+    from pemp_tpu_torch.core.trainer import Trainer
+    from pemp_tpu_torch.data import datasets
+    from pemp_tpu_torch.entry import pemp_stage1 as entry
+    from pemp_tpu_torch.parallel import step as pstep
+
+    device = torch.device("cuda")
+    start = time.perf_counter()
+    keys = entry.Stage1Runtime.device_keys
+    overrides = dict(a.split("=", 1) for a in TRAIN_ARGS[2:])
+    cfg = entry.ex.assemble("train", {
+        **overrides, "data.train_n": str(PAR_STEPS * 4)})
+    ds, loader, _ = datasets.load(cfg, "train")
+    ds.sample_tasks()
+    host = list(loader)
+
+    def trainer_for(model):
+        params = model.freeze()
+        return Trainer(cfg, Run(None, None), model,
+                       solver.make_optimizer(cfg.tr, params), params,
+                       entry.Stage1Runtime(cfg),
+                       solver.LRPolicy(cfg.tr, PAR_STEPS), device)
+
+    def epoch(feed):
+        model = entry.build_model(cfg, device).train()
+        trainer = trainer_for(model)
+        model.set_dropout_generator(
+            torch.Generator(device=device).manual_seed(cfg.seed + 1))
+        losses, first = [], None
+        for batch in feed:
+            if first is None:
+                first = {k: v for k, v in batch.items()
+                         if isinstance(v, torch.Tensor)}
+            losses.append(trainer.train_step(batch))
+            trainer.lr_policy.step_step()
+        torch.cuda.synchronize()
+        state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        return torch.stack(losses).cpu(), state, first
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        serial_losses, serial_state, _ = epoch(host)
+        K.reset_launches()
+        M.reset_launches()
+        pref_losses, pref_state, first = epoch(pstep.DevicePrefetcher(
+            host, device, cfg.dev.prefetch, True, keys))
+        launches = {**K.launches, **M.launches, **K.backward_calls}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    want = predicted(PAR_STEPS, 0)
+    if launches != want:
+        raise AssertionError(f"prefetched epoch launches {launches}, want "
+                             f"{want}")
+    plain = to_card(host[0], keys, device)
+    batch_equal = set(first) == set(plain) and all(
+        torch.equal(pstep.unpack_batch(first)[k], plain[k]) for k in plain)
+    losses_equal = torch.equal(serial_losses, pref_losses)
+    state_equal = all(torch.equal(serial_state[k], pref_state[k])
+                      for k in serial_state)
+    if not (batch_equal and losses_equal and state_equal
+            and bool(torch.isfinite(pref_losses).all())):
+        raise AssertionError(
+            f"prefetched vs serial epoch: device batch equal {batch_equal},"
+            f" losses {pref_losses.tolist()} vs {serial_losses.tolist()}, "
+            f"state equal {state_equal}")
+    out = {"prefetched_epoch": {
+        "steps": PAR_STEPS, "losses": pref_losses.tolist(),
+        "losses_bit_equal_serial": losses_equal,
+        "state_bit_equal_serial": state_equal,
+        "device_batch_bit_equal_plain": batch_equal,
+        "launches": launches, "launches_expected": want}}
+    del first, plain, serial_state, pref_state
+
+    # one stage-2 eval batch to the card (host clock, ends in a sync)
+    ecfg = entry.ex.assemble("test", dict(a.split("=", 1)
+                                          for a in MAIN_ARGS[2:]))
+    ebatch = first_batch(datasets, ecfg)
+    ekeys = ("sup_rgb", "sup_mask", "qry_rgb", "qry_msk")
+    copies = {
+        "pageable_f32": lambda: {k: torch.from_numpy(np.ascontiguousarray(
+            ebatch[k])).to(device) for k in ekeys},
+        "pinned_f32": lambda: pstep.device_batch(ebatch, device, False,
+                                                 ekeys),
+        "pinned_compact_wire": lambda: pstep.device_batch(ebatch, device,
+                                                          True, ekeys)}
+    h2d = {f"{name}_ms": host_ms(torch, fn, n=H2D_REPS)
+           for name, fn in copies.items()}
+    h2d["f32_bytes"] = sum(ebatch[k].nbytes for k in ekeys)
+    h2d["wire_bytes"] = sum(
+        ebatch[k].size * np.dtype(pstep.WIRE_DTYPES[k]).itemsize
+        for k in ekeys)
+    h2d["episodes"] = len(ebatch["cls"])
+    out["h2d_stage2_eval_batch"] = h2d
+
+    # train steps fed by the loader's threads: serial and prefetched
+    fcfg = entry.ex.assemble("train", {
+        **overrides, "data.train_n": str((LOADER_WARM + FED_STEPS) * 4)})
+    model = entry.build_model(fcfg, device).train()
+    trainer = trainer_for(model)
+    model.set_dropout_generator(torch.Generator(device=device).manual_seed(0))
+    fed = {}
+    for name in ("serial", "prefetched"):
+        ds_f, loader_f, _ = datasets.load(fcfg, "train")
+        ds_f.sample_tasks()
+        if name == "prefetched":
+            loader_f = pstep.DevicePrefetcher(loader_f, device,
+                                              fcfg.dev.prefetch, True, keys)
+        fed[name] = fed_steps(torch, trainer, loader_f)
+    prof = device_profile(torch, lambda: trainer.train_step(host[0]), {
+        "mpm_kernels": ["assign_kernel", "match_kernel"],
+        "mpm_backward_kernels": ["match_bwd_kernel", "assign_bwd_kernel"],
+        "minplus_kernel": ["minplus_kernel"], "memcpy": ["Memcpy"]})
+    device_ms = prof["device_us_total"] / 1e3
+    for v in fed.values():
+        v["device_idle_share"] = 1 - device_ms / v["step_ms"]
+    out["fed_train_step"] = fed
+    out["train_step_device_ms"] = device_ms
+    out["train_step_profile"] = prof
+    del trainer, model
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # a torchrun-style world of one over NCCL against no world
+        runs = {}
+        for name, world in (("plain", {}), ("nccl_world_of_one", {
+                "RANK": 0, "WORLD_SIZE": 1, "LOCAL_RANK": 0,
+                "LOCAL_WORLD_SIZE": 1, "MASTER_ADDR": "localhost",
+                "MASTER_PORT": free_port()})):
+            cwd = Path(tmp) / name
+            cwd.mkdir()
+            res = cwd / "result.json"
+            t0 = time.perf_counter()
+            run_world(lambda r: ["entry-run", str(res), *NCCL_ARGS],
+                      lambda r: sub_env(**world), 1, WORLD_TIMEOUT_S, cwd)
+            runs[name] = {**json.loads(res.read_text()),
+                          "wall_s": time.perf_counter() - t0,
+                          "dir": cwd / "md" / "pemp_stage1" / "1"}
+        a, b = runs["plain"], runs["nccl_world_of_one"]
+        same = {}
+        for f in (ckpt_lib.CKPT, ckpt_lib.BEST):
+            pa, pb = (ckpt_lib.load(r["dir"] / f) for r in (a, b))
+            same[f] = (pa["epoch"] == pb["epoch"]
+                       and pa["extra"] == pb["extra"] and all(
+                           torch.equal(pa["model"][k], pb["model"][k])
+                           for k in pa["model"]))
+        for f in ("metrics.json", "config.json"):
+            same[f] = ((a["dir"] / f).read_text()
+                       == (b["dir"] / f).read_text())
+        test_keys = ("loss", "miou", "biou")
+        same["test"] = all(a["result"]["test"][k] == b["result"]["test"][k]
+                           for k in test_keys)
+        same["losses"] = (a["result"]["train"]["losses"]
+                          == b["result"]["train"]["losses"])
+        if (b["backend"], b["world"], a["backend"]) != (
+                WORLD_OF_ONE_BACKEND, 1, None) \
+                or not all(same.values()):
+            raise AssertionError(f"NCCL world of one vs plain: backends "
+                                 f"{a['backend']} / {b['backend']}, equal "
+                                 f"{same}")
+        out["nccl_world_of_one"] = {
+            "args": NCCL_ARGS, "backend": b["backend"], "world": b["world"],
+            "equal_to_plain": same, "test": b["result"]["test"],
+            "wall_s": {"plain": a["wall_s"], "world": b["wall_s"]}}
+
+        # two ranks sharing the card over gloo against one process
+        worlds = {}
+        torch.backends.cudnn.allow_tf32 = False     # as parallel_worker
+        for precision in ("f32", "bf16"):
+            single = world_train(torch, K, M, precision, 2 * WORLD_BS,
+                                 WORLD_STEPS, Path(tmp) / "single",
+                                 keep_init=True)
+            torch.cuda.empty_cache()
+            port = free_port()
+            outs = [Path(tmp) / f"{precision}_rank{r}.pt" for r in range(2)]
+            t0 = time.perf_counter()
+            run_world(
+                lambda r: ["parallel-worker", str(outs[r]), precision,
+                           str(WORLD_BS), str(WORLD_STEPS)],
+                lambda r: sub_env(RANK=r, WORLD_SIZE=2, LOCAL_RANK=r,
+                                  LOCAL_WORLD_SIZE=2, MASTER_ADDR="localhost",
+                                  MASTER_PORT=port,
+                                  PEMP_DIST_TIMEOUT_S=WORLD_TIMEOUT_S // 2),
+                2, WORLD_TIMEOUT_S, tmp)
+            wall = time.perf_counter() - t0
+            r0, r1 = (torch.load(o) for o in outs)
+            ranks_equal = (r0["losses"] == r1["losses"] and all(
+                torch.equal(r0["state"][k], r1["state"][k])
+                for k in r0["state"]))
+            loss_rel = [abs(x - y) / abs(y) for x, y in
+                        zip(r0["losses"], single["losses"])]
+            upd, upd_worst, upd_key = update_rel(
+                r0["state"], single["state"], single["init"])
+            want = predicted(WORLD_STEPS, 2)
+            tol = WORLD_TOL[precision]
+            ok = (ranks_equal and len(r0["losses"]) == WORLD_STEPS
+                  and (r0["world"], r0["backend"]) == (2, "gloo")
+                  and r0["launches"] == r1["launches"] == want
+                  and single["launches"] == want
+                  and loss_rel[0] <= tol["first_loss_rtol"]
+                  and max(loss_rel) <= tol["loss_rtol"]
+                  and upd <= tol["update_rel_l2"])
+            worlds[precision] = {
+                "losses_ranks": r0["losses"], "losses_single": single["losses"],
+                "ranks_bit_equal": ranks_equal, "loss_rel": loss_rel,
+                "update_rel_l2": upd, "update_worst_tensor_rel": upd_worst,
+                "update_worst_key": upd_key,
+                "tolerance": tol, "backend": r0["backend"],
+                "launches_rank0": r0["launches"],
+                "launches_rank1": r1["launches"],
+                "launches_single": single["launches"],
+                "launches_expected": want, "world_wall_s": wall,
+                "step_ms_rank0": r0["step_ms"], "step_ms_rank1": r1["step_ms"],
+                "step_ms_single": single["step_ms"]}
+            if not ok:
+                raise AssertionError(f"two ranks vs one process "
+                                     f"({precision}): {worlds[precision]}")
+            del single, r0, r1
+        out["two_ranks_one_card_gloo"] = {
+            "episodes_per_rank": WORLD_BS, "steps": WORLD_STEPS,
+            "worlds": worlds}
+    out.update({"phase": "parallel_path", "args": TRAIN_ARGS,
+                "timing": "host clock (time.perf_counter) ending in a "
+                          "synchronize; device ms from torch.profiler",
+                "wall_s": time.perf_counter() - start,
+                "launches": launches})
+    emit(out)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2690,6 +3173,7 @@ def main() -> int:
         check=pfenet_check)
     run_launches = run_path_phase(torch, K, M)
     real_launches = real_data_path_phase(torch, K, M)
+    parallel_launches = parallel_path_phase(torch, K, M)
 
     # one row per TPU kernel K1-K5. assign and match are one __global__
     # each; the chain (K3, mpm.py:342) is those two launches on the packed
@@ -2710,6 +3194,7 @@ def main() -> int:
          "vgg_path_launches": vgg_launches[name],
          "run_path_launches": run_launches[name],
          "real_data_path_launches": real_launches[name],
+         "parallel_path_launches": parallel_launches[name],
          "max_abs_err": worst[name], "ms": times[name],
          "plain_ms": times[f"{name}_plain"], "bound_ms": bounds[name][0],
          "bound_by": bounds[name][1], "library_ms": None}
@@ -2724,6 +3209,7 @@ def main() -> int:
         "vgg_path_launches": vgg_launches["match"],
         "run_path_launches": run_launches["match"],
         "real_data_path_launches": real_launches["match"],
+        "parallel_path_launches": parallel_launches["match"],
         "max_abs_err": worst["chain"], "ms": times["chain"],
         "plain_ms": times["chain_plain"], "bound_ms": bounds["chain"][0],
         "bound_by": bounds["chain"][1], "library_ms": None,
@@ -2740,6 +3226,7 @@ def main() -> int:
         "vgg_path_launches": vgg_launches["mpm_backward"],
         "run_path_launches": run_launches["match_bwd"],
         "real_data_path_launches": real_launches["match_bwd"],
+        "parallel_path_launches": parallel_launches["match_bwd"],
         "max_abs_err": bw_worst, "ms": bw_times["bfloat16"],
         "ms_no_spin": bw_times["bfloat16_no_spin"],
         "plain_ms": bw_times["bfloat16_plain"],
@@ -2758,6 +3245,7 @@ def main() -> int:
         "vgg_path_launches": vgg_launches["minplus"],
         "run_path_launches": run_launches["minplus"],
         "real_data_path_launches": real_launches["minplus"],
+        "parallel_path_launches": parallel_launches["minplus"],
         "ms": mp_times["phase1"] + mp_times["phase2"],
         "plain_ms": mp_times["phase1_plain"] + mp_times["phase2_plain"],
         "bound_ms": mp_bounds["phase1"][0] + mp_bounds["phase2"][0],
@@ -2777,5 +3265,9 @@ def main() -> int:
     return 0
 
 
+SUBCOMMANDS = {"parallel-worker": parallel_worker, "entry-run": entry_run}
+
 if __name__ == "__main__":
+    if len(sys.argv) > 1:
+        sys.exit(SUBCOMMANDS[sys.argv[1]](sys.argv[2:]))
     sys.exit(main())

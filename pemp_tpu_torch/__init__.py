@@ -17,6 +17,8 @@ names mirror ``pemp_tpu`` so each counterpart is easy to find:
 - ``pemp_tpu_torch.core``    -- losses, metrics, solver, checkpoints,
   the trainer, the evaluator and the entries' shared runtime.
 - ``pemp_tpu_torch.data``    -- episodic sampler, SYNTH dataset, loader.
+- ``pemp_tpu_torch.parallel`` -- the process world (one process a card,
+  torchrun, DDP) and the input path (wire format, device prefetcher).
 - ``pemp_tpu_torch.utils``   -- JAX-to-torch weight conversion, timer.
 - ``pemp_tpu_torch.entry``   -- command-line entries.
 

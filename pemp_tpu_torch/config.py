@@ -19,6 +19,11 @@ preloaded on resume), and with ``g.mongodb`` the Mongo documents of
 ``utils/observers.py``; the run ends ``COMPLETED``, ``FAILED`` or
 ``INTERRUPTED`` (ctrl-C, or a training run stopped by a signal).
 ``-p`` / ``--print-config`` prints the config, then runs the command.
+
+Under a launch of several processes (``torchrun``, or the JAX package's
+``COORDINATOR_ADDRESS`` triple; ``parallel/mesh.py``) the command first
+joins the world, before any run folder is made; only rank 0 records,
+and the other ranks get a run with ``_id`` None.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from dataclasses import dataclass, field, fields, is_dataclass
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from pemp_tpu_torch.parallel import mesh
 from pemp_tpu_torch.utils.observers import maybe_attach
 
 
@@ -48,9 +54,17 @@ class GlobalConfig:
 
 @dataclass
 class DeviceConfig:
-    """Scope ``dev``: device and compute precision."""
+    """Scope ``dev``: device, compute precision, the world and the input
+    path (the JAX package's ``tpu`` scope: ``mesh``, ``prefetch`` and
+    ``compact_wire`` keep its defaults and meanings)."""
     device: str = "cuda"                # cuda | cpu (cpu only when asked)
     precision: str = "bf16"             # backbone compute dtype: bf16 | f32
+    mesh: int = 0                       # processes sharing a batch: 0 or
+    #                                     -1 = the whole launched world
+    #                                     (one process per card, torchrun)
+    prefetch: int = 2                   # batches copied ahead on a side
+    #                                     stream; 0 keeps the serial path
+    compact_wire: bool = True           # f16/uint8 host->device wire format
 
 
 @dataclass
@@ -332,8 +346,9 @@ class Experiment:
         ``g.fileStorage``) get ``<g.model_dir>/<tag>/<id>/`` with their
         records, a new id or, on resume, the ``exp_id`` it continues, and
         the Mongo observer when ``g.mongodb``; anything else records
-        nothing."""
-        if not (observed and command in self.RECORDED and cfg.g.fileStorage):
+        nothing, and neither does any rank of a world but rank 0."""
+        if not (observed and command in self.RECORDED and cfg.g.fileStorage
+                and mesh.process_index() == 0):
             return Run(None, None)
         tag_dir = Path(cfg.g.model_dir) / str(cfg.tag)
         tag_dir.mkdir(parents=True, exist_ok=True)
@@ -386,17 +401,23 @@ class Experiment:
             raise SystemExit(f"Unknown command '{command}'. "
                              f"Available: {', '.join(sorted(self.commands))}")
         cfg = self.assemble(command, overrides)
-        run = self.open_run(cfg, command, observed)
-        if print_cfg and command != "print_config":
-            print(format_config(cfg))
+        joined = not mesh.dist.is_initialized() \
+            and mesh.initialize_distributed(cfg.dev.device)
         try:
-            result = self.commands[command](cfg, run)
-        except KeyboardInterrupt:
-            run.finish("INTERRUPTED")
-            raise
-        except Exception:
-            run.finish("FAILED")
-            raise
+            run = self.open_run(cfg, command, observed)
+            if print_cfg and command != "print_config":
+                print(format_config(cfg))
+            try:
+                result = self.commands[command](cfg, run)
+            except KeyboardInterrupt:
+                run.finish("INTERRUPTED")
+                raise
+            except Exception:
+                run.finish("FAILED")
+                raise
+        finally:
+            if joined:
+                mesh.dist.destroy_process_group()
         record = result_record(result)
         # a training run stopped by a signal is resumable, not COMPLETED
         run.finish("INTERRUPTED" if record == "PREEMPTED" else "COMPLETED",

@@ -58,8 +58,9 @@ def save(path: Path, model: torch.nn.Module,
     return path
 
 
-def load(path: Path) -> Dict[str, Any]:
-    """The payload of a checkpoint (or a bare ``state_dict``), on the CPU."""
+def load(path) -> Dict[str, Any]:
+    """The payload of a checkpoint (or a bare ``state_dict``), on the CPU;
+    ``path`` a file name or a file object."""
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
@@ -197,7 +198,12 @@ def read_msgpack(data: bytes) -> Any:
 def read_jax_checkpoint(path: Path) -> Dict[str, Any]:
     """A ``pemp_tpu`` ``.msgpack`` checkpoint: ``{"params", "batch_stats",
     "epoch", "extra"}`` (its optimizer state is not read)."""
-    payload = read_msgpack(Path(path).read_bytes())
+    return jax_checkpoint(Path(path).read_bytes())
+
+
+def jax_checkpoint(data: bytes) -> Dict[str, Any]:
+    """``read_jax_checkpoint`` of the file's bytes."""
+    payload = read_msgpack(data)
     variables = read_msgpack(payload["variables"])
     return {"params": variables["params"],
             "batch_stats": variables.get("batch_stats", {}),

@@ -11,6 +11,14 @@ protocol: each query GT at its original resolution, a list of arrays
 from the loader) resizes each episode's logits to its own GT size, with
 the metrics of the JAX package's host-exact path
 (``Evaluator._episode_metrics``).
+
+The batch reaches the device through ``parallel.step.device_batch`` (the
+wire format when asked); a prefetched batch's tensors pass through. In a
+world of several processes a batch whose size the world divides is split
+into one block a process, and the per-episode counts and losses (and
+CaNet's logits) are gathered back into the batch's order, so every
+process ends with the same metrics; any other batch is computed whole by
+every process, as the JAX mesh replicates it.
 """
 
 from __future__ import annotations
@@ -24,6 +32,8 @@ import torch
 from pemp_tpu_torch.core.losses import per_episode_cross_entropy
 from pemp_tpu_torch.core.metrics import Accumulator, FewShotMetric, tp_fp_fn
 from pemp_tpu_torch.models.common import output_resize
+from pemp_tpu_torch.parallel import mesh
+from pemp_tpu_torch.parallel.step import device_batch, take_rows, unpack_batch
 from pemp_tpu_torch.utils.timer import Timer
 
 ARRAY_KEYS = ("sup_rgb", "sup_mask", "qry_rgb", "qry_msk")
@@ -33,24 +43,20 @@ def _forward(model, t):
     return model(t["sup_rgb"], t["sup_mask"], t["qry_rgb"])
 
 
-def to_device(batch, keys, device: torch.device):
-    """The arrays ``keys`` of a numpy batch as tensors on ``device``."""
-    return {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(device)
-            for k in keys}
-
-
 def make_fast_eval_step(model: torch.nn.Module, device: torch.device,
                         apply: Callable = _forward, keys=ARRAY_KEYS,
-                        with_logits: bool = False) -> Callable:
-    """batch (numpy) -> (counts [B, 2, 3] int64, losses [B] float64);
-    ``apply(model, tensors)`` is the eval forward (default: the model
-    called on the support images, masks and query images) on the arrays
-    ``keys`` but the query GT. Its logits (feature resolution, or the
-    query's size) are resized (align_corners) to each query GT's size,
-    which may differ between episodes (``qry_msk`` a list of [Q, H', W']
-    arrays); ``with_logits`` also returns ``apply``'s logits as float32
-    numpy (CaNet's history write-back)."""
-    in_keys = tuple(k for k in keys if k != "qry_msk")
+                        with_logits: bool = False,
+                        compact_wire: bool = False) -> Callable:
+    """batch (numpy, or the prefetcher's) -> (counts [B, 2, 3] int64,
+    losses [B] float64); ``apply(model, tensors)`` is the eval forward
+    (default: the model called on the support images, masks and query
+    images) on the arrays ``keys``, sent in the wire format when
+    ``compact_wire``. Its logits (feature resolution, or the query's size)
+    are resized (align_corners) to each query GT's size, which may differ
+    between episodes (``qry_msk`` a list of [Q, H', W'] arrays);
+    ``with_logits`` also returns ``apply``'s logits as float32 numpy
+    (CaNet's history write-back). In a world the processes split a batch
+    their count divides and gather the results."""
 
     def metrics(logits, labels):
         """logits [B,Q,H',W',2], labels [B,Q,H',W'] -> ([B, 6], [B])."""
@@ -63,12 +69,19 @@ def make_fast_eval_step(model: torch.nn.Module, device: torch.device,
 
     @torch.no_grad()
     def step(batch):
-        t = to_device(batch, in_keys, device)
+        world = mesh.process_count()
+        split = world > 1 and len(batch["cls"]) % world == 0
+        if split:
+            per = len(batch["cls"]) // world
+            rank = mesh.process_index()
+            batch = take_rows(batch, slice(rank * per, (rank + 1) * per))
+        t = unpack_batch(device_batch(batch, device, compact_wire, keys))
         feat = apply(model, t)                          # [B,Q,h,w,2]
-        gt = batch["qry_msk"]
-        if isinstance(gt, np.ndarray):
-            labels = [torch.from_numpy(gt).to(device)]
-            logits = [feat]
+        gt = t.get("qry_msk", batch["qry_msk"])
+        if isinstance(gt, torch.Tensor):
+            labels, logits = [gt], [feat]
+        elif isinstance(gt, np.ndarray):        # stacked, not the input's size
+            labels, logits = [torch.from_numpy(gt).to(device)], [feat]
         else:                   # one GT size an episode
             labels = [torch.from_numpy(np.ascontiguousarray(g)).to(device)
                       [None] for g in gt]
@@ -78,10 +91,13 @@ def make_fast_eval_step(model: torch.nn.Module, device: torch.device,
                  for lg, lb in zip(logits, labels)]
         counts = torch.cat([c for c, _ in parts])
         losses = torch.cat([lo for _, lo in parts])
-        b = counts.shape[0]
         # one fetch: counts (< 2^53, exact in f64) beside the losses
-        host = torch.cat([counts.double(), losses.double()[:, None]],
-                         dim=1).cpu().numpy()
+        host = torch.cat([counts.double(), losses.double()[:, None]], dim=1)
+        if split:
+            host = mesh.gather_rows(host)
+            feat = mesh.gather_rows(feat.float()) if with_logits else feat
+        host = host.cpu().numpy()
+        b = host.shape[0]
         out = host[:, :6].reshape(b, 2, 3).astype(np.int64), host[:, 6]
         if with_logits:
             return (*out, feat.float().cpu().numpy())

@@ -21,17 +21,32 @@ between families goes through the hooks:
 - ``apply_visualize(model, batch)``: the forward with the response map
   (the PEMP entries' ``visualize``, ``core/visualize.py``);
 - ``post_step(logits, batch)``: optional, after every train step (CaNet's
-  history write-back).
+  history write-back);
+- ``shard_train_loader``: True when each process of a world reads its
+  own shard of the train episodes; CaNet sets it False (its history
+  store spans the episodes), and then every process reads the whole
+  stream, takes rank 0's batch and computes its rows of it.
 
 The entries under ``pemp_tpu_torch/entry/`` subclass it. A model not
 loaded from a checkpoint starts from ``seed`` and, when its ImageNet file
 is in ``data/``, takes its trunk from it (``utils/pretrained.py``, the
-JAX runtime's ``maybe_load_pretrained``). The JAX runtime's mesh and
-fused-step hooks are not ported.
+JAX runtime's ``maybe_load_pretrained``).
+
+Data parallel over episodes (``parallel/``): under a launch of several
+processes, one a card, ``train`` wraps the model in
+``DistributedDataParallel`` after ``freeze()`` and gives it
+``GlobalBatchNorm``s; the loss denominators, dropout masks and eval
+metrics are the global batch's (``core/losses.py``, ``models/layers.py``,
+``core/evaluator.py``); rank 0 reads every snapshot and broadcasts its
+bytes (``load_snapshot``); the chained ``test`` runs on every rank, which
+learn the run id from rank 0. The train loader and both eval loaders go
+through the ``DevicePrefetcher`` (``dev.prefetch``; 0 keeps the serial
+path). The JAX runtime's fused-step hooks are not ported.
 """
 
 from __future__ import annotations
 
+import io
 import logging
 import random
 import sys
@@ -51,6 +66,9 @@ from pemp_tpu_torch.core.trainer import Trainer
 from pemp_tpu_torch.data import datasets
 from pemp_tpu_torch.device import resolve_device
 from pemp_tpu_torch.models import registry
+from pemp_tpu_torch.models.layers import global_batchnorm
+from pemp_tpu_torch.parallel import mesh
+from pemp_tpu_torch.parallel.step import DevicePrefetcher
 from pemp_tpu_torch.utils import pretrained
 from pemp_tpu_torch.utils.convert import state_dict_from_jax
 
@@ -95,13 +113,48 @@ def load_weights(model, path: Path) -> None:
     package's ``.msgpack`` (its variables through ``state_dict_from_jax``;
     a weights-only restore)."""
     path = Path(path)
-    if path.suffix == ".msgpack":
-        tree = ckpt_lib.read_jax_checkpoint(path)
+    load_weights_bytes(model, path.suffix, path.read_bytes())
+
+
+def load_weights_bytes(model, suffix: str, data: bytes) -> None:
+    """``load_weights`` of a checkpoint file's bytes, its format by the
+    file's ``suffix``."""
+    if suffix == ".msgpack":
+        tree = ckpt_lib.jax_checkpoint(data)
         sd = state_dict_from_jax(_numpy(tree["params"]),
                                  _numpy(tree["batch_stats"]))
     else:
-        sd = ckpt_lib.model_state(ckpt_lib.load(path))
+        sd = ckpt_lib.model_state(ckpt_lib.load(io.BytesIO(data)))
     model.load_state_dict(sd, strict=True)
+
+
+def load_snapshot(model, find: Callable[[], Path], logger: logging.Logger,
+                  what: str = "Model") -> None:
+    """Load the checkpoint ``find()`` names into ``model``. In a world
+    rank 0 alone owns the run folders (which other hosts may not share):
+    it finds and reads the file and broadcasts its bytes, so every rank
+    loads the same weights; any failure on rank 0 broadcasts an empty
+    payload first, and every rank raises."""
+    if mesh.process_count() == 1:
+        path = find()
+        load_weights(model, path)
+        logger.info(f"{what} initialized from {path}")
+        return
+    data, err = None, ""
+    if mesh.process_index() == 0:
+        try:
+            path = find()
+            data = path.suffix.encode() + b"\0" + path.read_bytes()
+            logger.info(f"{what} initialized from {path} (broadcast to "
+                        "every rank)")
+        except (OSError, ValueError) as e:
+            err = f": {e}"
+    data = mesh.broadcast_bytes_from_rank0(data)
+    if not data:
+        raise FileNotFoundError(
+            f"rank 0 could not load a {what.lower()} snapshot" + err)
+    suffix, _, body = data.partition(b"\0")
+    load_weights_bytes(model, suffix.decode(), body)
 
 
 def _numpy(tree):
@@ -117,12 +170,12 @@ def init_weights(model, cfg, name: str) -> None:
     it names none, drawn from ``cfg.seed``, the trunk of the registry's
     model ``name`` then taken from its ImageNet file when that is on disk
     (``utils/pretrained.py``)."""
-    path = find_checkpoint(cfg)
-    if path is None:
+    if not cfg.ckpt:
         model.reset_parameters(torch.Generator().manual_seed(cfg.seed))
         pretrained.try_load_backbone(name, cfg, model, get_logger(cfg.tag))
     else:
-        load_weights(model, path)
+        load_snapshot(model, lambda: find_checkpoint(cfg),
+                      get_logger(cfg.tag))
 
 
 class EntryRuntime:
@@ -133,6 +186,7 @@ class EntryRuntime:
     name: str = "baseline"
     device_keys = ARRAY_KEYS
     post_step: Optional[Callable] = None
+    shard_train_loader = True
 
     def __init__(self, cfg, run=None, build: Optional[Callable] = None):
         self.cfg = cfg
@@ -191,9 +245,11 @@ class EntryRuntime:
         of the eval steps and the device the run used."""
         cfg, logger = self.cfg, self.logger
         device = resolve_device(cfg.dev.device)
+        mesh.resolve_mesh(cfg.dev.mesh)
         self.resolve_snapshot()
         test_ds, test_loader, num_classes = datasets.load(cfg)
         test_ds, test_loader = self.wrap_data(test_ds, test_loader, False)
+        test_loader = self.prefetch(test_loader, device)
         model = self.build_model(cfg, device)
         evaluator = Evaluator(cfg, self.eval_step(model, device),
                               datasets.get_val_labels(cfg, cfg.split), logger)
@@ -216,22 +272,38 @@ class EntryRuntime:
         without either, the newest run's of ``tag``)."""
         cfg = self.cfg
         if required or (not cfg.ckpt and cfg.exp_id >= 0):
-            cfg.ckpt = str(ckpt_lib.find_snapshot(cfg.g.model_dir, cfg.tag,
-                                                  cfg.exp_id, cfg.ckpt))
+            # in a world rank 0 finds it and sends it (``load_snapshot``)
+            cfg.ckpt = (str(ckpt_lib.find_snapshot(
+                cfg.g.model_dir, cfg.tag, cfg.exp_id, cfg.ckpt))
+                if mesh.process_index() == 0 else "<rank 0's snapshot>")
 
     def train(self) -> Dict:
         """The ``train`` command: ``{"train": <the training summary>}`` plus,
         for a recorded run that was not stopped, ``"test"``: the chained
         ``test`` of ``bestckpt.pt``."""
         result = {"train": self._train()}
-        if self.run._id is not None and not result["train"]["preempted"]:
-            self.cfg.exp_id, self.cfg.ckpt = self.run._id, ckpt_lib.BEST
+        # rank 0 alone records, but every rank takes the chained test (its
+        # eval gathers are collectives): rank 0 says which run it tests;
+        # the stop flag is the same on every rank
+        rid = mesh.broadcast_scalar_from_rank0(
+            -1 if self.run._id is None else self.run._id)
+        if rid >= 0 and not result["train"]["preempted"]:
+            self.cfg.exp_id, self.cfg.ckpt = rid, ckpt_lib.BEST
             result["test"] = self.test()
         return result
 
     def eval_step(self, model, device: torch.device) -> Callable:
         return make_fast_eval_step(model, device, self.apply_eval,
-                                   self.device_keys)
+                                   self.device_keys,
+                                   compact_wire=self.cfg.dev.compact_wire)
+
+    def prefetch(self, loader, device: torch.device):
+        """``loader`` behind the ``DevicePrefetcher`` (``dev.prefetch``
+        batches deep; 0 keeps the serial loader)."""
+        if self.cfg.dev.prefetch <= 0:
+            return loader
+        return DevicePrefetcher(loader, device, self.cfg.dev.prefetch,
+                                self.cfg.dev.compact_wire, self.device_keys)
 
     def _train(self) -> Dict:
         """Train on the device, with checkpoints of ``weights(model)``;
@@ -239,24 +311,46 @@ class EntryRuntime:
         and its epoch, and whether a signal stopped it."""
         cfg, run, logger = self.cfg, self.run, self.logger
         device = resolve_device(cfg.dev.device)
+        world = mesh.resolve_mesh(cfg.dev.mesh)
         random.seed(cfg.seed)
         np.random.seed(cfg.seed)
         train_ds, train_loader, _ = datasets.load(cfg, "train")
         val_ds, val_loader, num_classes = datasets.load(cfg, "eval_online")
         train_ds, train_loader = self.wrap_data(train_ds, train_loader, True)
         val_ds, val_loader = self.wrap_data(val_ds, val_loader, False)
+        split_batch = world > 1 and not self.shard_train_loader
+        train_loader.shard_by_process = self.shard_train_loader
+        if split_batch and cfg.data.bs % world:
+            raise ValueError(
+                f"data.bs={cfg.data.bs}: {self.name} reads every batch on "
+                f"every process and splits it, so the {world} processes "
+                "must divide it")
+        shard = (mesh.RowShard(mesh.process_index(), world,
+                               cfg.data.bs // world if split_batch
+                               else cfg.data.bs) if world > 1 else None)
         model = self.build_model(cfg, device).train()
         params = model.freeze()
+        forward = None
+        if mesh.dist.is_initialized():
+            forward = self.distributed(model, device)
         optimizer = solver.make_optimizer(cfg.tr, params)
+        # optimizer steps per process: the train loader is sharded
         lr_policy = solver.LRPolicy(cfg.tr, cfg.tr.total_epochs
                                     * len(train_loader))
         trainer = Trainer(cfg, run, model, optimizer, params, self,
                           lr_policy, device, logger,
-                          weights=self.weights(model))
+                          weights=self.weights(model), forward=forward,
+                          shard=shard, split_batch=split_batch)
         evaluator = Evaluator(cfg, self.eval_step(model, device),
                               datasets.get_val_labels(cfg, cfg.split), logger,
                               mode="EVAL_ONLINE")
-        logger.info(f"Start training on {device}.")
+        # a split batch is rank 0's, broadcast on the main thread in loop
+        # order: no collective may run on the prefetcher's thread
+        if not split_batch:
+            train_loader = self.prefetch(train_loader, device)
+        val_loader = self.prefetch(val_loader, device)
+        logger.info(f"Start training on {device} (rank "
+                    f"{mesh.process_index()} of {world}).")
         trainer.start_training_loop(train_ds, train_loader, evaluator, val_ds,
                                     val_loader, num_classes,
                                     resume=cfg.resume)
@@ -265,3 +359,30 @@ class EntryRuntime:
         return {"run_id": run._id, "losses": trainer.step_losses,
                 "best_iou": trainer.best_iou, "best_epoch": trainer.best_epoch,
                 "preempted": trainer.preempted, "device": str(device)}
+
+    def distributed(self, model: torch.nn.Module, device: torch.device):
+        """The train forward of a world: ``model``'s batch norms made
+        global when several processes share the batch, and
+        ``apply_train`` behind ``DistributedDataParallel`` (the gradient
+        mean). Parameters that do not train (``freeze()``, PFENet's trunk,
+        stage 2's stage 1) are not DDP's: it registers only those with
+        ``requires_grad``."""
+        if mesh.process_count() > 1:
+            global_batchnorm(model)
+        ids = None if device.type == "cpu" else [torch.cuda.current_device()]
+        return torch.nn.parallel.DistributedDataParallel(
+            _TrainForward(model, self.apply_train), device_ids=ids)
+
+
+class _TrainForward(torch.nn.Module):
+    """``apply(model, tensors)`` as a module, for
+    ``DistributedDataParallel`` to wrap: some families' train forward is
+    not ``model.__call__`` alone."""
+
+    def __init__(self, model: torch.nn.Module, fn: Callable):
+        super().__init__()
+        self.model = model
+        self.fn = fn
+
+    def forward(self, batch):
+        return self.fn(self.model, batch)

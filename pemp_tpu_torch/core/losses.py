@@ -17,16 +17,42 @@ Counterpart of ``pemp_tpu/core/losses.py`` (reference core/losses.py):
 
 Logits are channels-last ``[..., 2]``; labels are integer maps of the
 same leading shape.
+
+In a world of several processes (``parallel/mesh.py``) each process holds
+its rows of the global batch, and ``DistributedDataParallel`` averages
+the processes' gradients. The means over every pixel need nothing more
+(every process holds as many pixels); ``cross_entropy`` and ``cedt``
+divide by a count that depends on the labels, which the JAX mesh sums
+over the global batch: ``_global_ratio`` all-reduces that denominator
+(it carries no gradient) and scales each process's share so that the
+average over the processes is the global loss.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from pemp_tpu_torch.ops.dtypes import f32up
 from pemp_tpu_torch.ops.edt import edt_boundary_weight
+from pemp_tpu_torch.parallel import mesh
 
 IGNORE = 255
+
+
+def _global_ratio(num: torch.Tensor, den: torch.Tensor,
+                  min_den: Optional[int] = None) -> torch.Tensor:
+    """``num / den`` of the global batch (``den`` at least ``min_den``), as
+    this process's share: the world's mean of the returned values is the
+    global ratio, and so is the mean of their gradients (``den`` carries
+    none)."""
+    world = mesh.process_count()
+    if world > 1:
+        den = mesh.all_reduce_sum(den.detach())
+    if min_den is not None:
+        den = den.clamp(min=min_den)
+    return num / den if world == 1 else num * world / den
 
 
 def _pixel_ce(logits: torch.Tensor, labels: torch.Tensor):
@@ -42,7 +68,7 @@ def _pixel_ce(logits: torch.Tensor, labels: torch.Tensor):
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean CE over non-ignored pixels (torch CrossEntropyLoss(ignore=255))."""
     pix, valid = _pixel_ce(logits, labels)
-    return pix.sum() / valid.sum().clamp(min=1)
+    return _global_ratio(pix.sum(), valid.sum(), min_den=1)
 
 
 def per_episode_cross_entropy(logits: torch.Tensor,
@@ -73,7 +99,7 @@ def cedt(logits: torch.Tensor, labels: torch.Tensor,
     logits [B, H, W, 2] (query axis folded), labels [B, H, W]."""
     pix, _ = _pixel_ce(logits, labels)
     weight = edt_boundary_weight(labels, sigma, dtype=pix.dtype)
-    return (pix * weight).sum() / weight.sum()
+    return _global_ratio((pix * weight).sum(), weight.sum())
 
 
 def rpmms_loss(outs, labels: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""The training loop (single process).
+"""The training loop, in one process or in each process of a world.
 
 Counterpart of ``Trainer`` in ``pemp_tpu/core/trainer.py:227-583``
 (reference core/base_trainer.py:183-308):
@@ -14,27 +14,42 @@ Counterpart of ``Trainer`` in ``pemp_tpu/core/trainer.py:227-583``
 - DropBlock draws from a generator seeded ``seed + epoch`` on the device,
   so a resumed epoch replays its masks.
 
+In a world of several processes (``parallel/mesh.py``) only rank 0
+writes checkpoints; ``maybe_resume`` reads on rank 0 and broadcasts the
+bytes (a read error on rank 0 raises on every rank); a stop signal is
+agreed by a world-OR every ``STOP_SYNC_STEPS`` steps and at each epoch
+boundary, so every rank stops at the same step; the logged loss is the
+global batch's, the same on every rank.
+
 The online eval is the evaluator's fast step under ``model.eval()`` and
 ``no_grad``; the model returns to ``model.train()`` after it. The JAX
-package's ``tpu.fuse_steps``, ``PEMP_PROFILE_DIR`` and multi-host
-branches are not ported.
+package's ``tpu.fuse_steps`` (its fused multi-step launch) and
+``PEMP_PROFILE_DIR`` (a trace of the second epoch) are not ported.
 """
 
 from __future__ import annotations
 
+import io
 import logging
 import signal
 import time
 from pathlib import Path
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 
 from pemp_tpu_torch.core import checkpoint as ckpt_lib
 from pemp_tpu_torch.core import solver
-from pemp_tpu_torch.core.evaluator import to_device
+from pemp_tpu_torch.parallel import mesh
+from pemp_tpu_torch.parallel.step import (
+    broadcast_batch, device_batch, take_rows, unpack_batch,
+)
 from pemp_tpu_torch.utils.timer import Timer
+
+# a world agrees on a stop request every this many steps (a synchronous
+# world-OR), and once more at each epoch boundary
+STOP_SYNC_STEPS = 50
 
 
 class GracefulStop:
@@ -77,18 +92,34 @@ class Trainer:
     ``device_keys``, ``compute_loss`` the loss, ``post_step`` (optional)
     sees each step's logits. The checkpoints hold the ``state_dict`` of
     ``weights`` (default ``model``; the stage-2 cascade's is its stage
-    2)."""
+    2).
+
+    ``forward(tensors)`` is the train forward (default ``apply_train`` on
+    ``model``; in a world, the ``DistributedDataParallel`` module that
+    wraps it). ``shard`` names this process's rows of the global batch
+    (the dropout masks keep them); with ``split_batch`` every process reads
+    the whole batch (a loader not sharded by process), takes rank 0's
+    bytes and computes its rows of it."""
 
     def __init__(self, cfg, run, model: torch.nn.Module,
                  optimizer: torch.optim.Optimizer,
                  params: List[torch.nn.Parameter], runtime,
                  lr_policy: solver.LRPolicy, device: torch.device,
                  logger: Optional[logging.Logger] = None,
-                 weights: Optional[torch.nn.Module] = None):
+                 weights: Optional[torch.nn.Module] = None,
+                 forward: Optional[Callable] = None,
+                 shard: Optional[mesh.RowShard] = None,
+                 split_batch: bool = False):
         self.cfg = cfg
         self.run = run
         self.model = model
         self.weights = model if weights is None else weights
+        self.forward = forward or (
+            lambda t: runtime.apply_train(model, t))
+        self.shard = shard
+        self.rows = (slice(shard.rank, None, shard.world)
+                     if split_batch and shard is not None else None)
+        self.rank0 = mesh.process_index() == 0
         self.optimizer = optimizer
         self.params = params
         self.runtime = runtime
@@ -112,10 +143,15 @@ class Trainer:
     def train_step(self, batch) -> torch.Tensor:
         """Forward, loss, backward, clip, optimizer step at the schedule's
         LR, then the runtime's ``post_step`` (if any) with the detached
-        logits and the host batch; returns the detached loss (still on
-        the device)."""
-        t = to_device(batch, self.runtime.device_keys, self.device)
-        logits, aux = self.runtime.apply_train(self.model, t)
+        logits and the host batch; returns the detached loss of the global
+        batch (still on the device). ``batch`` is a host batch or the
+        prefetcher's, whose device tensors pass through."""
+        t = device_batch(batch, self.device, self.cfg.dev.compact_wire,
+                         self.runtime.device_keys)
+        if self.rows is not None:
+            t = take_rows(broadcast_batch(t), self.rows)
+        t = unpack_batch(t)
+        logits, aux = self.forward(t)
         loss = self.runtime.compute_loss(logits, t, aux)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -124,7 +160,7 @@ class Trainer:
         self.optimizer.step()
         if self.runtime.post_step is not None:
             self.runtime.post_step(logits.detach(), batch)
-        return loss.detach()
+        return mesh.world_mean(loss.detach())
 
     # --- snapshots ------------------------------------------------------
     def _resume_extra(self, lr_state=None):
@@ -137,6 +173,8 @@ class Trainer:
                               if lr_state is None else lr_state)}
 
     def try_snapshot(self, epoch=-1, final=False, lr_state=None):
+        if not self.rank0:      # rank 0 alone records
+            return None
         if final:
             if self.do_ckpt:
                 path = self.model_dir / ckpt_lib.CKPT
@@ -157,19 +195,39 @@ class Trainer:
     def maybe_resume(self) -> int:
         """Restore from this run's ``ckpt.pt`` if present; returns the
         epoch it records (0 without a checkpoint). A JAX ``.msgpack``
-        (``ckpt``, or the run's only ``ckpt``) raises ``ValueError``."""
+        (``ckpt``, or the run's only ``ckpt``) raises ``ValueError``.
+
+        In a world, rank 0's run folder decides for every rank: rank 0
+        reads the file and broadcasts its bytes, so every rank restores
+        the same state and epoch, and a read error or a JAX checkpoint on
+        rank 0 raises on every rank (an empty broadcast alone would
+        restart the world from scratch)."""
         path = self.model_dir / ckpt_lib.CKPT
-        jax_ckpt = path.with_suffix(".msgpack")
-        if Path(self.cfg.ckpt).suffix == ".msgpack" or (
-                not path.exists() and jax_ckpt.exists()):
+        data, failure, err = None, 0, ""    # failure: 1 unreadable, 2 JAX
+        if self.rank0:
+            jax_ckpt = path.with_suffix(".msgpack")
+            if Path(self.cfg.ckpt).suffix == ".msgpack" or (
+                    not path.exists() and jax_ckpt.exists()):
+                failure = 2
+            elif path.exists():
+                try:
+                    data = path.read_bytes()
+                except OSError as e:
+                    failure, err = 1, f": {e}"
+        failure = mesh.broadcast_scalar_from_rank0(failure)
+        if failure == 2:
             raise ValueError(
                 "resume needs the port's ckpt.pt: a JAX .msgpack checkpoint "
                 "holds optax optimizer state, which the port's optimizer "
                 "cannot take; start a new run with ckpt=<file.msgpack> to "
                 "load its weights only")
-        if not path.exists():
+        if failure == 1:
+            raise RuntimeError("rank 0 found a resume checkpoint but could "
+                               "not read it" + err)
+        data = mesh.broadcast_bytes_from_rank0(data)
+        if not data:
             return 0
-        payload = ckpt_lib.load(path)
+        payload = ckpt_lib.load(io.BytesIO(data))
         self.weights.load_state_dict(payload["model"])
         if payload.get("optimizer"):
             self.optimizer.load_state_dict(payload["optimizer"])
@@ -179,7 +237,8 @@ class Trainer:
         if "lr_policy" in extra:
             self.lr_policy.load_state_dict(extra["lr_policy"])
         epoch = int(payload["epoch"])
-        self.logger.info(f"Resumed from {path} at epoch {epoch} "
+        src = path if self.rank0 else "rank 0's broadcast checkpoint"
+        self.logger.info(f"Resumed from {src} at epoch {epoch} "
                          f"(lr {self.lr_policy.lr:.2e}, "
                          f"best mIoU {self.best_iou:.4f})")
         return epoch
@@ -197,6 +256,7 @@ class Trainer:
             train_ds.sample_tasks()
 
         stop = GracefulStop().install()
+        world = mesh.process_count()
         try:
             for epoch in range(start_epoch + 1, self.cfg.tr.total_epochs + 1):
                 # the interrupted epoch replays in full on resume, so a
@@ -204,17 +264,26 @@ class Trainer:
                 boundary_lr = self.lr_policy.state_dict()
                 train_ds.sample_tasks()
                 self.model.set_dropout_generator(torch.Generator(
-                    device=self.device).manual_seed(self.cfg.seed + epoch))
+                    device=self.device).manual_seed(self.cfg.seed + epoch),
+                    self.shard)
                 losses = []
-                for batch in train_loader:
+                for step_i, batch in enumerate(train_loader):
                     with timer.start():
                         losses.append(self.train_step(batch))
                     self.lr_policy.step_step()
-                    self.preempted = stop.requested
+                    # one process stops at any step; a world agrees on a
+                    # fixed step schedule (the world-OR is synchronous)
+                    if world == 1:
+                        self.preempted = stop.requested
+                    elif (step_i + 1) % STOP_SYNC_STEPS == 0:
+                        self.preempted = mesh.any_process_flag(
+                            stop.requested)
                     if self.preempted:
                         break
-                # a signal during the epoch tail must not wait an epoch
-                self.preempted = self.preempted or stop.requested
+                # a signal during the epoch tail must not wait an epoch:
+                # every rank takes this world-OR once an epoch
+                if not self.preempted:
+                    self.preempted = mesh.any_process_flag(stop.requested)
                 if self.preempted:
                     self.try_snapshot(epoch - 1, final=True,
                                       lr_state=boundary_lr)
@@ -253,7 +322,7 @@ class Trainer:
         best = False
         if miou > self.best_iou:
             self.best_iou, self.best_epoch = miou, epoch
-            if self.do_ckpt:
+            if self.do_ckpt and self.rank0:
                 ckpt_lib.save(self.model_dir / ckpt_lib.BEST, self.weights,
                               self.optimizer, epoch)
                 best = True

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 from PIL import Image
 
-from pemp_tpu_torch.core.evaluator import to_device
+from pemp_tpu_torch.parallel.step import device_batch, unpack_batch
 from pemp_tpu_torch.data import datasets
 from pemp_tpu_torch.device import resolve_device
 from pemp_tpu_torch.ops.resize import resize_bilinear_align_corners_np
@@ -90,7 +90,8 @@ def evaluate_and_save(runtime, max_episodes: int = 50) -> str:
         cname = datasets.get_class_name(cls, cfg.data.dataset)
         fname = cname.replace("/", "_")
         logits, response = runtime.apply_visualize(
-            model, to_device(batch, runtime.device_keys, device))
+            model, unpack_batch(device_batch(
+                batch, device, cfg.dev.compact_wire, runtime.device_keys)))
         logits = logits[0, 0].float().cpu().numpy()         # [h, w, 2]
         response = response[0, 0].cpu().numpy()             # [h, w]
 

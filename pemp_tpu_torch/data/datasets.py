@@ -40,7 +40,8 @@ def resolve_base_dir(cfg) -> str:
 
 def load(cfg, mode: str = "test"):
     """Returns (dataset, loader, num_classes). ``mode``: ``train`` (batches
-    of ``data.bs``, a short last batch dropped), ``eval_online``, ``test``
+    of ``data.bs`` of this process's shard of the episodes, a short last
+    batch dropped), ``eval_online``, ``test``
     or ``visualize`` (batches of ``data.test_bs``; ``visualize`` adds the
     sample names). ``data.base_dir`` becomes the resolved root."""
     if mode not in MODES:
@@ -60,8 +61,10 @@ def load(cfg, mode: str = "test"):
         cfg.data.base_dir = resolve_base_dir(cfg)
     ds = cls(cfg, train, cfg.split, cfg.shot, cfg.query,
              ret_name=mode == "visualize")
+    # each process of a world trains on its shard of the episodes
     loader = EpisodeLoader(ds, cfg.data.bs if train else cfg.data.test_bs,
-                           num_workers=cfg.data.num_workers, drop_last=train)
+                           num_workers=cfg.data.num_workers, drop_last=train,
+                           shard_by_process=train)
     return ds, loader, ds.num_classes
 
 

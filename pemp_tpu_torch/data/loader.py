@@ -1,9 +1,11 @@
 """Host-side episodic batch loader with background prefetch.
 
-Copy of ``pemp_tpu/data/loader.py`` without its multi-host sharding
-(``shard_by_process``): a thread pool renders the episodes of each batch
-and a bounded queue keeps ``prefetch`` batches ready. Batches are plain
-numpy dicts; the evaluator moves them to the device.
+Copy of ``pemp_tpu/data/loader.py``: a thread pool renders the episodes
+of each batch and a bounded queue keeps ``prefetch`` batches ready; with
+``shard_by_process`` (the train loader) each process of a world reads its
+equal-length, rank-strided shard of the episode list
+(``parallel.mesh.process_episode_indices``). Batches are plain numpy
+dicts; the steps move them to the device (``parallel/step.py``).
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator
 
 import numpy as np
+
+from pemp_tpu_torch.parallel.mesh import process_episode_indices
 
 
 def _collate(episodes) -> Dict:
@@ -37,26 +41,35 @@ def _collate(episodes) -> Dict:
 
 class EpisodeLoader:
     """Iterates batches over the dataset's pre-sampled tasks, in order;
-    ``drop_last`` (training) leaves out a short last batch."""
+    ``drop_last`` (training) leaves out a short last batch;
+    ``shard_by_process`` reads this process's shard of them (the seeded
+    task list is the same on every process)."""
 
     def __init__(self, dataset, batch_size: int, num_workers: int = 4,
-                 prefetch: int = 2, drop_last: bool = False):
+                 prefetch: int = 2, drop_last: bool = False,
+                 shard_by_process: bool = False):
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_workers = max(1, num_workers)
         self.prefetch = max(1, prefetch)
         self.drop_last = drop_last
+        self.shard_by_process = shard_by_process
+
+    def _indices(self):
+        n = len(self.dataset)
+        return process_episode_indices(n) if self.shard_by_process \
+            else list(range(n))
 
     def __len__(self):
-        n = len(self.dataset)
+        n = len(self._indices())
         return n // self.batch_size if self.drop_last \
             else -(-n // self.batch_size)
 
     def _batches(self):
-        n = len(self.dataset)
-        stop = len(self) * self.batch_size if self.drop_last else n
+        idx = self._indices()
+        stop = len(self) * self.batch_size if self.drop_last else len(idx)
         for s in range(0, stop, self.batch_size):
-            yield list(range(s, min(s + self.batch_size, n)))
+            yield idx[s:s + self.batch_size]
 
     def __iter__(self) -> Iterator[Dict]:
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)

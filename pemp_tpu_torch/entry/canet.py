@@ -17,6 +17,12 @@ is written back. That copies the [B, Q, h8, w8, 2] logits to the host
 each step, which waits for the step (the JAX package's design). The
 train loss is ``loss`` on the logits upsampled to the label size
 (reference :109-112); ``test`` starts from an empty store.
+
+In a world of several processes every process keeps a whole store: its
+train loader is not sharded (``shard_train_loader = False``), so every
+process reads the whole stream (the global batch is ``data.bs``), takes
+rank 0's batch and computes its rows; the write-back gathers the global
+batch's logits, in training and in eval alike.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from pemp_tpu_torch.data.loader import EpisodeLoader
 from pemp_tpu_torch.models import registry
 from pemp_tpu_torch.models.canet import feat_size
 from pemp_tpu_torch.models.common import output_resize
+from pemp_tpu_torch.parallel import mesh
 
 NAME = "canet"
 
@@ -51,6 +58,7 @@ def softmax_np(x: np.ndarray) -> np.ndarray:
 class CaNetRuntime(EntryRuntime):
     name = NAME
     device_keys = ARRAY_KEYS + ("history",)
+    shard_train_loader = False
 
     def __init__(self, cfg, run=None, build=None):
         super().__init__(cfg, run, build)
@@ -61,7 +69,8 @@ class CaNetRuntime(EntryRuntime):
         adapter = CaNetDataAdapter(ds, self.store, train)
         return adapter, EpisodeLoader(adapter, loader.batch_size,
                                       loader.num_workers, loader.prefetch,
-                                      loader.drop_last)
+                                      loader.drop_last,
+                                      loader.shard_by_process)
 
     def apply_train(self, model, batch):
         """Feature-resolution logits (the loss upsamples them)."""
@@ -84,11 +93,15 @@ class CaNetRuntime(EntryRuntime):
                 self.store.put(batch["cls"][i], name, soft[i, j])
 
     def post_step(self, logits: torch.Tensor, batch) -> None:
-        self.write_history(logits.float().cpu().numpy(), batch)
+        """``logits`` are this process's rows of the global batch
+        ``batch`` (rows r, r+W, ...): gathered, every store sees them all."""
+        logits = mesh.gather_rows(logits.float(), strided=True)
+        self.write_history(logits.cpu().numpy(), batch)
 
     def eval_step(self, model, device: torch.device):
         raw = make_fast_eval_step(model, device, self.apply_eval,
-                                  self.device_keys, with_logits=True)
+                                  self.device_keys, with_logits=True,
+                                  compact_wire=self.cfg.dev.compact_wire)
 
         def step(batch):
             counts, losses, feat = raw(batch)

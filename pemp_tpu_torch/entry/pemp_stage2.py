@@ -34,7 +34,7 @@ import torch
 from pemp_tpu_torch.config import Config, Experiment
 from pemp_tpu_torch.core import checkpoint as ckpt_lib
 from pemp_tpu_torch.core.experiment import (
-    EntryRuntime, get_logger, init_weights, load_weights, set_precision,
+    EntryRuntime, get_logger, init_weights, load_snapshot, set_precision,
 )
 from pemp_tpu_torch.models import registry
 from pemp_tpu_torch.models.pemp_stage2 import PEMPCascade
@@ -61,11 +61,9 @@ class Stage2Runtime(EntryRuntime):
         ``cfg.seed``. Both run at ``dev.precision``."""
         set_precision(cfg.dev.precision)
         stage1 = registry.build("pemp_stage1", cfg)
-        path = ckpt_lib.find_snapshot(cfg.g.model_dir,
-                                      cfg.s1.tag or "pemp_stage1",
-                                      cfg.s1.id, cfg.s1.ckpt)
-        load_weights(stage1, path)
-        get_logger(cfg.tag).info(f"Stage-1 (frozen) initialized from {path}")
+        load_snapshot(stage1, lambda: ckpt_lib.find_snapshot(
+            cfg.g.model_dir, cfg.s1.tag or "pemp_stage1", cfg.s1.id,
+            cfg.s1.ckpt), get_logger(cfg.tag), "Stage-1 (frozen)")
         stage2 = registry.build(NAME, cfg)
         init_weights(stage2, cfg, NAME)
         model = PEMPCascade(stage1, stage2)

@@ -83,13 +83,15 @@ class FewShotModel(nn.Module):
                         p.requires_grad_(False)
         return [p for p in self.parameters() if p.requires_grad]
 
-    def set_dropout_generator(self, generator: Optional[torch.Generator]
-                              ) -> None:
+    def set_dropout_generator(self, generator: Optional[torch.Generator],
+                              shard=None) -> None:
         """The generator every DropBlock and Dropout2d draws from in train
-        mode."""
+        mode, and the rows of the global batch this process holds
+        (``shard``, a ``parallel.mesh.RowShard``; None for one process)."""
         for m in self.modules():
             if isinstance(m, (DropBlock, Dropout2d)):
                 m.generator = generator
+                m.shard = shard
 
 
 class PurifierV2(nn.Sequential):

@@ -17,7 +17,13 @@ torch's conventions on NHWC Flax modules; here they are torch's own:
   ``nn.MaxPool2d(3, stride, 1)`` (floor mode), which differs from it at
   even sizes;
 - ``Dropout2d`` and ``DropBlock`` draw from an explicit generator (set by
-  the trainer), which ``nn.Dropout2d`` cannot take.
+  the trainer), which ``nn.Dropout2d`` cannot take; in a world of several
+  processes each draws the mask of the global batch and keeps its own
+  rows (``shard``, a ``parallel.mesh.RowShard``), the masks one process
+  would draw;
+- ``GlobalBatchNorm`` replaces ``BatchNorm`` in a world of several
+  processes (``global_batchnorm``): train-mode statistics over the global
+  batch, as under the JAX package's mesh.
 
 Modules take NCHW tensors; the models keep them in
 ``torch.channels_last`` memory, the layout of the JAX package.
@@ -31,6 +37,7 @@ import torch
 from torch import nn
 
 from pemp_tpu_torch.ops.dropblock import dropblock_2d
+from pemp_tpu_torch.parallel import mesh
 
 Conv = nn.Conv2d
 BatchNorm = nn.BatchNorm2d      # defaults eps=1e-5, momentum=0.1
@@ -66,11 +73,13 @@ class DropBlock(nn.Module):
         self.rate = rate
         self.block_size = block_size
         self.generator: Optional[torch.Generator] = None
+        self.shard: Optional[mesh.RowShard] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return x
-        return dropblock_2d(x, self.rate, self.block_size, self.generator)
+        return dropblock_2d(x, self.rate, self.block_size, self.generator,
+                            self.shard)
 
 
 class Dropout2d(nn.Module):
@@ -84,6 +93,7 @@ class Dropout2d(nn.Module):
         super().__init__()
         self.rate = rate
         self.generator: Optional[torch.Generator] = None
+        self.shard: Optional[mesh.RowShard] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
@@ -91,9 +101,91 @@ class Dropout2d(nn.Module):
         if self.rate >= 1.0:
             return torch.zeros_like(x)
         n, c = x.shape[:2]
-        keep = torch.rand((n, c, 1, 1), generator=self.generator,
+        world = 1 if self.shard is None else self.shard.world
+        keep = torch.rand((n * world, c, 1, 1), generator=self.generator,
                           device=x.device) >= self.rate
+        if self.shard is not None:
+            keep = self.shard.local(keep)
         return x / (1.0 - self.rate) * keep
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode batch norm over the world's batch (NCHW): the forward
+    all-reduces the per-channel sum and count, then the sum of squared
+    deviations (two passes, the JAX ``_TorchBatchNorm``); the backward
+    all-reduces the sums of the gradient and of the gradient times the
+    normalised input, torch's batch-norm backward over the global batch.
+    Half-precision inputs are normalised in float32."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, module):
+        dims = (0, 2, 3)
+        xf = x.float() if x.dtype in (torch.float16, torch.bfloat16) else x
+        count = xf.new_full((1,), x.numel() // x.shape[1])
+        stats = mesh.all_reduce_sum(torch.cat([xf.sum(dims), count]))
+        n = stats[-1]
+        mean = stats[:-1] / n
+        xc = xf - mean[None, :, None, None]
+        var = mesh.all_reduce_sum((xc * xc).sum(dims)) / n
+        invstd = torch.rsqrt(var + module.eps)
+        xhat = xc * invstd[None, :, None, None]
+        y = xhat
+        if weight is not None:
+            y = xhat * weight[None, :, None, None].to(xhat.dtype) \
+                + bias[None, :, None, None].to(xhat.dtype)
+        if module.track_running_stats:
+            m = module.momentum
+            module.num_batches_tracked.add_(1)
+            module.running_mean.mul_(1 - m).add_(m * mean)
+            module.running_var.mul_(1 - m).add_(m * var * n / (n - 1))
+        ctx.save_for_backward(xhat, weight, invstd, n)
+        return y.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, grad_y):
+        xhat, weight, invstd, n = ctx.saved_tensors
+        dims = (0, 2, 3)
+        g = grad_y.to(xhat.dtype)
+        sum_dy = g.sum(dims)
+        sum_dy_xhat = (g * xhat).sum(dims)
+        grad_x = grad_w = grad_b = None
+        if ctx.needs_input_grad[0]:
+            c = sum_dy.shape[0]
+            both = mesh.all_reduce_sum(torch.cat([sum_dy, sum_dy_xhat])) / n
+            scale = invstd if weight is None else invstd * weight.to(g.dtype)
+            grad_x = ((g - both[None, :c, None, None]
+                       - xhat * both[None, c:, None, None])
+                      * scale[None, :, None, None]).to(grad_y.dtype)
+        # the parameters' local sums: DDP's mean over the ranks completes
+        # them, as for every other parameter
+        if weight is not None and ctx.needs_input_grad[1]:
+            grad_w = sum_dy_xhat.to(weight.dtype)
+        if weight is not None and ctx.needs_input_grad[2]:
+            grad_b = sum_dy.to(weight.dtype)
+        return grad_x, grad_w, grad_b, None
+
+
+class GlobalBatchNorm(nn.BatchNorm2d):
+    """``BatchNorm`` whose train-mode statistics span every process of the
+    world (``_GlobalBatchNorm``); with one process, or in eval mode, it is
+    ``BatchNorm``. Parameters, buffers and ``state_dict`` keys are
+    ``BatchNorm``'s, so checkpoints load across world sizes."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or mesh.process_count() == 1:
+            return super().forward(x)
+        return _GlobalBatchNorm.apply(x, self.weight, self.bias, self)
+
+
+def global_batchnorm(model: nn.Module) -> nn.Module:
+    """Every ``BatchNorm`` of ``model`` becomes a ``GlobalBatchNorm`` in
+    place (the same parameters and buffers): its batch statistics in train
+    mode are the world's, as one process would take them over the global
+    batch. ``torch.nn.SyncBatchNorm`` does the same on CUDA only."""
+    for m in model.modules():
+        if type(m) is BatchNorm:
+            m.__class__ = GlobalBatchNorm
+    return model
 
 
 class ASPP(nn.Module):

@@ -133,12 +133,12 @@ class PEMPCascade(nn.Module):
         """Stage 2's ``freeze()``: its parameters that train."""
         return self.stage2.freeze()
 
-    def set_dropout_generator(self, generator: Optional[torch.Generator]
-                              ) -> None:
+    def set_dropout_generator(self, generator: Optional[torch.Generator],
+                              shard=None) -> None:
         """Both stages' dropouts draw from ``generator`` in train mode
-        (stage 1 first, each step)."""
-        self.stage1.set_dropout_generator(generator)
-        self.stage2.set_dropout_generator(generator)
+        (stage 1 first, each step), over the rows ``shard`` names."""
+        self.stage1.set_dropout_generator(generator, shard)
+        self.stage2.set_dropout_generator(generator, shard)
 
     @torch.no_grad()
     def prior(self, sup_img, sup_mask, qry_img) -> torch.Tensor:

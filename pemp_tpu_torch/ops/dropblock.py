@@ -36,13 +36,21 @@ def dropblock_mask(uniform: torch.Tensor, rate: float, block_size: int
 
 
 def dropblock_2d(x: torch.Tensor, rate: float, block_size: int,
-                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                 generator: Optional[torch.Generator] = None,
+                 shard=None) -> torch.Tensor:
     """DropBlock on NCHW ``x`` (train mode); the identity at rate 0.
     ``generator`` (on ``x``'s device) draws the [N, H, W] uniforms; None
-    uses PyTorch's default generator of that device."""
+    uses PyTorch's default generator of that device. With ``shard`` (a
+    ``parallel.mesh.RowShard``), ``x`` is this process's rows of a global
+    batch: the uniforms and the rescale are the global batch's, and the
+    mask keeps this process's rows."""
     if rate == 0.0:
         return x
     n, _, h, w = x.shape
-    uniform = torch.rand((n, h, w), generator=generator, device=x.device)
+    world = 1 if shard is None else shard.world
+    uniform = torch.rand((n * world, h, w), generator=generator,
+                         device=x.device)
     mask, scale = dropblock_mask(uniform, rate, block_size)
+    if shard is not None:
+        mask = shard.local(mask)
     return (x * (mask * scale)[:, None]).to(x.dtype)

@@ -8,8 +8,9 @@ port's run one tiny CPU ``train`` (which chains into ``test``) and one
 run folders hold the same files (the checkpoints by stem: ``.msgpack``
 against ``.pt``), ``metrics.json`` the same scalars at the same steps,
 the Mongo documents the same keys and the same kind of result line, and
-``config.json`` the same keys but for the scopes the port renames or
-leaves out (``CONFIG_ONLY_JAX``, ``CONFIG_ONLY_PORT``). Then the port
+``config.json`` the same keys (the renamed ones by ``CONFIG_RENAMED``)
+but for those the port leaves out or adds (``CONFIG_ONLY_JAX``,
+``CONFIG_ONLY_PORT``). Then the port
 alone: ``-p``, a resume that keeps the metric history, and the statuses
 of a failure, a ctrl-C and a signal-stopped training run.
 """
@@ -34,9 +35,11 @@ SMALL = ["split=0", "data.dataset=SYNTH", "data.height=33", "data.width=33",
          "data.num_workers=2", "g.mongodb=True"]
 PORT = ["dev.device=cpu", "dev.precision=f32"]
 # config.json: the JAX package's device scope ``tpu`` is the port's
-# ``dev``; the log file is not ported
-CONFIG_ONLY_JAX = {"tpu.platform", "tpu.mesh", "tpu.precision",
-                   "tpu.prefetch", "tpu.use_pallas", "tpu.compact_wire",
+# ``dev``, where the keys of the world and the input path keep their names
+# (``CONFIG_RENAMED``); the log file is not ported
+CONFIG_RENAMED = {"tpu.mesh": "dev.mesh", "tpu.prefetch": "dev.prefetch",
+                  "tpu.compact_wire": "dev.compact_wire"}
+CONFIG_ONLY_JAX = {"tpu.platform", "tpu.precision", "tpu.use_pallas",
                    "tpu.fuse_steps", "g.log_file"}
 CONFIG_ONLY_PORT = {"dev.device", "dev.precision"}
 RESULT = re.compile(r"Loss: \d+\.\d{4}, mIoU: \d+\.\d{2}, bIoU: \d+\.\d{2}")
@@ -124,11 +127,12 @@ def test_metrics_and_mongo_documents_match_the_jax_records(runs):
 def test_config_json_has_the_jax_keys(runs):
     jax_dir, port_dir = (d / "1" for d in runs)
     jc = json.loads((jax_dir / "config.json").read_text())
+    jc = {CONFIG_RENAMED.get(k, k): v for k, v in jc.items()}
     pc = json.loads((port_dir / "config.json").read_text())
     assert set(jc) - set(pc) == CONFIG_ONLY_JAX
     assert set(pc) - set(jc) == CONFIG_ONLY_PORT
     for key in ("split", "tr.total_epochs", "data.height", "net.backbone",
-                "g.mongodb", "data.mean", "p.cls"):
+                "g.mongodb", "data.mean", "p.cls", *CONFIG_RENAMED.values()):
         assert pc[key] == jc[key], key
 
 
