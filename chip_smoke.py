@@ -50,9 +50,9 @@ SYNTH episodes):
   the argmax tolerance (cuDNN's algorithms depend on the batch size); COCO's file lists, a ``test`` and two train steps, the C++
   rasterizer against its numpy version on every annotation; the real
   batches' f32 step, eval batch and EDT against their plain versions;
-  the loader's host ms a batch, the train step fed by it against the
-  same step fed by SYNTH, its wait on the loader and the card's idle
-  share;
+  the loader's host ms a batch, the train step fed by it (serially and
+  through the device prefetcher) against the same step fed by SYNTH, its
+  wait on the loader and the card's idle share;
 - the parallel layer (``parallel_path``; stage 1, ResNet-50, 401², bf16,
   cedt): a compact-wire epoch fed by the device prefetcher bit-equal to
   the serial one, one stage-2 eval batch's pageable and pinned copies,
@@ -670,7 +670,8 @@ def main_path_phase(torch, K):
     # steady state, after the entry run's warm-up: the whole eval step
     # (H2D, forward, resize, metrics, one fetch) on the host clock, and
     # the forward alone with the batch already on the card
-    step = make_fast_eval_step(model, device)
+    step = make_fast_eval_step(model, device,
+                               compact_wire=cfg.dev.compact_wire)
     step_s = []
     for _ in range(10):
         t0 = time.perf_counter()
@@ -1340,7 +1341,8 @@ def stage2_path_phase(torch, K, M):
     prof["conv_odd_channels_us"] = sum(g["us"] for g in odd)
     prof["conv_odd_channels_top"] = odd[:12]
     model.eval()
-    eval_step = make_fast_eval_step(model, device)
+    eval_step = make_fast_eval_step(model, device,
+                                    compact_wire=cfg.dev.compact_wire)
     eval_ms = host_ms(torch, lambda: eval_step(ebatch))
     eval_prof = device_profile(torch, lambda: eval_step(ebatch), {
         "mpm_kernels": ["assign_kernel", "match_kernel"]})
@@ -2400,8 +2402,8 @@ def real_data_path_phase(torch, K, M):
     plain versions; COCO's file lists, a ``test`` and two train steps,
     the C++ rasterizer loaded and equal to its numpy version on every
     annotation; the loader's host ms a batch, the train step fed by it
-    against the same step fed by SYNTH, its wait on the loader and the
-    card's idle share."""
+    (serially, and through the ``DevicePrefetcher``) against the same step
+    fed by SYNTH, its wait on the loader and the card's idle share."""
     from unittest import mock
 
     import numpy as np
@@ -2416,6 +2418,7 @@ def real_data_path_phase(torch, K, M):
     from pemp_tpu_torch.entry import pemp_stage1 as entry
     from pemp_tpu_torch.models import pemp_stage1 as stage1
     from pemp_tpu_torch.ops import edt
+    from pemp_tpu_torch.parallel.step import DevicePrefetcher
 
     device = torch.device("cuda")
     out = {"phase": "real_data_path"}
@@ -2593,7 +2596,9 @@ def real_data_path_phase(torch, K, M):
         step = evaluator_mod.make_fast_eval_step(model, device,
                                                  entry.Stage1Runtime(
                                                      cfg).apply_eval,
-                                                 with_logits=True)
+                                                 with_logits=True,
+                                                 compact_wire=cfg.dev
+                                                 .compact_wire)
         before = dict(K.launches)
         ck, lk, fk = step(ebatch)
         with mock.patch.object(stage1, "mpm_chain_packed", plain_chain):
@@ -2645,12 +2650,17 @@ def real_data_path_phase(torch, K, M):
         fed = {}
         for name, extra in (("synth", {"data.dataset": "SYNTH"}),
                             ("pascal_decoded", {"data.cache": "False"}),
-                            ("pascal_cached", {})):
+                            ("pascal_cached", {}),
+                            ("pascal_cached_prefetched", {})):
             fcfg = entry.ex.assemble("train", {
                 **dict(a.split("=", 1) for a in REAL_ARGS[2:] + [voc_arg]),
                 "data.train_n": str(n), "data.seed": "4321", **extra})
             ds_f, loader_f, _ = datasets.load(fcfg, "train")
             ds_f.sample_tasks()
+            if name.endswith("_prefetched"):
+                loader_f = DevicePrefetcher(
+                    loader_f, device, fcfg.dev.prefetch,
+                    fcfg.dev.compact_wire, entry.Stage1Runtime.device_keys)
             fed[name] = fed_steps(torch, trainer, loader_f)
         prof = device_profile(torch, lambda: trainer.train_step(tbatch), {
             "mpm_kernels": ["assign_kernel", "match_kernel"],

@@ -45,8 +45,8 @@ def _forward(model, t):
 
 def make_fast_eval_step(model: torch.nn.Module, device: torch.device,
                         apply: Callable = _forward, keys=ARRAY_KEYS,
-                        with_logits: bool = False,
-                        compact_wire: bool = False) -> Callable:
+                        with_logits: bool = False, *,
+                        compact_wire: bool) -> Callable:
     """batch (numpy, or the prefetcher's) -> (counts [B, 2, 3] int64,
     losses [B] float64); ``apply(model, tensors)`` is the eval forward
     (default: the model called on the support images, masks and query

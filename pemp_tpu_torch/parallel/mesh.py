@@ -31,6 +31,7 @@ from __future__ import annotations
 import datetime
 import os
 import struct
+import sys
 from dataclasses import dataclass
 
 import torch
@@ -100,13 +101,49 @@ def _launch_spec():
     return f"tcp://{addr}", world, rank, local
 
 
+def _local_world():
+    """The most processes the launch puts on one node: ``torchrun``'s
+    ``LOCAL_WORLD_SIZE``, or Slurm's tasks per node (``"8"``, or per-node
+    counts such as ``"8(x2),4"``); None when the launcher does not say
+    (the ``COORDINATOR_ADDRESS`` triple without ``LOCAL_WORLD_SIZE``)."""
+    env = os.environ
+    if "LOCAL_WORLD_SIZE" in env:
+        return int(env["LOCAL_WORLD_SIZE"])
+    tasks = env.get("SLURM_NTASKS_PER_NODE") or env.get("SLURM_TASKS_PER_NODE")
+    if tasks:
+        return max(int(part.split("(")[0]) for part in tasks.split(","))
+    return None
+
+
+def choose_backend(device: str, world: int, cards: int) -> str:
+    """The world's backend: NCCL when every process of a CUDA launch has
+    a card of its own, gloo on the CPU and where the processes of a node
+    outnumber its cards and so share them. The decision is the same on
+    every rank (it reads the most processes on any node). A CUDA launch
+    of more processes than this node has cards, whose launcher does not
+    say how many run on each node, raises: gloo would move every
+    collective through the host on a multi-node job."""
+    if torch.device(device).type != "cuda":
+        return "gloo"
+    if world <= cards:
+        return "nccl"
+    local = _local_world()
+    if local is None:
+        raise RuntimeError(
+            f"a world of {world} processes on a node of {cards} cards: set "
+            "LOCAL_WORLD_SIZE to the processes each node runs (torchrun "
+            "and Slurm say it themselves)")
+    return "nccl" if local <= cards else "gloo"
+
+
 def initialize_distributed(device: str = "cuda") -> bool:
     """Join the world the environment describes; True when a world exists
     (launched now or before), False for a plain single process.
 
     On CUDA each process binds ``LOCAL_RANK``'s card and the world runs
-    over NCCL, unless the host has fewer cards than processes, which then
-    share them over gloo; ``device="cpu"`` runs over gloo. Every
+    over NCCL, unless a node runs more processes than it has cards, which
+    then share them over gloo (``choose_backend``); ``device="cpu"`` runs
+    over gloo. Rank 0 prints the backend to stderr. Every
     collective times out after ``PEMP_DIST_TIMEOUT_S`` seconds, so a
     world whose peer died raises instead of hanging. A broken launch
     raises."""
@@ -115,17 +152,20 @@ def initialize_distributed(device: str = "cuda") -> bool:
     if _launch_env() is None:
         return False
     addr, world, rank, local = _launch_spec()
-    backend = "gloo"
+    cards = 0
     if torch.device(device).type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "CUDA is not available; pass dev.device=cpu to run the "
                 "world on the CPU over gloo")
         cards = torch.cuda.device_count()
-        local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
         torch.cuda.set_device(local % cards)
-        if cards >= local_world:
-            backend = "nccl"
+    backend = choose_backend(device, world, cards)
+    if rank == 0:
+        shared = " (processes share the cards)" if backend == "gloo" \
+            and cards else ""
+        print(f"pemp_tpu_torch: a world of {world} processes over "
+              f"{backend}{shared}", file=sys.stderr, flush=True)
     timeout = float(os.environ.get("PEMP_DIST_TIMEOUT_S", DEFAULT_TIMEOUT_S))
     dist.init_process_group(backend, init_method=addr, world_size=world,
                             rank=rank,

@@ -11,8 +11,9 @@ ported.
   ``cls`` as int32 (``dev.compact_wire``, 2.4x fewer bytes than float32);
   ``unpack_batch`` restores the compute dtypes on the device.
 - On a CUDA device the host arrays are converted straight into pinned
-  buffers and copied with ``non_blocking=True``; a CPU build cannot pin,
-  so the CPU path copies plainly.
+  buffers, on the calling thread alone, and copied with
+  ``non_blocking=True``; a CPU build cannot pin, so the CPU path copies
+  plainly.
 - ``DevicePrefetcher`` makes the next batches' copies on a side CUDA
   stream while the current step computes. Only copies run there: the
   kernels take ``torch.cuda.current_stream()`` and keep their tickets per
@@ -25,6 +26,7 @@ from __future__ import annotations
 import queue
 import threading
 import time
+from contextlib import contextmanager
 from typing import Dict, Iterable
 
 import numpy as np
@@ -49,6 +51,8 @@ UNPACK_DTYPES = {
     "history": torch.float32, "qry_prior": torch.float32,
     "cls": torch.int32,
 }
+_TORCH_WIRE_DTYPES = {k: torch.from_numpy(np.empty(0, v)).dtype
+                      for k, v in WIRE_DTYPES.items()}
 
 
 def gt_mismatch(batch: Dict) -> bool:
@@ -60,17 +64,37 @@ def gt_mismatch(batch: Dict) -> bool:
             and tuple(q.shape[-2:]) != tuple(r.shape[2:4]))
 
 
+@contextmanager
+def _calling_thread_only():
+    """torch's CPU ops on the calling thread alone. A cast or copy of more
+    than torch's grain of elements runs on all its intra-op threads, and
+    waits for the slowest: on cores that the loader's threads share, the
+    serial path's train step took 50-53 ms that way against 37-43 ms with
+    the casts on the calling thread (``input_times.py`` on an H100 host)."""
+    n = torch.get_num_threads()
+    if n == 1:
+        yield
+        return
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 def _to_device(v: np.ndarray, dtype, device: torch.device) -> torch.Tensor:
     """One host array as a ``dtype`` tensor on ``device``: on CUDA through
-    a pinned buffer that the cast writes into, copied without blocking.
-    The cast is torch's (vectorised; numpy's float16 cast is not, and
-    takes ~15x longer), rounding to nearest even as numpy's does."""
+    a pinned buffer that the cast writes into on the calling thread,
+    copied without blocking. The cast is torch's (vectorised; numpy's
+    float16 cast is not, and takes ~15x longer), rounding to nearest even
+    as numpy's does."""
     torch_dtype = torch.from_numpy(np.empty(0, dtype)).dtype
     src = torch.from_numpy(np.ascontiguousarray(v))
     if device.type != "cuda":
         return src.to(torch_dtype).to(device)
     buf = torch.empty(v.shape, dtype=torch_dtype, pin_memory=True)
-    buf.copy_(src)
+    with _calling_thread_only():
+        buf.copy_(src)
     return buf.to(device, non_blocking=True)
 
 
@@ -96,9 +120,13 @@ def device_batch(batch: Dict, device: torch.device, compact_wire: bool = True,
 
 
 def unpack_batch(batch: Dict) -> Dict:
-    """The compute dtypes of a device batch (on its device)."""
-    return {k: (v.to(UNPACK_DTYPES[k]) if k in UNPACK_DTYPES
-                and isinstance(v, torch.Tensor) else v)
+    """The compute dtypes of a device batch (on its device): a tensor that
+    travelled on the compact wire (its key's wire dtype) is restored; any
+    other keeps the dtype its loader gave it, as on the plain wire (a
+    float64 batch stays float64)."""
+    return {k: (v.to(UNPACK_DTYPES[k]) if isinstance(v, torch.Tensor)
+                and k in WIRE_DTYPES
+                and v.dtype == _TORCH_WIRE_DTYPES[k] else v)
             for k, v in batch.items()}
 
 

@@ -132,7 +132,7 @@ def port_eval(port, cfg, monkeypatch):
     ds, loader, n = datasets.load(cfg, "test")
     ev = evaluator_mod.Evaluator(
         cfg, evaluator_mod.make_fast_eval_step(port, torch.device("cpu"),
-                                               apply),
+                                               apply, compact_wire=False),
         datasets.get_val_labels(cfg, cfg.split))
     loss, miou, biou = ev.start_eval_loop(ds, loader, n)
     return float(loss), np.asarray(miou), np.asarray(biou), rec.stats()
@@ -194,7 +194,8 @@ def test_fixed_and_variable_gt_batches_take_one_step(carried):
     batch = next(iter(loader))
     assert isinstance(batch["qry_msk"], np.ndarray)
     step = evaluator_mod.make_fast_eval_step(port, torch.device("cpu"),
-                                             apply, with_logits=True)
+                                             apply, with_logits=True,
+                                             compact_wire=False)
     counts, losses, feat = step(batch)
     split = dict(batch, qry_msk=list(batch["qry_msk"]))
     counts2, losses2, feat2 = step(split)

@@ -8,7 +8,8 @@
   1-4 processes and 0, 1, 7, 8 episodes;
 - ``_launch_env`` over the JAX package's environment cases
   (``tests/test_multichip.py::test_launch_env_detection``), ``torchrun``'s
-  and Slurm's; ``resolve_mesh``'s errors; the ``dev`` keys' defaults;
+  and Slurm's; the backend of single- and multi-node launches;
+  ``resolve_mesh``'s errors; the ``dev`` keys' defaults;
 - the ``DevicePrefetcher``'s order, host keys, error and early exit;
 - the dropout masks of a world: each rank's rows of the global batch's
   masks, those one process draws;
@@ -126,6 +127,47 @@ def test_launch_env(monkeypatch, env, port, jax_answer):
                 fn()
         else:
             assert fn() == want
+
+
+# (launch environment, world size, cards on this node, the backend or
+# "raise")
+BACKEND_CASES = [
+    ({}, 1, 1, "nccl"),
+    ({"LOCAL_WORLD_SIZE": "2"}, 2, 1, "gloo"),           # a shared card
+    # torchrun across two nodes of eight cards each
+    ({"LOCAL_WORLD_SIZE": "8"}, 16, 8, "nccl"),
+    # Slurm across two nodes, with and without --ntasks-per-node
+    ({"SLURM_JOB_NUM_NODES": "2", "SLURM_NTASKS": "16",
+      "SLURM_TASKS_PER_NODE": "8(x2)"}, 16, 8, "nccl"),
+    ({"SLURM_JOB_NUM_NODES": "2", "SLURM_NTASKS": "12",
+      "SLURM_TASKS_PER_NODE": "8,4"}, 12, 8, "nccl"),
+    ({"SLURM_JOB_NUM_NODES": "1", "SLURM_NTASKS": "4",
+      "SLURM_NTASKS_PER_NODE": "4", "SLURM_TASKS_PER_NODE": "4"}, 4, 2,
+     "gloo"),
+    # the COORDINATOR_ADDRESS triple across nodes: the per-node count
+    # comes from LOCAL_WORLD_SIZE, and without it the launch raises
+    ({"COORDINATOR_ADDRESS": "10.0.0.1:1234", "NUM_PROCESSES": "16",
+      "PROCESS_ID": "9"}, 16, 8, "raise"),
+    ({"COORDINATOR_ADDRESS": "10.0.0.1:1234", "NUM_PROCESSES": "16",
+      "PROCESS_ID": "9", "LOCAL_WORLD_SIZE": "8"}, 16, 8, "nccl"),
+    ({"COORDINATOR_ADDRESS": "10.0.0.1:1234", "NUM_PROCESSES": "4",
+      "PROCESS_ID": "1"}, 4, 8, "nccl"),
+]
+
+
+@pytest.mark.parametrize("env,world,cards,want", BACKEND_CASES)
+def test_backend_of_a_launch(monkeypatch, env, world, cards, want):
+    for var in (*LAUNCH_VARS, "LOCAL_WORLD_SIZE", "SLURM_NTASKS_PER_NODE",
+                "SLURM_TASKS_PER_NODE"):
+        monkeypatch.delenv(var, raising=False)
+    for var, value in env.items():
+        monkeypatch.setenv(var, value)
+    assert mesh.choose_backend("cpu", world, 0) == "gloo"
+    if want == "raise":
+        with pytest.raises(RuntimeError, match="LOCAL_WORLD_SIZE"):
+            mesh.choose_backend("cuda", world, cards)
+    else:
+        assert mesh.choose_backend("cuda", world, cards) == want
 
 
 def test_resolve_mesh_and_the_dev_keys(monkeypatch):

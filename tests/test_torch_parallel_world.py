@@ -60,7 +60,7 @@ def test_stage1_train_steps_match_one_process(tmp_path):
     _check(*worker.run_world("train64", outs, args=["2"], cwd=tmp_path))
     r0, r1 = (torch.load(o) for o in outs)
     assert (r0["world"], r0["rank"], r1["rank"]) == (2, 0, 1)
-    ref = worker.train64(4)
+    ref = worker.train64(4, tmp_path / "md")
     assert ref["world"] == 1 and len(ref["losses"]) == 2
     # both ranks hold the same losses and parameters, bit for bit
     assert r0["losses"] == r1["losses"]

@@ -214,7 +214,7 @@ def test_pemp_stage2_20step_trajectory_matches_jax(x64, monkeypatch):
     cfg = entry.ex.assemble("train", {
         "split": "0", "loss": "cedt", "sigma": str(SIGMA), "tr.lr": str(LR),
         "tr.lrp": "period_step", "tr.lr_step": "2", "tr.lr_rate": "0.1",
-        "dev.device": "cpu"})
+        "dev.device": "cpu", "dev.compact_wire": "False"})
     runtime = entry.Stage2Runtime(cfg)
     assert cfg.tr.grad_clip == 0.0
     trained = cascade.freeze()

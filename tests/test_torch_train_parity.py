@@ -217,7 +217,8 @@ def test_pemp_stage1_20step_trajectory_matches_jax(jax_init):
 
     cfg = entry.ex.assemble("train", {
         "split": "0", "loss": "cedt", "sigma": str(SIGMA), "tr.lr": str(LR),
-        "tr.lrp": "poly", "tr.power": "0.9", "dev.device": "cpu"})
+        "tr.lrp": "poly", "tr.power": "0.9", "dev.device": "cpu",
+        "dev.compact_wire": "False"})
     trained = port.freeze()
     opt = solver.make_optimizer(cfg.tr, trained)
     lr_policy = solver.LRPolicy(cfg.tr, N_STEPS)

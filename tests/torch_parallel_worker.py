@@ -1,5 +1,5 @@
 """One process of a ``torch.distributed`` world of the port, for
-``tests/test_torch_parallel_{world,entry}.py`` (gloo on the CPU).
+``tests/test_torch_parallel_*.py`` (gloo on the CPU).
 
     python tests/torch_parallel_worker.py <mode> <out file> [args ...]
 
@@ -17,6 +17,10 @@ The world comes from the environment (``RANK``, ``WORLD_SIZE``,
   writes the result and the world as JSON (``PEMP_TEST_SIGTERM=1``: rank
   1 signals itself after its first train step, with a stop agreed every
   step);
+- ``families <stage-1 snapshot> <model dir>``: ``train`` (chained into
+  ``test``) of each entry of ``FAMILIES`` in one world at float64 with
+  one-block stages, two steps of ``data.bs=2`` a process; writes each
+  one's result as JSON;
 - ``fail``: rank 1 raises once the world is up; rank 0 waits in a
   collective, which must raise too.
 
@@ -30,7 +34,9 @@ import signal
 import socket
 import subprocess
 import sys
+from contextlib import contextmanager
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -175,11 +181,12 @@ def _one_process(fn, logits, labels):
         mesh.process_count = count
 
 
-def train64(bs: int, steps: int = 2):
+def train64(bs: int, model_dir, steps: int = 2):
     """PEMP stage 1 on a small ResNet (one block a stage), float64, 33x33,
     cedt, DropBlock on, through the entry runtime: ``steps`` train steps of
-    ``bs`` episodes a process, then the online eval. Returns the global
-    losses and the final ``state_dict``."""
+    ``bs`` episodes a process, then the online eval; the unrecorded run's
+    final snapshot goes under ``model_dir``. Returns the global losses and
+    the final ``state_dict``."""
     from pemp_tpu_torch.config import Run
     from pemp_tpu_torch.entry import pemp_stage1 as entry
     from pemp_tpu_torch.models.pemp_stage1 import PEMPStage1
@@ -187,7 +194,8 @@ def train64(bs: int, steps: int = 2):
     world = mesh.process_count()
     args = dict(a.split("=", 1) for a in SMALL)
     args.update({"data.bs": str(bs), "data.train_n": str(steps * bs * world),
-                 "tr.total_epochs": "1", "loss": "cedt", "tr.lr": "0.01"})
+                 "tr.total_epochs": "1", "loss": "cedt", "tr.lr": "0.01",
+                 "g.model_dir": str(model_dir)})
     cfg = entry.ex.assemble("train", args)
     kept = {}
 
@@ -264,6 +272,80 @@ def _entry_main(mod, argv):
             "test": result.get("test")}
 
 
+# the families that no other world test trains, and their extra arguments
+# (``{s1}``: a stage-1 snapshot)
+FAMILIES = {"pemp_stage2": ["s1.ckpt={s1}"], "panet": [], "rpmms": [],
+            "pfenet": []}
+
+
+def family_args(name: str, s1, bs: int, model_dir) -> list:
+    """``train`` of family ``name``: two steps of ``bs`` episodes a process
+    in the live world, records under ``model_dir``, the plain wire."""
+    world = mesh.process_count()
+    return ["train", "with", *SMALL, "tr.total_epochs=1", f"data.bs={bs}",
+            f"data.train_n={2 * bs * world}", f"g.model_dir={model_dir}",
+            "dev.compact_wire=False",
+            *(a.format(s1=s1) for a in FAMILIES[name])]
+
+
+@contextmanager
+def shallow():
+    """The ResNet-50 trunks of every family with one block a stage, and
+    PFENet's pyramid of two bins (8, 4) instead of four (60, 30, 15, 8)."""
+    from pemp_tpu_torch.models import common, registry
+    from pemp_tpu_torch.models.pfenet import PFENet
+
+    def pfenet(cfg):
+        return PFENet(shot=cfg.shot, compute_dtype=registry._dtype(cfg),
+                      layers=(1, 1, 1, 1), ppm_scales=(8, 4))
+    with mock.patch.dict(common.RESNET_LAYERS, {"resnet50": (1, 1, 1)}), \
+            mock.patch.dict(registry.REGISTRY, {"pfenet": (
+                registry.REGISTRY["pfenet"][0], pfenet)}):
+        yield
+
+
+@contextmanager
+def float64(mod):
+    """The entry ``mod``'s models (``shallow``) and device batches in
+    float64. At float32 the gradients of a ResNet-50 trunk from a random
+    start depend on the order of their sums, which a world changes: stage
+    2's trunk gradients in a world of two differ from one process's by
+    1-1.5% at float32 and by under 1e-6 at float64 (full depth, 33x33),
+    but for the communication modules' biases, whose gradient is 0 in
+    exact arithmetic."""
+    from pemp_tpu_torch.core import evaluator, trainer
+
+    build, unpack = mod.build_model, trainer.unpack_batch
+
+    def unpack64(batch):
+        return {k: v.double() if isinstance(v, torch.Tensor)
+                and v.is_floating_point() else v
+                for k, v in unpack(batch).items()}
+    def build64(cfg, device):
+        return build(cfg, device).double()
+    with shallow(), mock.patch.object(mod, "build_model", build64), \
+            mock.patch.object(trainer, "unpack_batch", unpack64), \
+            mock.patch.object(evaluator, "unpack_batch", unpack64):
+        yield
+
+
+def families(s1, model_dir):
+    """Each family of ``FAMILIES`` trained in the live world at float64,
+    one after another: {name: the result with the world it ran in}."""
+    import importlib
+
+    torch.set_num_threads(1)
+    out = {}
+    for name in FAMILIES:
+        mod = importlib.import_module(f"pemp_tpu_torch.entry.{name}")
+        with float64(mod):
+            out[name] = _entry_main(mod, family_args(
+                name, s1, 2, Path(model_dir) / name))
+        out[name].update(world=mesh.process_count(),
+                         rank=mesh.process_index())
+    return out
+
+
 def main():
     mode, out = sys.argv[1], Path(sys.argv[2])
     if mode == "entry":
@@ -274,8 +356,10 @@ def main():
     try:
         if mode == "collectives":
             out.write_text(json.dumps(collectives()))
+        elif mode == "families":
+            out.write_text(json.dumps(families(sys.argv[3], sys.argv[4])))
         elif mode == "train64":
-            torch.save(train64(int(sys.argv[3])), out)
+            torch.save(train64(int(sys.argv[3]), out.parent / "md"), out)
         elif mode == "fail":
             if mesh.process_index() == 1:
                 raise RuntimeError("rank 1 fails on purpose")
