@@ -61,6 +61,16 @@ SYNTH episodes):
   to the plain run, and two ranks sharing the card over gloo against one
   process at their global batch (f32 and bf16; subprocesses of this
   script: ``chip_smoke.py parallel-worker ...`` and ``entry-run ...``);
+- the fused multi-step launch (``fused_path``; stage 1 as above with
+  ``dev.fuse_steps=4``, two epochs of ten steps): one f32 step captured
+  in a CUDA graph, K1-K5 inside it, against the eager step with the
+  kernels (bit for bit) and with the plain mpm; the ``train`` entry eager
+  against fused: at f32 bit-equal (losses, weights, momentum) or within
+  two eager runs' spread, at bf16 the losses within 1e-3;
+  captures, replays and K1-K5's launches as predicted; the steady step
+  and the card's idle share, eager against a replayed chunk; CaNet's
+  history store byte for byte the serial run's (321², three steps a
+  chunk); a gloo world on the card refused;
 
 and checks that each path went through the kernels and agrees with the
 plain version. The phases ``minplus`` (the EDT kernel, bit-exact, also on
@@ -87,12 +97,14 @@ from __future__ import annotations
 import copy
 import json
 import math
+import random
 import re
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -260,6 +272,25 @@ WORLD_TOL = {"f32": {"first_loss_rtol": 2e-5, "loss_rtol": 2e-3,
                      "update_rel_l2": 1e-4},
              "bf16": {"first_loss_rtol": 5e-2, "loss_rtol": 1e-1,
                       "update_rel_l2": 1e-2}}
+
+# fused_path: PEMP stage 1 (ResNet-50, c=512, p=3, 401x401, cedt, SYNTH,
+# batch 4) with dev.fuse_steps=FUSE_K: two epochs of FUSE_STEPS steps, each
+# two chunks and a two-step serial tail (the first chunk of the first
+# epoch is the eager warm-up, so the graph replays 1 + 2 times), against
+# the eager loop from one seeded state; f32 bit-equal (else within the
+# spread of two eager runs), bf16 losses within FUSE_BF16_RTOL; CaNet at
+# 321x321 with dev.fuse_steps=CANET_FUSE_K, two chunks an epoch
+FUSE_K = 4
+FUSE_STEPS = 10
+FUSE_ARGS = ["train", "with", "split=0", "data.dataset=SYNTH",
+             "data.height=401", "data.width=401", "shot=1", "query=1",
+             "data.bs=4", f"data.train_n={4 * FUSE_STEPS}",
+             "tr.total_epochs=2", "data.test_bs=8", "data.test_n=8",
+             "te.epochs=1", "loss=cedt", "seed=1234"]
+FUSE_BF16_RTOL = 1e-3
+CANET_FUSE_K = 3
+CANET_FUSE_ARGS = [a for a in CANET_ARGS if not a.startswith(
+    "data.train_n=")] + ["data.train_n=24"]
 
 
 def emit(obj) -> None:
@@ -2621,6 +2652,10 @@ def real_data_path_phase(torch, K, M):
         cfg32.dev.precision = "f32"
         base32 = entry.build_model(cfg32, device).train()
         base32.freeze()
+        # one reproducible batch: the augmentation draws from Python's
+        # random, which the loader's threads would interleave
+        cfg32.data.num_workers = 1
+        random.seed(cfg32.seed)
         tbatch = first_batch(datasets, cfg32, "train")
         tt = {k: torch.from_numpy(tbatch[k]).to(device)
               for k in ("sup_rgb", "sup_mask", "qry_rgb", "qry_msk")}
@@ -3138,6 +3173,435 @@ def parallel_path_phase(torch, K, M):
     return launches
 
 
+def device_launches(K, M, recorded=()):
+    """K1-K5's launches on the device since the last reset: the wrappers'
+    calls, less those the graph captures ``recorded`` (one dict a graph),
+    plus those the graph replays made (``replays``)."""
+    calls = {**K.launches, **M.launches}
+    replayed = {**K.replays, **M.replays}
+    return {k: calls[k] - sum(r.get(k, 0) for r in recorded) + replayed[k]
+            for k in STEP_LAUNCHES}
+
+
+def graph_step_vs_plain(torch, K, M, entry, cfg, batch):
+    """One f32 train step (forward and backward, no update) of stage 1
+    captured in a CUDA graph and replayed, K1-K5 inside it, against the
+    same step eager with the kernels (bit for bit) and eager with the plain
+    mpm (loss within TRAIN_LOSS_RTOL, each gradient within
+    TRAIN_GRAD_RTOL relative L2), from the same weights and dropout
+    seed."""
+    from unittest import mock
+
+    from pemp_tpu_torch.core import losses as loss_lib
+    from pemp_tpu_torch.models import pemp_stage1 as stage1
+
+    device = torch.device("cuda")
+    model = entry.build_model(cfg, device).train()
+    model.freeze()
+    gen = torch.Generator(device=device)
+    model.set_dropout_generator(gen)
+    t = to_card(batch, ("sup_rgb", "sup_mask", "qry_rgb", "qry_msk"), device)
+    loss_fn = loss_lib.get(cfg)
+
+    def step():
+        logits = model(t["sup_rgb"], t["sup_mask"], t["qry_rgb"])
+        loss = loss_fn(logits.reshape(-1, *logits.shape[-3:]),
+                       t["qry_msk"].reshape(-1, *t["qry_msk"].shape[-2:]))
+        loss.backward()
+        return loss.detach()
+
+    def eager():
+        model.zero_grad(set_to_none=True)
+        gen.manual_seed(7)
+        loss = step().item()
+        return loss, {k: p.grad.clone() for k, p in model.named_parameters()
+                      if p.requires_grad}
+
+    current = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            eager()
+    current.wait_stream(side)
+    model.zero_grad(set_to_none=True)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)
+    before = {**K.launches, **M.launches}
+    with torch.cuda.graph(graph, stream=side):
+        static_loss = step()
+    recorded = {k: n - before[k] for k, n in {**K.launches,
+                                              **M.launches}.items()}
+    gen.manual_seed(7)
+    graph.replay()
+    loss_g = static_loss.item()
+    grads_g = {k: p.grad.clone() for k, p in model.named_parameters()
+               if p.requires_grad}
+    loss_k, grads_k = eager()
+    before = dict(K.launches)
+    with mock.patch.object(stage1, "mpm_chain_packed", plain_chain):
+        loss_p, grads_p = eager()
+    torch.cuda.synchronize()
+    if K.launches != before:
+        raise AssertionError("the plain step launched an mpm kernel")
+    del graph
+    rel = {k: ((grads_g[k] - grads_p[k]).norm()
+               / grads_p[k].norm().clamp(min=1e-30)).item() for k in grads_p}
+    worst = max(rel, key=rel.get)
+    out = {"recorded_launches": recorded, "loss_graph": loss_g,
+           "loss_eager_kernels": loss_k, "loss_plain": loss_p,
+           "loss_rel_err_vs_plain": abs(loss_g - loss_p) / abs(loss_p),
+           "grad_max_rel_l2_vs_plain": rel[worst], "grad_worst_leaf": worst,
+           "graph_bit_equal_eager_kernels": loss_g == loss_k and all(
+               torch.equal(grads_g[k], grads_k[k]) for k in grads_k),
+           "grad_max_abs_vs_eager_kernels": max(
+               float((grads_g[k] - grads_k[k]).abs().max()) for k in grads_k),
+           "tolerance": {"loss_rtol": TRAIN_LOSS_RTOL,
+                         "grad_rel_l2": TRAIN_GRAD_RTOL}}
+    want = {k: STEP_LAUNCHES[k] for k in STEP_LAUNCHES}
+    if ({k: recorded[k] for k in want} != want
+            or out["loss_rel_err_vs_plain"] > TRAIN_LOSS_RTOL
+            or rel[worst] > TRAIN_GRAD_RTOL):
+        raise AssertionError(f"graph step vs plain: {out}")
+    return out
+
+
+def fused_launch_check(runs, steps, chunks, warm_chunks):
+    """(b): each fused run built one graph after ``warm_chunks`` eager
+    chunks, recorded FUSE_K steps' K1-K5 launches, replayed the other
+    chunks, and launched on the device what its eager twin did."""
+    checks = {}
+    for precision in ("f32", "bf16"):
+        e, f = runs[f"eager_{precision}"], runs[f"fused_{precision}"]
+        recorded = f["recorded"][0] if f["recorded"] else {}
+        ok = (len(f["losses"]) == len(e["losses"]) == steps
+              and all(math.isfinite(x) for x in f["losses"])
+              and f["captures"] == 1 and len(f["recorded"]) == 1
+              and f["replays"] == chunks - warm_chunks
+              and f["warmup_steps"] == warm_chunks * FUSE_K
+              and recorded == {k: FUSE_K * n for k, n in STEP_LAUNCHES.items()}
+              and f["replayed"] == {k: recorded[k] * f["replays"]
+                                    for k in recorded}
+              and f["device_launches"] == e["launches"]
+              and e["launches"] == e["device_launches"])
+        if not ok:
+            raise AssertionError(
+                f"{precision} fused launches: {f['captures']} captures, "
+                f"{f['replays']} replays, {f['warmup_steps']} warm-up steps, "
+                f"recorded {f['recorded']}, replayed {f['replayed']}, device "
+                f"{f['device_launches']} vs eager {e['launches']}")
+        checks[precision] = ok
+    return checks
+
+
+def gloo_world_refusal(torch, entry, args):
+    """(e): ``train`` with ``dev.fuse_steps=2`` in a gloo world of one
+    process on the card raises; returns its message."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo",
+                            init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            entry.main(args + ["dev.fuse_steps=2", "-u",
+                               f"g.model_dir={tmp}"])
+    except RuntimeError as e:
+        message = str(e)
+    else:
+        raise AssertionError("dev.fuse_steps=2 trained in a gloo world")
+    finally:
+        dist.destroy_process_group()
+    if "gloo" not in message or "NCCL" not in message:
+        raise AssertionError(f"gloo world refusal: {message}")
+    return message
+
+
+def fused_path_phase(torch, K, M, smi):
+    """The fused multi-step launch (``dev.fuse_steps``) on the card:
+
+    - one f32 step captured in a CUDA graph (K1-K5 inside it) against the
+      same step eager, with the kernels and with the plain mpm
+      (``graph_step_vs_plain``);
+    - (a) stage 1's ``train`` entry at full width, FUSE_STEPS steps an
+      epoch for two epochs, eager (``dev.fuse_steps=1``) and fused
+      (``FUSE_K``), from one seeded state, cuDNN deterministic: at f32
+      (TF32 off) the losses, final weights and momentum buffers bit-equal,
+      or else no farther apart than two eager runs; at bf16 the losses
+      within FUSE_BF16_RTOL;
+    - (b) the captures and replays, and K1-K5's launches
+      (``fused_launch_check``);
+    - (c) the steady step, eager and fused (a chunk of FUSE_K replayed),
+      host clock, and each one's device idle share from a profile;
+    - (d) CaNet at 321x321, ``dev.fuse_steps=CANET_FUSE_K``, two epochs of
+      two chunks: the history store at every epoch boundary byte for byte
+      the serial run's;
+    - (e) ``dev.fuse_steps=2`` in a gloo world raises
+      (``gloo_world_refusal``).
+
+    Returns the bf16 fused run's device launches (the table's
+    ``fused_path_launches``)."""
+    from unittest import mock
+
+    from pemp_tpu_torch.config import Run
+    from pemp_tpu_torch.core import checkpoint as ckpt_lib
+    from pemp_tpu_torch.core import solver
+    from pemp_tpu_torch.core import trainer as trainer_mod
+    from pemp_tpu_torch.data import datasets
+    from pemp_tpu_torch.entry import canet as canet_entry
+    from pemp_tpu_torch.entry import pemp_stage1 as entry
+    from pemp_tpu_torch.parallel.step import WARMUP_STEPS, device_batch
+
+    device = torch.device("cuda")
+    start = time.perf_counter()
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32)
+
+    @contextmanager
+    def deterministic():
+        """cuDNN's deterministic algorithms, for the equality checks; the
+        timing keeps the flags the phase found (the deterministic dgrad
+        kernels of the 3x3 convolutions take most of a step)."""
+        cudnn.deterministic, cudnn.benchmark = True, False
+        try:
+            yield
+        finally:
+            cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32 = saved
+
+    made = []
+    real_make = trainer_mod.FusedTrainStep
+
+    def spy(*args, **kwargs):
+        made.append(real_make(*args, **kwargs))
+        return made[-1]
+
+    def run(runner, fuse):
+        """``runner()`` with K1-K5's counts from 0, and what the fused
+        step it built did."""
+        K.reset_launches()
+        M.reset_launches()
+        made.clear()
+        t0 = time.perf_counter()
+        with mock.patch.object(trainer_mod, "FusedTrainStep", spy):
+            result = runner()
+        torch.cuda.synchronize()
+        out = {"result": result, "wall_s": time.perf_counter() - t0,
+               "launches": {**K.launches, **M.launches},
+               "mpm_backward": K.backward_calls["mpm_backward"]}
+        recorded = []
+        if fuse > 1:
+            fused = made[-1]
+            recorded = [{**g.recorded[0], **g.recorded[1]}
+                        for g in fused.graphs.values()]
+            out.update(captures=fused.captures, replays=fused.replays,
+                       warmup_steps=fused.eager_steps, recorded=recorded,
+                       replayed={**K.replays, **M.replays})
+        out["device_launches"] = device_launches(K, M, recorded)
+        return out
+
+    def stage1(precision, fuse, tmp, observed):
+        args = FUSE_ARGS + [f"dev.precision={precision}",
+                            f"dev.fuse_steps={fuse}", f"g.model_dir={tmp}"]
+        out = run(lambda: entry.main(args + ([] if observed else ["-u"])),
+                  fuse)
+        out["losses"] = out["result"]["train"]["losses"]
+        if observed:
+            rid = out["result"]["train"]["run_id"]
+            ck = ckpt_lib.load(Path(tmp) / "pemp_stage1" / str(rid)
+                               / ckpt_lib.CKPT)
+            out["model"] = ck["model"]
+            out["momentum"] = {i: st["momentum_buffer"]
+                               for i, st in ck["optimizer"]["state"].items()}
+        return out
+
+    def distance(a, b):
+        """Largest absolute differences of two observed runs' losses,
+        final floating weights and momentum buffers (integer tensors must
+        match)."""
+        for k, v in b["model"].items():
+            if not v.is_floating_point() and not torch.equal(a["model"][k],
+                                                             v):
+                raise AssertionError(f"{k} differs")
+        return {
+            "losses": max(abs(x - y) for x, y in zip(a["losses"],
+                                                     b["losses"])),
+            "weights": max(float((a["model"][k].double() - v.double())
+                                 .abs().max())
+                           for k, v in b["model"].items()
+                           if v.is_floating_point()),
+            "momentum": max(float((a["momentum"][i] - v).abs().max())
+                            for i, v in b["momentum"].items())}
+
+    cfg32 = entry.ex.assemble("train", dict(
+        a.split("=", 1) for a in FUSE_ARGS[2:] + ["dev.precision=f32"]))
+    ds, loader, _ = datasets.load(cfg32, "train")
+    ds.sample_tasks()
+    batch = next(iter(loader))
+    with deterministic():
+        out = {"graph_step_vs_plain": graph_step_vs_plain(
+            torch, K, M, entry, cfg32, batch)}
+        torch.cuda.empty_cache()
+
+        # (a) and (b): the entry, eager and fused, f32 and bf16
+        runs = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            for precision in ("f32", "bf16"):
+                for name, fuse in (("eager", 1), ("fused", FUSE_K)):
+                    runs[f"{name}_{precision}"] = stage1(
+                        precision, fuse, f"{tmp}/{name}_{precision}",
+                        precision == "f32")
+                    torch.cuda.empty_cache()
+            e32, f32 = runs["eager_f32"], runs["fused_f32"]
+            fused_vs_eager = distance(f32, e32)
+            bit_equal = not any(fused_vs_eager.values())
+            eager_spread = None
+            if not bit_equal:
+                eager_spread = distance(stage1(
+                    "f32", 1, f"{tmp}/eager_f32_again", True), e32)
+                if any(fused_vs_eager[k] > eager_spread[k]
+                       for k in fused_vs_eager):
+                    raise AssertionError(
+                        f"f32 fused vs eager {fused_vs_eager}, beyond two "
+                        f"eager runs' spread {eager_spread}")
+        e16, f16 = runs["eager_bf16"], runs["fused_bf16"]
+        bf16_rel = max(abs(x - y) / abs(y) for x, y in zip(f16["losses"],
+                                                           e16["losses"]))
+        if bf16_rel > FUSE_BF16_RTOL:
+            raise AssertionError(f"bf16 fused losses {f16['losses']} vs "
+                                 f"eager {e16['losses']}: {bf16_rel}")
+        checks = fused_launch_check(runs, 2 * FUSE_STEPS,
+                                    2 * (FUSE_STEPS // FUSE_K),
+                                    -(-WARMUP_STEPS // FUSE_K))
+        out["a_equality"] = {
+            "f32_bit_equal": bit_equal, "f32_fused_vs_eager": fused_vs_eager,
+            "f32_eager_vs_eager": eager_spread,
+            "f32_losses_eager": e32["losses"],
+            "f32_losses_fused": f32["losses"],
+            "bf16_losses_eager": e16["losses"],
+            "bf16_losses_fused": f16["losses"],
+            "bf16_loss_max_rel": bf16_rel,
+            "bf16_loss_max_abs": max(abs(x - y) for x, y in
+                                     zip(f16["losses"], e16["losses"])),
+            "bf16_rtol": FUSE_BF16_RTOL}
+        out["b_launches"] = {
+            name: {k: r[k] for k in ("launches", "device_launches",
+                                     "mpm_backward", "captures", "replays",
+                                     "warmup_steps", "recorded", "replayed",
+                                     "wall_s") if k in r}
+            for name, r in runs.items()}
+        out["b_launches"]["checks"] = checks
+        del runs, e32, f32
+        torch.cuda.empty_cache()
+
+    # (c) the steady step, eager and fused, bf16 (the main path's)
+    cfg = entry.ex.assemble("train", dict(
+        a.split("=", 1) for a in FUSE_ARGS[2:]
+        + [f"dev.fuse_steps={FUSE_K}"]))
+    model = entry.build_model(cfg, device).train()
+    params = model.freeze()
+    trainer = trainer_mod.Trainer(
+        cfg, Run(None, None), model,
+        solver.make_optimizer(cfg.tr, params, capturable=True), params,
+        entry.Stage1Runtime(cfg), solver.LRPolicy(cfg.tr, 1000), device,
+        fuse_steps=FUSE_K)
+    trainer.dropout_generator.manual_seed(0)
+    model.set_dropout_generator(trainer.dropout_generator)
+    lr = trainer.lr_policy.lr
+
+    def timing(feed):
+        """The steady eager step and fused chunk on ``feed`` (repeated),
+        host clock, and each one's device idle share from a profile."""
+        def eager_step():
+            trainer.train_step(feed)
+
+        def fused_chunk():
+            trainer.train_step_fused([feed] * FUSE_K, [lr] * FUSE_K)
+
+        eager_ms = host_ms(torch, eager_step)
+        eager_dev = device_profile(torch, eager_step, {})
+        chunk_ms = host_ms(torch, fused_chunk)
+        chunk_dev = device_profile(torch, fused_chunk, {})
+        return fused_chunk, {
+            "eager_step_ms": eager_ms,
+            "fused_step_ms": chunk_ms / FUSE_K, "fused_chunk_ms": chunk_ms,
+            "eager_device_ms": eager_dev["device_us_total"] / 1e3,
+            "fused_chunk_device_ms": chunk_dev["device_us_total"] / 1e3,
+            "eager_device_idle_share":
+                1 - eager_dev["device_us_total"] / 1e3 / eager_ms,
+            "fused_device_idle_share":
+                1 - chunk_dev["device_us_total"] / 1e3 / chunk_ms,
+            "eager_profile_top": eager_dev["top"],
+            "fused_profile_top": chunk_dev["top"]}
+
+    # a host batch (each call casts and copies it, as the serial loader
+    # path does), then the same batch already on the card (as the entry's
+    # prefetcher hands it over)
+    fused_chunk, host_fed = timing(batch)
+    chunk_dev_ms = time_ms(torch, fused_chunk,
+                           torch.empty(1 << 20, device=device),
+                           spin_cycles=LONG_SPIN_CYCLES)
+    _, card_fed = timing(device_batch(batch, device, cfg.dev.compact_wire,
+                                      entry.Stage1Runtime.device_keys))
+    out["c_timing"] = {
+        "nvidia_smi": smi, "precision": cfg.dev.precision,
+        **host_fed, "fused_chunk_device_ms_events": chunk_dev_ms,
+        "device_batch": card_fed,
+        "fused_captures": trainer.train_step_fused.captures,
+        "timing": "host clock (median of 10 after 3 warm calls) ending in "
+                  "a synchronize; device ms from torch.profiler over one "
+                  "call (and, for the host-fed chunk, CUDA events behind a "
+                  "device spin)"}
+    del trainer, model, params
+    torch.cuda.empty_cache()
+
+    # (d) CaNet: the history store, fused against serial
+    def canet(fuse, tmp):
+        ccfg = canet_entry.ex.assemble("train", dict(
+            a.split("=", 1) for a in CANET_FUSE_ARGS[2:]
+            + [f"dev.fuse_steps={fuse}", f"g.model_dir={tmp}"]))
+        rt = canet_entry.CaNetRuntime(ccfg, Run(None, None))
+        store, next_epoch = rt.store, rt.store.next_epoch
+        snaps = []
+
+        def recording():
+            snaps.append({k: v.copy() for k, v in store._store.items()})
+            next_epoch()
+        store.next_epoch = recording
+        r = run(rt.train, fuse)
+        r["snapshots"] = snaps
+        r["losses"] = r["result"]["train"]["losses"]
+        return r
+
+    with deterministic():
+        with tempfile.TemporaryDirectory() as tmp:
+            cs, cf = canet(1, tmp), canet(CANET_FUSE_K, tmp)
+        same = (len(cs["snapshots"]) == len(cf["snapshots"]) > 2
+                and all(a.keys() == b.keys() and all(
+                    a[k].tobytes() == b[k].tobytes() for k in a)
+                    for a, b in zip(cs["snapshots"], cf["snapshots"])))
+        sizes = [len(snap) for snap in cf["snapshots"]]
+        out["d_canet"] = {
+            "args": CANET_FUSE_ARGS, "fuse_steps": CANET_FUSE_K,
+            "store_bit_equal_serial": same, "store_sizes": sizes,
+            "captures": cf["captures"], "replays": cf["replays"],
+            "losses_serial": cs["losses"], "losses_fused": cf["losses"],
+            "loss_max_abs": max(abs(x - y) for x, y in
+                                zip(cs["losses"], cf["losses"])),
+            "wall_s": {"serial": cs["wall_s"], "fused": cf["wall_s"]}}
+        if not same or not any(sizes) or cf["replays"] < 1:
+            raise AssertionError(f"CaNet fused history store: "
+                                 f"{out['d_canet']}")
+        del cs, cf
+        torch.cuda.empty_cache()
+
+    # (e) a gloo world on the card cannot hold a graph's collectives
+    out["e_gloo_world_refused"] = gloo_world_refusal(torch, entry, FUSE_ARGS)
+    out.update({"phase": "fused_path", "args": FUSE_ARGS,
+                "fuse_steps": FUSE_K, "wall_s": time.perf_counter() - start})
+    emit(out)
+    return out["b_launches"]["fused_bf16"]["device_launches"]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3184,6 +3648,7 @@ def main() -> int:
     run_launches = run_path_phase(torch, K, M)
     real_launches = real_data_path_phase(torch, K, M)
     parallel_launches = parallel_path_phase(torch, K, M)
+    fused_launches = fused_path_phase(torch, K, M, smi)
 
     # one row per TPU kernel K1-K5. assign and match are one __global__
     # each; the chain (K3, mpm.py:342) is those two launches on the packed
@@ -3205,6 +3670,7 @@ def main() -> int:
          "run_path_launches": run_launches[name],
          "real_data_path_launches": real_launches[name],
          "parallel_path_launches": parallel_launches[name],
+         "fused_path_launches": fused_launches[name],
          "max_abs_err": worst[name], "ms": times[name],
          "plain_ms": times[f"{name}_plain"], "bound_ms": bounds[name][0],
          "bound_by": bounds[name][1], "library_ms": None}
@@ -3220,6 +3686,7 @@ def main() -> int:
         "run_path_launches": run_launches["match"],
         "real_data_path_launches": real_launches["match"],
         "parallel_path_launches": parallel_launches["match"],
+        "fused_path_launches": fused_launches["match"],
         "max_abs_err": worst["chain"], "ms": times["chain"],
         "plain_ms": times["chain_plain"], "bound_ms": bounds["chain"][0],
         "bound_by": bounds["chain"][1], "library_ms": None,
@@ -3237,6 +3704,8 @@ def main() -> int:
         "run_path_launches": run_launches["match_bwd"],
         "real_data_path_launches": real_launches["match_bwd"],
         "parallel_path_launches": parallel_launches["match_bwd"],
+        "fused_path_launches": {k: fused_launches[k]
+                                for k in ("match_bwd", "assign_bwd")},
         "max_abs_err": bw_worst, "ms": bw_times["bfloat16"],
         "ms_no_spin": bw_times["bfloat16_no_spin"],
         "plain_ms": bw_times["bfloat16_plain"],
@@ -3256,6 +3725,7 @@ def main() -> int:
         "run_path_launches": run_launches["minplus"],
         "real_data_path_launches": real_launches["minplus"],
         "parallel_path_launches": parallel_launches["minplus"],
+        "fused_path_launches": fused_launches["minplus"],
         "ms": mp_times["phase1"] + mp_times["phase2"],
         "plain_ms": mp_times["phase1_plain"] + mp_times["phase2_plain"],
         "bound_ms": mp_bounds["phase1"][0] + mp_bounds["phase2"][0],

@@ -55,8 +55,8 @@ class GlobalConfig:
 @dataclass
 class DeviceConfig:
     """Scope ``dev``: device, compute precision, the world and the input
-    path (the JAX package's ``tpu`` scope: ``mesh``, ``prefetch`` and
-    ``compact_wire`` keep its defaults and meanings)."""
+    path (the JAX package's ``tpu`` scope: ``mesh``, ``prefetch``,
+    ``compact_wire`` and ``fuse_steps`` keep its defaults and meanings)."""
     device: str = "cuda"                # cuda | cpu (cpu only when asked)
     precision: str = "bf16"             # backbone compute dtype: bf16 | f32
     mesh: int = 0                       # processes sharing a batch: 0 or
@@ -65,6 +65,13 @@ class DeviceConfig:
     prefetch: int = 2                   # batches copied ahead on a side
     #                                     stream; 0 keeps the serial path
     compact_wire: bool = True           # f16/uint8 host->device wire format
+    fuse_steps: int = 1                 # train steps per launch: >1 runs
+    #                                     k steps as one replayed CUDA graph
+    #                                     over prefetched batches (on the
+    #                                     CPU, k eager steps), amortizing
+    #                                     per-step dispatch (ignored by a
+    #                                     runtime with a per-step host hook
+    #                                     and no chunk flush)
 
 
 @dataclass

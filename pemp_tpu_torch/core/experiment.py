@@ -22,6 +22,10 @@ between families goes through the hooks:
   (the PEMP entries' ``visualize``, ``core/visualize.py``);
 - ``post_step(logits, batch)``: optional, after every train step (CaNet's
   history write-back);
+- ``post_chunk(auxes, batches)``: optional, after a fused chunk of
+  ``dev.fuse_steps`` steps, with the chunk's logits stacked on a leading
+  [k] axis (CaNet's write-back, in step order); a runtime with
+  ``post_step`` and no ``post_chunk`` trains serially;
 - ``shard_train_loader``: True when each process of a world reads its
   own shard of the train episodes; CaNet sets it False (its history
   store spans the episodes), and then every process reads the whole
@@ -41,7 +45,16 @@ metrics are the global batch's (``core/losses.py``, ``models/layers.py``,
 bytes (``load_snapshot``); the chained ``test`` runs on every rank, which
 learn the run id from rank 0. The train loader and both eval loaders go
 through the ``DevicePrefetcher`` (``dev.prefetch``; 0 keeps the serial
-path). The JAX runtime's fused-step hooks are not ported.
+path).
+
+``dev.fuse_steps = k > 1`` (the JAX runtime's ``tpu.fuse_steps``,
+``pemp_tpu/core/experiment.py:355-390``) trains k steps a launch
+(``Trainer._run_epoch_fused``; on CUDA one replay of a captured CUDA
+graph): the prefetcher is ``max(dev.prefetch, k)`` batches deep, so that
+a chunk never waits on it; Adam is built capturable; a world over gloo
+on CUDA raises (a graph cannot hold its collectives), and under
+``DistributedDataParallel`` (built on a side stream, as a capture needs)
+the first 11 steps warm up eagerly.
 """
 
 from __future__ import annotations
@@ -186,6 +199,7 @@ class EntryRuntime:
     name: str = "baseline"
     device_keys = ARRAY_KEYS
     post_step: Optional[Callable] = None
+    post_chunk: Optional[Callable] = None
     shard_train_loader = True
 
     def __init__(self, cfg, run=None, build: Optional[Callable] = None):
@@ -297,13 +311,29 @@ class EntryRuntime:
                                    self.device_keys,
                                    compact_wire=self.cfg.dev.compact_wire)
 
-    def prefetch(self, loader, device: torch.device):
-        """``loader`` behind the ``DevicePrefetcher`` (``dev.prefetch``
-        batches deep; 0 keeps the serial loader)."""
+    def prefetch(self, loader, device: torch.device,
+                 depth: Optional[int] = None):
+        """``loader`` behind the ``DevicePrefetcher`` (``depth`` batches
+        deep, default ``dev.prefetch``; ``dev.prefetch=0`` keeps the serial
+        loader)."""
         if self.cfg.dev.prefetch <= 0:
             return loader
-        return DevicePrefetcher(loader, device, self.cfg.dev.prefetch,
+        return DevicePrefetcher(loader, device, depth or self.cfg.dev.prefetch,
                                 self.cfg.dev.compact_wire, self.device_keys)
+
+    def fuse_steps(self, device: torch.device) -> int:
+        """The effective ``dev.fuse_steps``: 1 (with a log line) for a
+        runtime whose per-step host hook has no chunk flush; on CUDA a
+        world whose collectives a graph cannot hold raises."""
+        fuse = int(self.cfg.dev.fuse_steps)
+        if fuse > 1 and self.post_step is not None and self.post_chunk is None:
+            self.logger.info("dev.fuse_steps ignored: this runtime runs a "
+                             "per-step host hook (post_step) without a "
+                             "chunk-boundary flush (post_chunk)")
+            return 1
+        if fuse > 1 and device.type == "cuda":
+            mesh.require_graph_collectives(fuse)
+        return max(fuse, 1)
 
     def _train(self) -> Dict:
         """Train on the device, with checkpoints of ``weights(model)``;
@@ -312,6 +342,8 @@ class EntryRuntime:
         cfg, run, logger = self.cfg, self.run, self.logger
         device = resolve_device(cfg.dev.device)
         world = mesh.resolve_mesh(cfg.dev.mesh)
+        fuse = self.fuse_steps(device)
+        graphs = fuse > 1 and device.type == "cuda"
         random.seed(cfg.seed)
         np.random.seed(cfg.seed)
         train_ds, train_loader, _ = datasets.load(cfg, "train")
@@ -332,22 +364,25 @@ class EntryRuntime:
         params = model.freeze()
         forward = None
         if mesh.dist.is_initialized():
-            forward = self.distributed(model, device)
-        optimizer = solver.make_optimizer(cfg.tr, params)
+            forward = self.distributed(model, device, side_stream=graphs)
+        optimizer = solver.make_optimizer(cfg.tr, params, capturable=graphs)
         # optimizer steps per process: the train loader is sharded
         lr_policy = solver.LRPolicy(cfg.tr, cfg.tr.total_epochs
                                     * len(train_loader))
         trainer = Trainer(cfg, run, model, optimizer, params, self,
                           lr_policy, device, logger,
                           weights=self.weights(model), forward=forward,
-                          shard=shard, split_batch=split_batch)
+                          shard=shard, split_batch=split_batch,
+                          fuse_steps=fuse)
         evaluator = Evaluator(cfg, self.eval_step(model, device),
                               datasets.get_val_labels(cfg, cfg.split), logger,
                               mode="EVAL_ONLINE")
         # a split batch is rank 0's, broadcast on the main thread in loop
         # order: no collective may run on the prefetcher's thread
         if not split_batch:
-            train_loader = self.prefetch(train_loader, device)
+            # a fused chunk takes k batches at once
+            train_loader = self.prefetch(train_loader, device,
+                                         max(cfg.dev.prefetch, fuse))
         val_loader = self.prefetch(val_loader, device)
         logger.info(f"Start training on {device} (rank "
                     f"{mesh.process_index()} of {world}).")
@@ -360,18 +395,30 @@ class EntryRuntime:
                 "best_iou": trainer.best_iou, "best_epoch": trainer.best_epoch,
                 "preempted": trainer.preempted, "device": str(device)}
 
-    def distributed(self, model: torch.nn.Module, device: torch.device):
+    def distributed(self, model: torch.nn.Module, device: torch.device,
+                    side_stream: bool = False):
         """The train forward of a world: ``model``'s batch norms made
         global when several processes share the batch, and
         ``apply_train`` behind ``DistributedDataParallel`` (the gradient
         mean). Parameters that do not train (``freeze()``, PFENet's trunk,
         stage 2's stage 1) are not DDP's: it registers only those with
-        ``requires_grad``."""
+        ``requires_grad``. ``side_stream``: built on a side stream, as
+        PyTorch's recipe asks of a DDP whose backward a graph captures."""
         if mesh.process_count() > 1:
             global_batchnorm(model)
         ids = None if device.type == "cpu" else [torch.cuda.current_device()]
-        return torch.nn.parallel.DistributedDataParallel(
-            _TrainForward(model, self.apply_train), device_ids=ids)
+
+        def wrap():
+            return torch.nn.parallel.DistributedDataParallel(
+                _TrainForward(model, self.apply_train), device_ids=ids)
+        if not side_stream:
+            return wrap()
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            ddp = wrap()
+        torch.cuda.current_stream(device).wait_stream(side)
+        return ddp
 
 
 class _TrainForward(torch.nn.Module):

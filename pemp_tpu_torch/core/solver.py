@@ -6,11 +6,25 @@ Counterpart of ``pemp_tpu/core/solver.py`` (reference core/solver.py):
   decay added to the gradient before the momentum trace) or
   ``torch.optim.Adam``, over the parameters that train (``requires_grad``;
   the frozen ones are left out, as the JAX package's optax mask zeroes
-  them);
+  them). Both take their fused implementation (one kernel a parameter
+  group on the card), whose ``lr`` may be a tensor on the device;
+- ``step``: ``optimizer.step()`` at an LR held in a device tensor, so
+  that a CUDA graph can capture the update and read each step's LR from
+  memory the caller fills before a replay (a Python float is baked into
+  the captured kernel). The param groups keep their float ``lr`` (the
+  checkpoints record it); the tensor stands in for the one call. Eager
+  steps take the same path, so a graph's update is the eager loop's bit
+  for bit; the momentum buffers stay in ``optimizer.state`` as
+  ``torch.optim.SGD`` keeps them;
+- ``lr_tensor``: that tensor: float32 on the card (what the fused
+  kernels read), float64 on the CPU (where they read it as a double, so
+  the update equals the float LR's);
 - ``clip_gradients``: ``torch.nn.utils.clip_grad_norm_``, whose
   ``max_norm / (norm + 1e-6)`` clamped to 1 is exactly
-  ``clip_by_global_norm_torch``. Clipping runs before ``step()``, so the
-  order clip -> weight decay -> momentum is optax's chain;
+  ``clip_by_global_norm_torch``. It scales by a device tensor and never
+  waits for the device (no ``error_if_nonfinite``), so a graph captures
+  it. Clipping runs before ``step()``, so the order clip -> weight decay
+  -> momentum is optax's chain;
 - ``LRPolicy``: a copy of the host-side schedule (period_step,
   custom_step, plateau, cosine, poly; cosine and poly advance per step,
   the others per epoch) that writes each param group's ``lr``.
@@ -24,20 +38,23 @@ from typing import Iterable, List, Optional
 import torch
 
 
-def make_optimizer(tr_cfg, params: Iterable[torch.nn.Parameter]
-                   ) -> torch.optim.Optimizer:
-    """SGD or Adam over ``params`` at the base rate ``tr_cfg.lr``."""
+def make_optimizer(tr_cfg, params: Iterable[torch.nn.Parameter],
+                   capturable: bool = False) -> torch.optim.Optimizer:
+    """SGD or Adam (fused) over ``params`` at the base rate ``tr_cfg.lr``;
+    ``capturable`` lets a CUDA graph capture Adam's step (SGD's needs
+    nothing more)."""
     params: List[torch.nn.Parameter] = list(params)
     if tr_cfg.opt == "sgd":
         return torch.optim.SGD(params, lr=tr_cfg.lr,
                                momentum=tr_cfg.sgd_momentum,
                                weight_decay=tr_cfg.weight_decay,
-                               nesterov=tr_cfg.sgd_nesterov)
+                               nesterov=tr_cfg.sgd_nesterov, fused=True)
     if tr_cfg.opt == "adam":
         return torch.optim.Adam(params, lr=tr_cfg.lr,
                                 betas=(tr_cfg.adam_beta1, tr_cfg.adam_beta2),
                                 eps=tr_cfg.adam_epsilon,
-                                weight_decay=tr_cfg.weight_decay)
+                                weight_decay=tr_cfg.weight_decay, fused=True,
+                                capturable=capturable)
     raise ValueError("Not supported optimizer: " + tr_cfg.opt)
 
 
@@ -51,6 +68,27 @@ def clip_gradients(params: Iterable[torch.nn.Parameter],
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
     for group in optimizer.param_groups:
         group["lr"] = lr
+
+
+def lr_tensor(device, size=()) -> torch.Tensor:
+    """An uninitialised LR tensor on ``device`` for ``step`` (float32 on
+    CUDA, float64 elsewhere)."""
+    device = torch.device(device)
+    dtype = torch.float32 if device.type == "cuda" else torch.float64
+    return torch.empty(size, dtype=dtype, device=device)
+
+
+def step(optimizer: torch.optim.Optimizer, lr: torch.Tensor) -> None:
+    """``optimizer.step()`` with every group's LR read from ``lr`` (a
+    one-element tensor from ``lr_tensor``, on the parameters' device)."""
+    floats = [group["lr"] for group in optimizer.param_groups]
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+    try:
+        optimizer.step()
+    finally:
+        for group, value in zip(optimizer.param_groups, floats):
+            group["lr"] = value
 
 
 class LRPolicy:

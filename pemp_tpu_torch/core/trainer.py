@@ -11,26 +11,44 @@ Counterpart of ``Trainer`` in ``pemp_tpu/core/trainer.py:227-583``
   the LR schedule from the run's ``ckpt.pt``;
 - ``GracefulStop``: SIGTERM/SIGUSR1 stop the loop at a step boundary
   through a final snapshot of the last completed epoch;
-- DropBlock draws from a generator seeded ``seed + epoch`` on the device,
-  so a resumed epoch replays its masks.
+- DropBlock draws from one generator on the device for the trainer's
+  whole life, re-seeded ``seed + epoch`` each epoch, so a resumed epoch
+  replays its masks (and a captured graph, which keeps its generator,
+  draws them too);
+- ``dev.fuse_steps = k > 1`` (``_run_epoch_fused``, the counterpart of
+  ``pemp_tpu/core/trainer.py:466-550``): full chunks of k batches go
+  through ``train_step_fused`` (``parallel/step.py``'s
+  ``FusedTrainStep``: on CUDA one replay of a captured graph, on the CPU
+  k eager steps), with the chunk's per-step LRs drawn from the live
+  schedule before the launch; the epoch tail (fewer than k batches) runs
+  through the serial ``train_step``; a runtime's ``post_chunk(auxes,
+  batches)`` is flushed one chunk late, in step order; the stop flag is
+  polled at chunk boundaries; it/s counts optimizer steps. The numbers
+  are the serial loop's: the same LRs, batches, dropout masks and
+  update;
+- ``PEMP_PROFILE_DIR``: a ``torch.profiler`` trace (CPU and, on the
+  card, CUDA activity) of the second epoch this run trains, written as
+  ``epoch<N>_rank<r>.pt.trace.json`` into that directory; nothing when
+  the variable is unset.
 
 In a world of several processes (``parallel/mesh.py``) only rank 0
 writes checkpoints; ``maybe_resume`` reads on rank 0 and broadcasts the
 bytes (a read error on rank 0 raises on every rank); a stop signal is
-agreed by a world-OR every ``STOP_SYNC_STEPS`` steps and at each epoch
-boundary, so every rank stops at the same step; the logged loss is the
-global batch's, the same on every rank.
+agreed by a world-OR every ``STOP_SYNC_STEPS`` steps (fused: whenever
+the step count crosses a multiple of it) and at each epoch boundary, so
+every rank stops at the same step; the logged loss is the global
+batch's, the same on every rank.
 
 The online eval is the evaluator's fast step under ``model.eval()`` and
-``no_grad``; the model returns to ``model.train()`` after it. The JAX
-package's ``tpu.fuse_steps`` (its fused multi-step launch) and
-``PEMP_PROFILE_DIR`` (a trace of the second epoch) are not ported.
+``no_grad``; the model returns to ``model.train()`` after it.
 """
 
 from __future__ import annotations
 
 import io
+import itertools
 import logging
+import os
 import signal
 import time
 from pathlib import Path
@@ -43,7 +61,8 @@ from pemp_tpu_torch.core import checkpoint as ckpt_lib
 from pemp_tpu_torch.core import solver
 from pemp_tpu_torch.parallel import mesh
 from pemp_tpu_torch.parallel.step import (
-    broadcast_batch, device_batch, take_rows, unpack_batch,
+    DDP_WARMUP_STEPS, WARMUP_STEPS, FusedTrainStep, broadcast_batch,
+    device_batch, take_rows, unpack_batch,
 )
 from pemp_tpu_torch.utils.timer import Timer
 
@@ -90,9 +109,10 @@ class Trainer:
     the hooks of ``runtime`` (``core/experiment.py``): ``apply_train``
     gives the logits and auxiliary losses on the device arrays
     ``device_keys``, ``compute_loss`` the loss, ``post_step`` (optional)
-    sees each step's logits. The checkpoints hold the ``state_dict`` of
-    ``weights`` (default ``model``; the stage-2 cascade's is its stage
-    2).
+    sees each step's logits, ``post_chunk`` (optional) a fused chunk's.
+    The checkpoints hold the ``state_dict`` of ``weights`` (default
+    ``model``; the stage-2 cascade's is its stage 2). ``fuse_steps > 1``
+    trains through ``train_step_fused`` (``parallel/step.py``).
 
     ``forward(tensors)`` is the train forward (default ``apply_train`` on
     ``model``; in a world, the ``DistributedDataParallel`` module that
@@ -109,7 +129,7 @@ class Trainer:
                  weights: Optional[torch.nn.Module] = None,
                  forward: Optional[Callable] = None,
                  shard: Optional[mesh.RowShard] = None,
-                 split_batch: bool = False):
+                 split_batch: bool = False, fuse_steps: int = 1):
         self.cfg = cfg
         self.run = run
         self.model = model
@@ -138,16 +158,51 @@ class Trainer:
         self.template = (f"Epoch: {{:{nd}d}}/{{:{nd}d}}"
                          " | LR: {:.2e} | Train {:7.5f} | Val {:7.5f}"
                          " | mIoU {:5.2f} | bIoU {:5.2f} | Speed: {:.2f}it/s")
+        self.dropout_generator = torch.Generator(device=device)
+        self._lr = solver.lr_tensor(device)
+        self.fuse_steps = fuse_steps
+        self.train_step_fused = None
+        if fuse_steps > 1:
+            self.train_step_fused = FusedTrainStep(
+                self.device_step, fuse_steps, device, optimizer,
+                compact_wire=cfg.dev.compact_wire,
+                keys=runtime.device_keys,
+                with_aux=self.post_chunk is not None,
+                generators=[self.dropout_generator],
+                warmup_steps=(DDP_WARMUP_STEPS if mesh.process_count() > 1
+                              else WARMUP_STEPS), logger=self.logger)
+
+    @property
+    def post_step(self) -> Optional[Callable]:
+        return self.runtime.post_step
+
+    @property
+    def post_chunk(self) -> Optional[Callable]:
+        return getattr(self.runtime, "post_chunk", None)
 
     # --- one step -------------------------------------------------------
     def train_step(self, batch) -> torch.Tensor:
-        """Forward, loss, backward, clip, optimizer step at the schedule's
-        LR, then the runtime's ``post_step`` (if any) with the detached
-        logits and the host batch; returns the detached loss of the global
-        batch (still on the device). ``batch`` is a host batch or the
-        prefetcher's, whose device tensors pass through."""
+        """One step at the schedule's LR, then the runtime's ``post_step``
+        (if any) with the detached logits and the host batch; returns the
+        detached loss of the global batch (still on the device).
+        ``batch`` is a host batch or the prefetcher's, whose device
+        tensors pass through."""
         t = device_batch(batch, self.device, self.cfg.dev.compact_wire,
                          self.runtime.device_keys)
+        solver.set_lr(self.optimizer, self.lr_policy.lr)
+        self._lr.fill_(self.lr_policy.lr)
+        loss, logits = self.device_step(t, self._lr)
+        if self.post_step is not None:
+            self.post_step(logits, batch)
+        return loss
+
+    def device_step(self, t, lr: torch.Tensor):
+        """Forward, loss, backward, clip and the optimizer step at the LR
+        tensor ``lr`` on the device batch ``t`` (wire dtypes): (the
+        detached loss of the global batch, the logits, detached where
+        they are one tensor; RPMMs' are a tuple of three). Nothing in it
+        waits for the device, so a CUDA graph captures it whole
+        (``FusedTrainStep``)."""
         if self.rows is not None:
             t = take_rows(broadcast_batch(t), self.rows)
         t = unpack_batch(t)
@@ -156,11 +211,10 @@ class Trainer:
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         solver.clip_gradients(self.params, self.cfg.tr.grad_clip)
-        solver.set_lr(self.optimizer, self.lr_policy.lr)
-        self.optimizer.step()
-        if self.runtime.post_step is not None:
-            self.runtime.post_step(logits.detach(), batch)
-        return mesh.world_mean(loss.detach())
+        solver.step(self.optimizer, lr)
+        if isinstance(logits, torch.Tensor):
+            logits = logits.detach()
+        return mesh.world_mean(loss.detach()), logits
 
     # --- snapshots ------------------------------------------------------
     def _resume_extra(self, lr_state=None):
@@ -255,6 +309,7 @@ class Trainer:
         for _ in range(start_epoch):
             train_ds.sample_tasks()
 
+        profile_dir = os.environ.get("PEMP_PROFILE_DIR")
         stop = GracefulStop().install()
         world = mesh.process_count()
         try:
@@ -263,23 +318,20 @@ class Trainer:
                 # preemption snapshot carries the epoch-boundary LR state
                 boundary_lr = self.lr_policy.state_dict()
                 train_ds.sample_tasks()
-                self.model.set_dropout_generator(torch.Generator(
-                    device=self.device).manual_seed(self.cfg.seed + epoch),
-                    self.shard)
+                self.dropout_generator.manual_seed(self.cfg.seed + epoch)
+                self.model.set_dropout_generator(self.dropout_generator,
+                                                 self.shard)
                 losses = []
-                for step_i, batch in enumerate(train_loader):
-                    with timer.start():
-                        losses.append(self.train_step(batch))
-                    self.lr_policy.step_step()
-                    # one process stops at any step; a world agrees on a
-                    # fixed step schedule (the world-OR is synchronous)
-                    if world == 1:
-                        self.preempted = stop.requested
-                    elif (step_i + 1) % STOP_SYNC_STEPS == 0:
-                        self.preempted = mesh.any_process_flag(
-                            stop.requested)
-                    if self.preempted:
-                        break
+                # the second epoch: the first builds, warms and captures
+                prof = (self._start_profile()
+                        if profile_dir and epoch == start_epoch + 2 else None)
+                try:
+                    run = (self._run_epoch if self.train_step_fused is None
+                           else self._run_epoch_fused)
+                    n_steps = run(train_loader, losses, timer, stop, world)
+                finally:
+                    if prof is not None:
+                        self._stop_profile(prof, Path(profile_dir), epoch)
                 # a signal during the epoch tail must not wait an epoch:
                 # every rank takes this world-OR once an epoch
                 if not self.preempted:
@@ -292,12 +344,13 @@ class Trainer:
                         f"records completed epoch {epoch - 1}; resume with "
                         "`train with resume=True exp_id=<id>`")
                     return
-                # one host fetch of the epoch's losses
-                host = torch.stack(losses).double().cpu().tolist() \
-                    if losses else []
+                # one host fetch of the epoch's losses (a fused chunk's
+                # are a [k] vector, a serial step's a scalar)
+                host = torch.cat([x.reshape(-1) for x in losses]).double() \
+                    .cpu().tolist() if losses else []
                 self.step_losses.extend(host)
                 train_loss = float(np.mean(host)) if host else 0.0
-                speed = len(host) / timer.total if timer.total else 0.0
+                speed = n_steps / timer.total if timer.total else 0.0
                 self.try_snapshot(epoch)
                 mloss, miou, biou, best = self.evaluation(
                     epoch, evaluator, val_ds, val_loader, num_classes)
@@ -310,6 +363,105 @@ class Trainer:
         # record the reached epoch: a later resume with a larger
         # total_epochs continues from here
         self.try_snapshot(self.cfg.tr.total_epochs, final=True)
+
+    def _run_epoch(self, train_loader, losses, timer, stop, world) -> int:
+        """One epoch of serial steps; returns the optimizer steps taken."""
+        n_steps = 0
+        for step_i, batch in enumerate(train_loader):
+            with timer.start():
+                losses.append(self.train_step(batch))
+            self.lr_policy.step_step()
+            n_steps += 1
+            # one process stops at any step; a world agrees on a fixed
+            # step schedule (the world-OR is synchronous)
+            if world == 1:
+                self.preempted = stop.requested
+            elif (step_i + 1) % STOP_SYNC_STEPS == 0:
+                self.preempted = mesh.any_process_flag(stop.requested)
+            if self.preempted:
+                break
+        return n_steps
+
+    def _run_epoch_fused(self, train_loader, losses, timer, stop,
+                         world) -> int:
+        """One epoch through the fused launch: each full chunk of
+        ``fuse_steps`` batches is one ``train_step_fused`` call at the
+        chunk's LRs, drawn from the live schedule before the launch; the
+        tail (fewer than ``fuse_steps`` batches) runs serial steps, so
+        one graph is captured a batch shape. Returns the optimizer steps
+        taken. The stop flag is polled at chunk boundaries; a world takes
+        its world-OR whenever the step count crosses a multiple of
+        ``STOP_SYNC_STEPS`` (every rank counts alike: equal loaders,
+        equal ``fuse_steps``).
+
+        ``post_chunk(auxes, batches)`` of chunk i runs after chunk i+1 is
+        launched (its host fetch would otherwise wait for launch i before
+        the next is queued); the flushes keep step order (a serial tail
+        first flushes the pending chunk), and the write-backs reach the
+        store before its ``next_epoch()``. A runtime with ``post_step``
+        and no ``post_chunk`` cannot run here."""
+        if self.post_step is not None and self.post_chunk is None:
+            raise RuntimeError(
+                "fused multi-step launches cannot run a per-step host hook "
+                "(post_step): provide post_chunk(auxes, batches) for a "
+                "chunk-boundary flush")
+        k = self.fuse_steps
+        n_steps, last_sync, pending = 0, 0, None
+        it = iter(train_loader)
+        while True:
+            chunk = list(itertools.islice(it, k))
+            if not chunk:
+                break
+            with timer.start():
+                if len(chunk) == k:
+                    lrs = []
+                    for _ in chunk:
+                        lrs.append(self.lr_policy.lr)
+                        self.lr_policy.step_step()
+                    solver.set_lr(self.optimizer, lrs[-1])
+                    chunk_losses, auxes = self.train_step_fused(chunk, lrs)
+                    losses.append(chunk_losses)
+                    if self.post_chunk is not None:
+                        if pending is not None:
+                            self.post_chunk(*pending)
+                        pending = (auxes, chunk)
+                else:           # the epoch tail: serial steps
+                    if pending is not None:
+                        self.post_chunk(*pending)
+                        pending = None
+                    for batch in chunk:
+                        losses.append(self.train_step(batch))
+                        self.lr_policy.step_step()
+            n_steps += len(chunk)
+            if world == 1:
+                self.preempted = stop.requested
+            elif n_steps // STOP_SYNC_STEPS > last_sync // STOP_SYNC_STEPS:
+                self.preempted = mesh.any_process_flag(stop.requested)
+                last_sync = n_steps
+            if self.preempted:
+                break
+        if pending is not None:     # the epoch's end (or a stop)
+            self.post_chunk(*pending)
+        return n_steps
+
+    def _start_profile(self):
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof, profile_dir: Path, epoch: int) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        profile_dir.mkdir(parents=True, exist_ok=True)
+        path = profile_dir / (f"epoch{epoch}_rank{mesh.process_index()}"
+                              ".pt.trace.json")
+        prof.export_chrome_trace(str(path))
+        self.logger.info(f"Profile of epoch {epoch} written to {path}")
 
     def evaluation(self, epoch, evaluator, val_ds, val_loader, num_classes):
         self.model.eval()

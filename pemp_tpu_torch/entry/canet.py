@@ -23,6 +23,12 @@ train loader is not sharded (``shard_train_loader = False``), so every
 process reads the whole stream (the global batch is ``data.bs``), takes
 rank 0's batch and computes its rows; the write-back gathers the global
 batch's logits, in training and in eval alike.
+
+With ``dev.fuse_steps = k > 1`` the write-back of a fused chunk is
+``post_chunk`` (the JAX entry's, ``entry/canet.py:118-128``): the k
+steps' logits, stacked on a leading axis, are gathered and written in
+step order, one chunk late; the store ends byte-identical to the serial
+loop's, since reads come from the epoch's snapshot either way.
 """
 
 from __future__ import annotations
@@ -97,6 +103,13 @@ class CaNetRuntime(EntryRuntime):
         ``batch`` (rows r, r+W, ...): gathered, every store sees them all."""
         logits = mesh.gather_rows(logits.float(), strided=True)
         self.write_history(logits.cpu().numpy(), batch)
+
+    def post_chunk(self, auxes: torch.Tensor, batches) -> None:
+        """A fused chunk's write-back: ``auxes`` [k, ...] holds each
+        step's logits (this process's rows), written as ``post_step``
+        would, in step order (the last write of a query wins)."""
+        for logits, batch in zip(auxes, batches):
+            self.post_step(logits, batch)
 
     def eval_step(self, model, device: torch.device):
         raw = make_fast_eval_step(model, device, self.apply_eval,

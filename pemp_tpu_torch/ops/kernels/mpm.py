@@ -37,13 +37,24 @@ fixed-order finish of an episode); ``plain_match_bwd_blocks``,
 block partials of each backward kernel and their finishes). The kernels'
 tickets are kept per device, stream and kernel: launches of one stream
 run in order and leave them at zero.
+
+Under CUDA-graph capture (``parallel/step.py``'s fused train step) a
+wrapper records its kernel into the graph on the capture stream.
+``launches`` counts that call, and a replay adds nothing to it:
+``replays`` counts each kernel's launches made by graph replays (the
+graph's runner adds, at each replay, what it recorded at capture). A
+captured kernel reads only memory made before the capture or in the
+graph's pool: a ticket buffer is never freed once made (a graph keeps
+its pointer), and neither it nor a plan (the occupancy queries) may be
+made under capture, where a miss raises; an eager call on the capture
+stream at the same shapes makes both.
 """
 
 from __future__ import annotations
 
 import ctypes
 from functools import partial
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -63,6 +74,7 @@ PASS_CHANNELS = 512      # csrc/mpm_common.cuh kPassCols (channels a pass)
 launches: Dict[str, int] = {"assign": 0, "match": 0, "match_bwd": 0,
                             "assign_bwd": 0}
 backward_calls: Dict[str, int] = {"mpm_backward": 0}
+replays: Dict[str, int] = dict.fromkeys(launches, 0)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -71,13 +83,22 @@ _IP = ctypes.POINTER(ctypes.c_int)
 _bound: Dict[str, ctypes.CDLL] = {}
 _plans: Dict[tuple, Tuple[int, int]] = {}   # (ring stages, slots) per kernel
 _ticket_bufs: Dict[tuple, torch.Tensor] = {}
+_retired: List[torch.Tensor] = []           # outgrown tickets, kept alive
 _BWD_KIND = {"match_bwd": 0, "assign_bwd": 1}
 
 
 def reset_launches() -> None:
     for key in launches:
         launches[key] = 0
+        replays[key] = 0
     backward_calls["mpm_backward"] = 0
+
+
+def _not_capturing(what: str) -> None:
+    """Raise under CUDA-graph capture: ``what`` must exist before it."""
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{what} is made under CUDA-graph capture: run "
+                           "the step eagerly on the capture stream first")
 
 
 def _lib():
@@ -181,6 +202,7 @@ def _assign_plan(lib, device, c: int, protos: int, is_bf16: int):
     for (c, p) and the feature type on ``device``."""
     key = (device, c, protos, is_bf16)
     if key not in _plans:
+        _not_capturing(f"the assign plan {key}")
         with torch.cuda.device(device):
             stages = lib.pemp_mpm_assign_stages(c, protos, is_bf16)
             if stages == 0:
@@ -204,6 +226,7 @@ def _ring_plan(kind: str, fn, device, c: int, protos: int,
     the kernel reads its rows from device memory (no ring fits)."""
     key = (kind, device, c, protos, is_bf16)
     if key not in _plans:
+        _not_capturing(f"the {kind} plan {key}")
         slots = ctypes.c_int(0)
         with torch.cuda.device(device):
             stages = fn(c, protos, is_bf16, ctypes.byref(slots))
@@ -216,10 +239,14 @@ def _ring_plan(kind: str, fn, device, c: int, protos: int,
 
 def _tickets(device, stream: int, kind: str, count: int) -> torch.Tensor:
     """A kernel's int32 tickets on (device, stream): zeroed once, left at
-    zero by every launch."""
+    zero by every launch. An outgrown buffer stays alive: a captured graph
+    may hold its pointer."""
     key = (device, stream, kind)
     t = _ticket_bufs.get(key)
     if t is None or t.numel() < count:
+        _not_capturing(f"the {kind} tickets on stream {stream:#x}")
+        if t is not None:
+            _retired.append(t)
         t = torch.zeros(count, dtype=torch.int32, device=device)
         _ticket_bufs[key] = t
     return t

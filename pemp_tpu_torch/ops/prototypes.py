@@ -18,7 +18,7 @@ from typing import Tuple
 import torch
 
 from pemp_tpu_torch.ops.dtypes import f32up
-from pemp_tpu_torch.ops.resize import _interp_matrix
+from pemp_tpu_torch.ops.resize import interp_matrix
 
 COS_EPS = 1e-8      # torch F.cosine_similarity default
 POOL_EPS = 1e-5     # reference masked-average denominators
@@ -51,8 +51,8 @@ def masked_average_pooling_adjoint(fts: torch.Tensor, mask: torch.Tensor,
     b, s, h, w, c = fts.shape
     big_h, big_w = mask.shape[-2:]
     m = f32up(mask)
-    rh = torch.from_numpy(_interp_matrix(h, big_h)).to(m)         # [H, h]
-    rw = torch.from_numpy(_interp_matrix(w, big_w)).to(m)         # [W, w]
+    rh = interp_matrix(h, big_h, m.device, m.dtype)               # [H, h]
+    rw = interp_matrix(w, big_w, m.device, m.dtype)               # [W, w]
     mdown = torch.einsum("Hh,bsHW,Ww->bshw", rh, m, rw)
     num = torch.einsum("bshwc,bshw->bsc", f32up(fts), mdown)
     den = m.sum(dim=(-1, -2))[..., None] + eps

@@ -23,7 +23,13 @@ several cards: ``dev.mesh > 1`` in one process raises.
   ``broadcast_bytes_from_rank0``: host values agreed across the world;
 - ``all_reduce_sum``, ``world_mean``, ``gather_rows``: device tensors
   reduced or gathered in global batch order (all through ``all_reduce``
-  and ``broadcast``, which both backends take for CUDA tensors).
+  and ``broadcast``, which both backends take for CUDA tensors);
+- ``require_graph_collectives``: a fused launch (``dev.fuse_steps > 1``)
+  captures the train step's collectives (DDP's gradient all-reduce,
+  ``GlobalBatchNorm``'s and ``world_mean``'s) in a CUDA graph, which can
+  hold NCCL's but not gloo's: on CUDA a gloo world (processes sharing a
+  card) raises. On the CPU the fused launch is k eager steps, over gloo
+  as any world there.
 """
 
 from __future__ import annotations
@@ -330,3 +336,15 @@ def gather_rows(t: torch.Tensor, strided: bool = False) -> torch.Tensor:
         out[rank] = t
     dist.all_reduce(out)
     return out.reshape((-1,) + t.shape[1:])
+
+
+def require_graph_collectives(fuse_steps: int) -> None:
+    """Raise unless a CUDA graph can hold this world's collectives: one
+    process, or a world over NCCL."""
+    if dist.is_initialized() and dist.get_backend() != "nccl":
+        raise RuntimeError(
+            f"dev.fuse_steps={fuse_steps} captures the train step, with its "
+            "collectives, in a CUDA graph, which can hold NCCL collectives "
+            f"but not {dist.get_backend()}'s (this world's: processes that "
+            "share a card run over gloo); run one process per card over "
+            "NCCL, or dev.fuse_steps=1")

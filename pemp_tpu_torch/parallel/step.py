@@ -1,11 +1,14 @@
-"""Host -> device batches: the wire format and the device prefetcher.
+"""Host -> device batches (the wire format and the device prefetcher)
+and the fused multi-step train launch.
 
 Counterpart of ``pemp_tpu/parallel/step.py``'s ``WIRE_DTYPES``,
-``device_batch``, ``unpack_batch`` and ``DevicePrefetcher``. The JAX
-package's jitted train step and its sharding become the port's
-``Trainer.train_step`` under ``DistributedDataParallel``
-(``core/experiment.py``); its fused step (``tpu.fuse_steps``) is not
-ported.
+``device_batch``, ``unpack_batch``, ``DevicePrefetcher`` and
+``make_train_step_fused`` (:166). The JAX package's jitted train step and
+its sharding become the port's ``Trainer.train_step`` under
+``DistributedDataParallel`` (``core/experiment.py``); its fused step
+(``tpu.fuse_steps``, k steps as one ``lax.scan`` launch) becomes
+``FusedTrainStep`` (``dev.fuse_steps``): k train steps captured in one
+CUDA graph and replayed once a chunk of k batches.
 
 - Images and history travel as float16, masks and the prior as uint8,
   ``cls`` as int32 (``dev.compact_wire``, 2.4x fewer bytes than float32);
@@ -19,6 +22,7 @@ ported.
   kernels take ``torch.cuda.current_stream()`` and keep their tickets per
   stream (``ops/kernels/mpm.py``), so all compute stays on the consumer's
   stream, which waits on an event recorded after each batch's copies.
+- ``FusedTrainStep``: see the class.
 """
 
 from __future__ import annotations
@@ -27,11 +31,13 @@ import queue
 import threading
 import time
 from contextlib import contextmanager
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from pemp_tpu_torch.core import solver
+from pemp_tpu_torch.ops.kernels import minplus, mpm
 from pemp_tpu_torch.parallel import mesh
 
 ARRAY_KEYS = ("sup_rgb", "sup_mask", "qry_rgb", "qry_msk",
@@ -251,3 +257,178 @@ class DevicePrefetcher:
                     pass
             while not q.empty():
                 q.get_nowait()
+
+
+# eager steps of each batch signature before its capture: PyTorch's recipe
+# warms a whole network up for 3 iterations on the capture stream;
+# DistributedDataParallel rebuilds its buckets during its first 10
+WARMUP_STEPS = 3
+DDP_WARMUP_STEPS = 11
+_KERNEL_MODULES = (mpm, minplus)
+
+
+class _Graph:
+    """One captured chunk: its graph, static inputs (the k batches in
+    their wire dtypes), the [k] LR slot, the [k] losses and the stacked
+    aux, and the K1-K5 launches recorded at its capture."""
+
+    def __init__(self, inputs: List[Dict[str, torch.Tensor]],
+                 lr: torch.Tensor):
+        self.graph = torch.cuda.CUDAGraph()
+        self.inputs = inputs
+        self.lr = lr
+        self.losses: Optional[torch.Tensor] = None
+        self.aux: Optional[torch.Tensor] = None
+        self.recorded: List[Dict[str, int]] = []
+
+
+class FusedTrainStep:
+    """``fused(batches, lrs) -> (losses [k], auxes [k, ...] or None)``:
+    ``k = fuse_steps`` train steps of ``step(t, lr) -> (loss, aux)`` on
+    the k batches (host or prefetched; ``device_batch`` of each), step j
+    at the LR ``lrs[j]`` (``solver.lr_tensor``'s 0-dim view). ``step``
+    takes a device batch in its wire dtypes and does one whole train
+    step: unpack, forward, loss, ``zero_grad(set_to_none=True)``,
+    backward, clip, ``solver.step``. The losses and, with ``with_aux``,
+    the auxes (CaNet's feature-resolution logits) come back stacked on a
+    leading [k] axis and stay on the device.
+
+    On the CPU (asked for by name, as the tests do) it is the plain
+    version: the k eager steps in a loop. On CUDA it is the counterpart
+    of the JAX package's ``lax.scan`` of k steps, after PyTorch's
+    whole-network capture recipe:
+
+    - the first ``warmup_steps`` steps of each batch signature (shapes
+      and dtypes of the k batches) run eagerly on a side stream, in whole
+      chunks. They are real steps of the run, and they make what a
+      capture may not: the cuBLAS and cuDNN state, the momentum buffers,
+      the kernels' plans and tickets, the resize matrices;
+    - then ``optimizer.zero_grad(set_to_none=True)`` and one capture of
+      the k steps on that stream into a graph of its own: k static input
+      slots, the [k] LR slot, the [k] losses and aux; ``generators`` (the
+      trainer's dropout generator) are registered with it, so a replay
+      draws at the generator's live seed and offset, as the eager steps
+      would. Each capture is logged, and a failure raises;
+    - each later chunk of that signature is device-to-device copies into
+      the slots (the wire format is unpacked inside the graph), one
+      pinned copy of the k LRs and one replay. ``replays`` counts them,
+      and each adds the K1-K5 launches its capture recorded to
+      ``ops.kernels.mpm.replays`` / ``ops.kernels.minplus.replays``.
+
+    A chunk takes exactly k batches: the epoch tail runs through the
+    serial step (``Trainer._run_epoch_fused``)."""
+
+    def __init__(self, step: Callable, fuse_steps: int, device,
+                 optimizer: torch.optim.Optimizer, compact_wire: bool = True,
+                 keys: Iterable[str] = ARRAY_KEYS, with_aux: bool = False,
+                 generators: Sequence[torch.Generator] = (),
+                 warmup_steps: int = WARMUP_STEPS, logger=None):
+        if fuse_steps < 2:
+            raise ValueError(f"fuse_steps={fuse_steps}: a fused launch takes "
+                             "at least 2 steps (1 is the serial loop)")
+        self.step = step
+        self.fuse_steps = fuse_steps
+        self.device = torch.device(device)
+        self.optimizer = optimizer
+        self.compact_wire = compact_wire
+        self.keys = tuple(keys)
+        self.with_aux = with_aux
+        self.generators = tuple(generators)
+        self.warmup_steps = warmup_steps
+        self.logger = logger
+        self.graphs: Dict[tuple, _Graph] = {}
+        self.warm: Dict[tuple, int] = {}
+        self.captures = 0
+        self.replays = 0
+        self.eager_steps = 0
+        self.side = (torch.cuda.Stream(self.device)
+                     if self.device.type == "cuda" else None)
+
+    def __call__(self, batches: Sequence, lrs: Sequence[float]):
+        k = self.fuse_steps
+        if len(batches) != k or len(lrs) != k:
+            raise ValueError(
+                f"the fused step takes {k} batches and LRs, got "
+                f"{len(batches)} and {len(lrs)}: run epoch tails through "
+                "the serial step")
+        dev = [device_batch(b, self.device, self.compact_wire, self.keys)
+               for b in batches]
+        if self.device.type != "cuda":
+            return self._eager(dev, lrs)
+        sig = tuple(tuple((key, tuple(v.shape), v.dtype)
+                          for key, v in sorted(t.items())) for t in dev)
+        graph = self.graphs.get(sig)
+        if graph is None:
+            if self.warm.get(sig, 0) < self.warmup_steps:
+                self.warm[sig] = self.warm.get(sig, 0) + k
+                return self._warm_up(dev, lrs)
+            graph = self.graphs[sig] = self._capture(sig, dev)
+        return self._replay(graph, dev, lrs)
+
+    def _host_lrs(self, lrs) -> torch.Tensor:
+        """The k LRs in ``solver.lr_tensor``'s dtype on the host (pinned
+        for a CUDA device, whose copy then does not wait)."""
+        dtype = solver.lr_tensor(self.device, (0,)).dtype
+        host = torch.tensor(list(lrs), dtype=dtype)
+        return host.pin_memory() if self.device.type == "cuda" else host
+
+    def _eager(self, dev, lrs):
+        lr = self._host_lrs(lrs).to(self.device, non_blocking=True)
+        outs = [self.step(t, lr[j]) for j, t in enumerate(dev)]
+        self.eager_steps += len(outs)
+        losses = torch.stack([o[0] for o in outs])
+        aux = torch.stack([o[1] for o in outs]) if self.with_aux else None
+        return losses, aux
+
+    def _warm_up(self, dev, lrs):
+        current = torch.cuda.current_stream(self.device)
+        self.side.wait_stream(current)
+        with torch.cuda.stream(self.side):
+            losses, aux = self._eager(dev, lrs)
+        current.wait_stream(self.side)
+        for t in (losses, aux):
+            if t is not None:
+                t.record_stream(current)
+        return losses, aux
+
+    def _capture(self, sig, dev) -> _Graph:
+        k = self.fuse_steps
+        g = _Graph([{key: torch.empty_like(v) for key, v in t.items()}
+                    for t in dev], solver.lr_tensor(self.device, (k,)))
+        for gen in self.generators:
+            g.graph.register_generator_state(gen)
+        # backward makes the grads anew in the graph's pool
+        self.optimizer.zero_grad(set_to_none=True)
+        before = [dict(m.launches) for m in _KERNEL_MODULES]
+        current = torch.cuda.current_stream(self.device)
+        self.side.wait_stream(current)
+        with torch.cuda.graph(g.graph, stream=self.side):
+            outs = [self.step(g.inputs[j], g.lr[j]) for j in range(k)]
+            g.losses = torch.stack([o[0] for o in outs])
+            if self.with_aux:
+                g.aux = torch.stack([o[1] for o in outs])
+        current.wait_stream(self.side)
+        g.recorded = [{key: n - b[key] for key, n in m.launches.items()}
+                      for m, b in zip(_KERNEL_MODULES, before)]
+        self.captures += 1
+        if self.logger is not None:
+            shapes = {key: tuple(shape) for key, shape, _ in sig[0]}
+            kernels = {key: n for rec in g.recorded for key, n in rec.items()}
+            self.logger.info(
+                f"Captured a CUDA graph of {k} train steps for batches of "
+                f"{shapes} (graph {len(self.graphs) + 1}; kernel launches "
+                f"recorded: {kernels})")
+        return g
+
+    def _replay(self, g: _Graph, dev, lrs):
+        for slot, t in zip(g.inputs, dev):
+            for key, v in slot.items():
+                v.copy_(t[key])
+        g.lr.copy_(self._host_lrs(lrs), non_blocking=True)
+        g.graph.replay()
+        self.replays += 1
+        for m, recorded in zip(_KERNEL_MODULES, g.recorded):
+            for key, n in recorded.items():
+                m.replays[key] += n
+        # the next replay overwrites the outputs: the caller keeps copies
+        return g.losses.clone(), (g.aux.clone() if self.with_aux else None)

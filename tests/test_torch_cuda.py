@@ -13,7 +13,10 @@ similarity margin exceeds 1e-3, and the prototypes and the chain
 bit-identical run to run. The min-plus kernel (integer and non-integer
 inputs) and the squared EDT are bit-equal to their plain versions;
 ``MPMChainPacked``'s cotangents are within 1e-3 of the largest magnitude
-of autograd's through the plain chain (float32 features).
+of autograd's through the plain chain (float32 features). Captured in a
+CUDA graph (the fused train step's path), the chain's forward and
+backward and the EDT replay bit-equal to their eager launches, the
+replays counted; a kernel's plan or tickets missing at capture raise.
 """
 
 import pytest
@@ -380,3 +383,45 @@ def test_baseline_and_panet_on_the_card_match_the_cpu(cuda, name):
     card = card if name == "panet" else (card,)
     for a, b in zip(card, cpu):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=2e-4)
+
+
+def test_kernels_replay_in_a_cuda_graph_as_eager(cuda):
+    fts, fg, bg, ctr = _inputs(cuda, 2, 2, 1, 1030, 64, torch.bfloat16)
+    fts = fts.requires_grad_()
+    w = torch.randn(2, 1, 1030, 2, device=cuda)
+
+    def step():
+        fts.grad = None
+        logits = K.mpm_chain_packed(fts, fg, bg, ctr, P, SCALE)
+        (logits * w).sum().backward()
+        return logits.detach(), fts.grad, edt.edt2(logits[..., 1] > 0)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        want = [t.clone() for t in step()]      # makes plans and tickets
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    K.reset_launches()
+    M.reset_launches()
+    with torch.cuda.graph(graph, stream=side):
+        out = step()
+    recorded = {**K.launches, **M.launches}
+    assert recorded == {"assign": 1, "match": 1, "match_bwd": 1,
+                        "assign_bwd": 1, "minplus": 2}
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, exp in zip(out, want):
+            assert torch.equal(got, exp)
+    # the caller counts the replays (parallel/step.py::FusedTrainStep)
+    assert K.replays == dict.fromkeys(K.launches, 0)
+
+
+def test_capture_raises_where_a_kernel_plan_is_missing(cuda):
+    fts, fg, bg, ctr = _inputs(cuda, 1, 1, 1, 49, 24, torch.float32)
+    K._plans.clear()
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="CUDA-graph capture"):
+        with torch.cuda.graph(graph):
+            K.mpm_chain_packed(fts, fg, bg, ctr, P, SCALE)

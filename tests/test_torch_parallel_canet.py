@@ -8,12 +8,23 @@ the second epoch reads. Both ranks end alike, and like one process at the
 same batch.
 """
 
+import shutil
+
 import pytest
 
 from pemp_tpu_torch.entry import canet
 from tests.test_torch_parallel_entry import (  # noqa: F401
     _metrics, _same_metrics, _single, _world, one_thread,
 )
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's ``tmp_path``, removed with the runs the test wrote into it
+    once the test ends: nothing reads them afterwards, and their
+    checkpoints take hundreds of MB."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def test_canet_world_matches_one_process(tmp_path):

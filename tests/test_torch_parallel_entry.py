@@ -11,6 +11,7 @@ holds its own:
 """
 
 import json
+import shutil
 
 import pytest
 import torch
@@ -28,6 +29,15 @@ def one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(before)
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's ``tmp_path``, removed with the runs the test wrote into it
+    once the test ends: nothing reads them afterwards, and their
+    checkpoints take hundreds of MB."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _world(tmp_path, module, args, env=None):

@@ -17,6 +17,7 @@ One world trains the four families in turn (one start-up for all).
 """
 
 import json
+import shutil
 
 import pytest
 import torch
@@ -31,7 +32,8 @@ from tests.test_torch_parallel_entry import (  # noqa: F401
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """(the stage-1 snapshot, the root of the runs, each rank's results)
-    of one world that trains every family."""
+    of one world that trains every family; the runs (gigabytes of
+    checkpoints) are removed once the module's tests end."""
     root = tmp_path_factory.mktemp("families")
     cfg = pemp_stage1.ex.assemble("test", {"split": "0", "dev.device": "cpu"})
     s1 = root / "stage1.pt"
@@ -43,7 +45,8 @@ def runs(tmp_path_factory):
                                  args=[str(s1), str(root / "multi")], cwd=root)
     for rc, log in zip(rcs, logs):
         assert rc == 0, log[-4000:]
-    return s1, root, [json.loads(o.read_text()) for o in outs]
+    yield s1, root, [json.loads(o.read_text()) for o in outs]
+    shutil.rmtree(root, ignore_errors=True)
 
 
 @pytest.mark.parametrize("name", list(worker.FAMILIES))

@@ -181,9 +181,10 @@ def test_resolve_mesh_and_the_dev_keys(monkeypatch):
     for n in (1, 2, 8):
         with pytest.raises(ValueError, match="dev.mesh"):
             mesh.resolve_mesh(n)
-    # the JAX package's defaults of tpu.mesh, tpu.prefetch, tpu.compact_wire
+    # the JAX package's defaults of tpu.mesh, tpu.prefetch, tpu.compact_wire,
+    # tpu.fuse_steps
     ours, theirs = DeviceConfig(), JaxDeviceConfig()
-    for key in ("mesh", "prefetch", "compact_wire"):
+    for key in ("mesh", "prefetch", "compact_wire", "fuse_steps"):
         assert getattr(ours, key) == getattr(theirs, key), key
 
 

@@ -38,9 +38,10 @@ PORT = ["dev.device=cpu", "dev.precision=f32"]
 # ``dev``, where the keys of the world and the input path keep their names
 # (``CONFIG_RENAMED``); the log file is not ported
 CONFIG_RENAMED = {"tpu.mesh": "dev.mesh", "tpu.prefetch": "dev.prefetch",
-                  "tpu.compact_wire": "dev.compact_wire"}
+                  "tpu.compact_wire": "dev.compact_wire",
+                  "tpu.fuse_steps": "dev.fuse_steps"}
 CONFIG_ONLY_JAX = {"tpu.platform", "tpu.precision", "tpu.use_pallas",
-                   "tpu.fuse_steps", "g.log_file"}
+                   "g.log_file"}
 CONFIG_ONLY_PORT = {"dev.device", "dev.precision"}
 RESULT = re.compile(r"Loss: \d+\.\d{4}, mIoU: \d+\.\d{2}, bIoU: \d+\.\d{2}")
 

@@ -12,11 +12,13 @@ The world comes from the environment (``RANK``, ``WORLD_SIZE``,
   host broadcasts of ``parallel/mesh.py``, each against one process's
   result on the whole (seeded) batch, computed here too; writes the
   largest errors as JSON;
-- ``train64``: ``train64`` below in the world, written with ``torch.save``;
+- ``train64 <bs> [steps] [fuse]``: ``train64`` below in the world,
+  written with ``torch.save``;
 - ``entry <module> <argv ...>``: ``pemp_tpu_torch.entry.<module>.main``;
-  writes the result and the world as JSON (``PEMP_TEST_SIGTERM=1``: rank
-  1 signals itself after its first train step, with a stop agreed every
-  step);
+  writes the result and the world as JSON, with the train steps this
+  rank ran (``PEMP_TEST_SIGTERM=1``: rank 1 signals itself after its
+  first train step, which is inside a chunk under ``dev.fuse_steps``,
+  with a stop agreed at every step or chunk boundary);
 - ``families <stage-1 snapshot> <model dir>``: ``train`` (chained into
   ``test``) of each entry of ``FAMILIES`` in one world at float64 with
   one-block stages, two steps of ``data.bs=2`` a process; writes each
@@ -181,12 +183,12 @@ def _one_process(fn, logits, labels):
         mesh.process_count = count
 
 
-def train64(bs: int, model_dir, steps: int = 2):
+def train64(bs: int, model_dir, steps: int = 2, fuse: int = 1):
     """PEMP stage 1 on a small ResNet (one block a stage), float64, 33x33,
     cedt, DropBlock on, through the entry runtime: ``steps`` train steps of
-    ``bs`` episodes a process, then the online eval; the unrecorded run's
-    final snapshot goes under ``model_dir``. Returns the global losses and
-    the final ``state_dict``."""
+    ``bs`` episodes a process (``dev.fuse_steps=fuse``), then the online
+    eval; the unrecorded run's final snapshot goes under ``model_dir``.
+    Returns the global losses and the final ``state_dict``."""
     from pemp_tpu_torch.config import Run
     from pemp_tpu_torch.entry import pemp_stage1 as entry
     from pemp_tpu_torch.models.pemp_stage1 import PEMPStage1
@@ -195,7 +197,7 @@ def train64(bs: int, model_dir, steps: int = 2):
     args = dict(a.split("=", 1) for a in SMALL)
     args.update({"data.bs": str(bs), "data.train_n": str(steps * bs * world),
                  "tr.total_epochs": "1", "loss": "cedt", "tr.lr": "0.01",
-                 "g.model_dir": str(model_dir)})
+                 "g.model_dir": str(model_dir), "dev.fuse_steps": str(fuse)})
     cfg = entry.ex.assemble("train", args)
     kept = {}
 
@@ -233,18 +235,21 @@ def entry(module: str, argv):
     from pemp_tpu_torch.core import trainer as trainer_mod
     torch.set_num_threads(1)
     mod = importlib.import_module(f"pemp_tpu_torch.entry.{module}")
-    out = {}
-    if os.environ.get("PEMP_TEST_SIGTERM") == "1":
+    out = {"steps_run": 0}
+    signal_once = os.environ.get("PEMP_TEST_SIGTERM") == "1"
+    if signal_once:
         trainer_mod.STOP_SYNC_STEPS = 1
-        step = trainer_mod.Trainer.train_step
+    step = trainer_mod.Trainer.device_step
 
-        def signalling_step(self, batch):
-            loss = step(self, batch)
-            if mesh.process_index() == 1 and not out:
-                out["signalled"] = True
-                os.kill(os.getpid(), signal.SIGTERM)
-            return loss
-        trainer_mod.Trainer.train_step = signalling_step
+    def counted_step(self, t, lr):
+        result = step(self, t, lr)
+        out["steps_run"] += 1
+        if signal_once and mesh.process_index() == 1 \
+                and "signalled" not in out:
+            out["signalled"] = True
+            os.kill(os.getpid(), signal.SIGTERM)
+        return result
+    trainer_mod.Trainer.device_step = counted_step
     out.update(_entry_main(mod, argv))
     return out
 
@@ -359,7 +364,8 @@ def main():
         elif mode == "families":
             out.write_text(json.dumps(families(sys.argv[3], sys.argv[4])))
         elif mode == "train64":
-            torch.save(train64(int(sys.argv[3]), out.parent / "md"), out)
+            torch.save(train64(int(sys.argv[3]), out.parent / "md",
+                               *map(int, sys.argv[4:])), out)
         elif mode == "fail":
             if mesh.process_index() == 1:
                 raise RuntimeError("rank 1 fails on purpose")
