@@ -15,8 +15,9 @@ Counterpart of ``Trainer`` in ``pemp_tpu/core/trainer.py:227-583``
   whole life, re-seeded ``seed + epoch`` each epoch, so a resumed epoch
   replays its masks (and a captured graph, which keeps its generator,
   draws them too);
-- ``dev.fuse_steps = k > 1`` (``_run_epoch_fused``, the counterpart of
-  ``pemp_tpu/core/trainer.py:466-550``): full chunks of k batches go
+- one epoch loop, ``_run_epoch`` (the counterpart of ``_run_epoch_fused``,
+  ``pemp_tpu/core/trainer.py:466-550``), in chunks of ``dev.fuse_steps``
+  batches; with ``k > 1`` full chunks of k batches go
   through ``train_step_fused`` (``parallel/step.py``'s
   ``FusedTrainStep``: on CUDA one replay of a captured graph, on the CPU
   k eager steps), with the chunk's per-step LRs drawn from the live
@@ -169,8 +170,9 @@ class Trainer:
                 keys=runtime.device_keys,
                 with_aux=self.post_chunk is not None,
                 generators=[self.dropout_generator],
-                warmup_steps=(DDP_WARMUP_STEPS if mesh.process_count() > 1
-                              else WARMUP_STEPS), logger=self.logger)
+                warmup_steps=(DDP_WARMUP_STEPS if isinstance(
+                    self.forward, torch.nn.parallel.DistributedDataParallel)
+                    else WARMUP_STEPS), logger=self.logger)
 
     @property
     def post_step(self) -> Optional[Callable]:
@@ -326,9 +328,8 @@ class Trainer:
                 prof = (self._start_profile()
                         if profile_dir and epoch == start_epoch + 2 else None)
                 try:
-                    run = (self._run_epoch if self.train_step_fused is None
-                           else self._run_epoch_fused)
-                    n_steps = run(train_loader, losses, timer, stop, world)
+                    n_steps = self._run_epoch(train_loader, losses, timer,
+                                              stop, world)
                 finally:
                     if prof is not None:
                         self._stop_profile(prof, Path(profile_dir), epoch)
@@ -365,32 +366,14 @@ class Trainer:
         self.try_snapshot(self.cfg.tr.total_epochs, final=True)
 
     def _run_epoch(self, train_loader, losses, timer, stop, world) -> int:
-        """One epoch of serial steps; returns the optimizer steps taken."""
-        n_steps = 0
-        for step_i, batch in enumerate(train_loader):
-            with timer.start():
-                losses.append(self.train_step(batch))
-            self.lr_policy.step_step()
-            n_steps += 1
-            # one process stops at any step; a world agrees on a fixed
-            # step schedule (the world-OR is synchronous)
-            if world == 1:
-                self.preempted = stop.requested
-            elif (step_i + 1) % STOP_SYNC_STEPS == 0:
-                self.preempted = mesh.any_process_flag(stop.requested)
-            if self.preempted:
-                break
-        return n_steps
-
-    def _run_epoch_fused(self, train_loader, losses, timer, stop,
-                         world) -> int:
-        """One epoch through the fused launch: each full chunk of
-        ``fuse_steps`` batches is one ``train_step_fused`` call at the
-        chunk's LRs, drawn from the live schedule before the launch; the
-        tail (fewer than ``fuse_steps`` batches) runs serial steps, so
-        one graph is captured a batch shape. Returns the optimizer steps
-        taken. The stop flag is polled at chunk boundaries; a world takes
-        its world-OR whenever the step count crosses a multiple of
+        """One epoch in chunks of ``fuse_steps`` batches (1 without a
+        fused step): with a fused step each full chunk is one
+        ``train_step_fused`` call at the chunk's LRs, drawn from the live
+        schedule before the launch; otherwise, and for the epoch tail
+        (fewer than ``fuse_steps`` batches, so one graph is captured a
+        batch shape), serial steps. Returns the optimizer steps taken.
+        The stop flag is polled at chunk boundaries; a world takes its
+        world-OR whenever the step count crosses a multiple of
         ``STOP_SYNC_STEPS`` (every rank counts alike: equal loaders,
         equal ``fuse_steps``).
 
@@ -400,7 +383,9 @@ class Trainer:
         first flushes the pending chunk), and the write-backs reach the
         store before its ``next_epoch()``. A runtime with ``post_step``
         and no ``post_chunk`` cannot run here."""
-        if self.post_step is not None and self.post_chunk is None:
+        fused = self.train_step_fused
+        if (fused is not None and self.post_step is not None
+                and self.post_chunk is None):
             raise RuntimeError(
                 "fused multi-step launches cannot run a per-step host hook "
                 "(post_step): provide post_chunk(auxes, batches) for a "
@@ -413,19 +398,19 @@ class Trainer:
             if not chunk:
                 break
             with timer.start():
-                if len(chunk) == k:
+                if fused is not None and len(chunk) == k:
                     lrs = []
                     for _ in chunk:
                         lrs.append(self.lr_policy.lr)
                         self.lr_policy.step_step()
                     solver.set_lr(self.optimizer, lrs[-1])
-                    chunk_losses, auxes = self.train_step_fused(chunk, lrs)
+                    chunk_losses, auxes = fused(chunk, lrs)
                     losses.append(chunk_losses)
                     if self.post_chunk is not None:
                         if pending is not None:
                             self.post_chunk(*pending)
                         pending = (auxes, chunk)
-                else:           # the epoch tail: serial steps
+                else:           # serial steps (or the epoch tail)
                     if pending is not None:
                         self.post_chunk(*pending)
                         pending = None

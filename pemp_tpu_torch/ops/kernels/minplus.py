@@ -10,9 +10,8 @@ Replaces the TPU kernel ``_kernel`` of ``pemp_tpu/ops/pallas/minplus.py``
 kernel). For tensors on the CPU it runs ``plain_minplus``; for CUDA
 tensors it launches the kernel or raises. ``launches["minplus"]`` counts
 each launch on CUDA, at the launch (under CUDA-graph capture, its
-recording into the graph); ``replays["minplus"]`` counts the launches
-that graph replays made (``parallel/step.py`` adds what each graph
-recorded at capture, at each replay).
+recording into the graph; a replay adds nothing to it, and
+``parallel/step.py``'s fused step counts what its replays launched).
 
 Every term is one float32 add, which rounds the same way in any order,
 and ``min`` is exact and order-free, so the kernel and the plain version
@@ -35,7 +34,6 @@ MAX_BATCH = 65535 // SPLIT  # the grid's z walks batch x slice
 PLAIN_CHUNK = 1 << 24       # elements of the plain version's temporary
 
 launches: Dict[str, int] = {"minplus": 0}
-replays: Dict[str, int] = {"minplus": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,7 +44,6 @@ _bound = None
 def reset_launches() -> None:
     for key in launches:
         launches[key] = 0
-        replays[key] = 0
 
 
 def _lib():

@@ -40,14 +40,13 @@ run in order and leave them at zero.
 
 Under CUDA-graph capture (``parallel/step.py``'s fused train step) a
 wrapper records its kernel into the graph on the capture stream.
-``launches`` counts that call, and a replay adds nothing to it:
-``replays`` counts each kernel's launches made by graph replays (the
-graph's runner adds, at each replay, what it recorded at capture). A
-captured kernel reads only memory made before the capture or in the
-graph's pool: a ticket buffer is never freed once made (a graph keeps
-its pointer), and neither it nor a plan (the occupancy queries) may be
-made under capture, where a miss raises; an eager call on the capture
-stream at the same shapes makes both.
+``launches`` counts that call, and a replay adds nothing to it (the
+fused step counts what its replays launched). A captured kernel reads
+only memory made before the capture or in the graph's pool: a ticket
+buffer is never freed once made (a graph keeps its pointer), and
+neither it nor a plan (the occupancy queries) may be made under
+capture, where a miss raises; an eager call on the capture stream at
+the same shapes makes both.
 """
 
 from __future__ import annotations
@@ -74,7 +73,6 @@ PASS_CHANNELS = 512      # csrc/mpm_common.cuh kPassCols (channels a pass)
 launches: Dict[str, int] = {"assign": 0, "match": 0, "match_bwd": 0,
                             "assign_bwd": 0}
 backward_calls: Dict[str, int] = {"mpm_backward": 0}
-replays: Dict[str, int] = dict.fromkeys(launches, 0)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -90,7 +88,6 @@ _BWD_KIND = {"match_bwd": 0, "assign_bwd": 1}
 def reset_launches() -> None:
     for key in launches:
         launches[key] = 0
-        replays[key] = 0
     backward_calls["mpm_backward"] = 0
 
 

@@ -270,7 +270,7 @@ _KERNEL_MODULES = (mpm, minplus)
 class _Graph:
     """One captured chunk: its graph, static inputs (the k batches in
     their wire dtypes), the [k] LR slot, the [k] losses and the stacked
-    aux, and the K1-K5 launches recorded at its capture."""
+    aux, and the K1-K5 launches recorded at its capture (by kernel)."""
 
     def __init__(self, inputs: List[Dict[str, torch.Tensor]],
                  lr: torch.Tensor):
@@ -279,7 +279,7 @@ class _Graph:
         self.lr = lr
         self.losses: Optional[torch.Tensor] = None
         self.aux: Optional[torch.Tensor] = None
-        self.recorded: List[Dict[str, int]] = []
+        self.recorded: Dict[str, int] = {}
 
 
 class FusedTrainStep:
@@ -312,11 +312,12 @@ class FusedTrainStep:
     - each later chunk of that signature is device-to-device copies into
       the slots (the wire format is unpacked inside the graph), one
       pinned copy of the k LRs and one replay. ``replays`` counts them,
-      and each adds the K1-K5 launches its capture recorded to
-      ``ops.kernels.mpm.replays`` / ``ops.kernels.minplus.replays``.
+      and ``replayed`` the K1-K5 launches they made (each adds what its
+      capture recorded: a replay leaves the kernels' ``launches``
+      counts as they were).
 
     A chunk takes exactly k batches: the epoch tail runs through the
-    serial step (``Trainer._run_epoch_fused``)."""
+    serial step (``Trainer._run_epoch``)."""
 
     def __init__(self, step: Callable, fuse_steps: int, device,
                  optimizer: torch.optim.Optimizer, compact_wire: bool = True,
@@ -340,6 +341,7 @@ class FusedTrainStep:
         self.warm: Dict[tuple, int] = {}
         self.captures = 0
         self.replays = 0
+        self.replayed: Dict[str, int] = {}
         self.eager_steps = 0
         self.side = (torch.cuda.Stream(self.device)
                      if self.device.type == "cuda" else None)
@@ -408,16 +410,15 @@ class FusedTrainStep:
             if self.with_aux:
                 g.aux = torch.stack([o[1] for o in outs])
         current.wait_stream(self.side)
-        g.recorded = [{key: n - b[key] for key, n in m.launches.items()}
-                      for m, b in zip(_KERNEL_MODULES, before)]
+        g.recorded = {key: n - b[key] for m, b in zip(_KERNEL_MODULES, before)
+                      for key, n in m.launches.items()}
         self.captures += 1
         if self.logger is not None:
             shapes = {key: tuple(shape) for key, shape, _ in sig[0]}
-            kernels = {key: n for rec in g.recorded for key, n in rec.items()}
             self.logger.info(
                 f"Captured a CUDA graph of {k} train steps for batches of "
                 f"{shapes} (graph {len(self.graphs) + 1}; kernel launches "
-                f"recorded: {kernels})")
+                f"recorded: {g.recorded})")
         return g
 
     def _replay(self, g: _Graph, dev, lrs):
@@ -427,8 +428,7 @@ class FusedTrainStep:
         g.lr.copy_(self._host_lrs(lrs), non_blocking=True)
         g.graph.replay()
         self.replays += 1
-        for m, recorded in zip(_KERNEL_MODULES, g.recorded):
-            for key, n in recorded.items():
-                m.replays[key] += n
+        for key, n in g.recorded.items():
+            self.replayed[key] = self.replayed.get(key, 0) + n
         # the next replay overwrites the outputs: the caller keeps copies
         return g.losses.clone(), (g.aux.clone() if self.with_aux else None)

@@ -3,10 +3,10 @@ held against the port's serial loop and the JAX package's fused launch
 (``tests/test_fused_steps.py`` holds the JAX package's against its own
 serial loop):
 
-- the epoch's bookkeeping: the port's ``Trainer._run_epoch_fused`` and
-  the JAX package's, driven by the same recording steps, give the same
-  (step index, LR, batch) sequence, the same launches, tail steps and
-  step count; a per-step host hook without a chunk flush is refused (and
+- the epoch's bookkeeping: the port's ``Trainer._run_epoch`` and the
+  JAX package's ``Trainer._run_epoch_fused``, driven by the same
+  recording steps, give the same (step index, LR, batch) sequence, the
+  same launches, tail steps and step count; a per-step host hook without a chunk flush is refused (and
   the entry runtime falls back to the serial loop); ``post_chunk`` is
   flushed one chunk late and in step order, before the tail's
   ``post_step``s;
@@ -95,7 +95,8 @@ class PolyLike:
         return {"steps": self.steps}
 
 
-def port_trainer(fuse, runtime=None, model=None, lr_policy=None, cfg=None):
+def port_trainer(fuse, runtime=None, model=None, lr_policy=None, cfg=None,
+                 forward=None):
     """A port trainer on the CPU (a toy model unless ``model`` is given)."""
     if cfg is None:
         cfg = pemp_stage1.ex.assemble("train", dict(
@@ -107,7 +108,7 @@ def port_trainer(fuse, runtime=None, model=None, lr_policy=None, cfg=None):
     return Trainer(cfg, Run(None, None), model,
                    solver.make_optimizer(cfg.tr, params), params, runtime,
                    lr_policy or PolyLike(), torch.device("cpu"),
-                   fuse_steps=fuse)
+                   forward=forward, fuse_steps=fuse)
 
 
 # --- bookkeeping --------------------------------------------------------------
@@ -165,8 +166,8 @@ def port_sequence(n, k):
 
     trainer.train_step_fused, trainer.train_step = fused, serial
     losses = []
-    got = trainer._run_epoch_fused([f"b{i}" for i in range(n)], losses,
-                                   Timer(), GracefulStop(), world=1)
+    got = trainer._run_epoch([f"b{i}" for i in range(n)], losses, Timer(),
+                             GracefulStop(), world=1)
     assert len(losses) == len(launches) + len(tail)
     assert trainer.lr_policy.steps == n
     return seq, len(launches), len(tail), got
@@ -184,12 +185,36 @@ def test_epoch_bookkeeping_matches_the_jax_trainer(n, k):
         [1.0 / (1 + i) for i in range(n)])
 
 
+def test_fused_warm_up_follows_a_ddp_forward():
+    """A fused step warms up DDP's bucket rebuild (DDP_WARMUP_STEPS eager
+    steps) whenever the forward is a DistributedDataParallel, a world of
+    one included, and WARMUP_STEPS otherwise."""
+    import socket
+
+    import torch.distributed as dist
+
+    from pemp_tpu_torch.parallel.step import DDP_WARMUP_STEPS, WARMUP_STEPS
+    assert port_trainer(2).train_step_fused.warmup_steps == WARMUP_STEPS
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        model = torch.nn.Linear(2, 2)
+        ddp = torch.nn.parallel.DistributedDataParallel(model)
+        trainer = port_trainer(2, model=model, forward=ddp)
+        assert trainer.train_step_fused.warmup_steps == DDP_WARMUP_STEPS
+    finally:
+        dist.destroy_process_group()
+
+
 def test_fused_epoch_rejects_post_step_without_post_chunk(caplog):
     runtime = SimpleNamespace(post_step=lambda logits, batch: None,
                               post_chunk=None, device_keys=("sup_rgb",))
     trainer = port_trainer(2, runtime)
     with pytest.raises(RuntimeError, match="post_chunk"):
-        trainer._run_epoch_fused([1, 2], [], Timer(), GracefulStop(), 1)
+        trainer._run_epoch([1, 2], [], Timer(), GracefulStop(), 1)
     # the entry runtime trains such a family serially, and says so
     cfg = pemp_stage1.ex.assemble("train", dict(
         a.split("=", 1) for a in SMALL + ["dev.fuse_steps=3"]))
@@ -229,8 +254,7 @@ def test_post_chunk_flushes_one_chunk_late_in_step_order(n):
     trainer.train_step_fused, trainer.device_step = fused, device_step
     loader = [{"i": i, "sup_rgb": np.full((1,), i, np.float32)}
               for i in range(n)]
-    assert trainer._run_epoch_fused(loader, [], Timer(), GracefulStop(),
-                                    1) == n
+    assert trainer._run_epoch(loader, [], Timer(), GracefulStop(), 1) == n
     want = [("launch", [0, 1, 2]), ("launch", [3, 4, 5]),
             ("chunk", [0, 1, 2], [0, 1, 2]), ("chunk", [3, 4, 5], [3, 4, 5])]
     want += [("step", i, i) for i in range(6, n)]
@@ -358,8 +382,8 @@ def port_epoch(init, fuse):
                       pemp_stage1.Stage1Runtime(cfg), lr_policy,
                       torch.device("cpu"), fuse_steps=fuse)
     losses = []
-    run = trainer._run_epoch if fuse == 1 else trainer._run_epoch_fused
-    assert run(init["data"], losses, Timer(), GracefulStop(), 1) == 3
+    assert trainer._run_epoch(init["data"], losses, Timer(), GracefulStop(),
+                              1) == 3
     names = {id(p): k for k, p in model.named_parameters()}
     momentum = {names[id(p)]: s["momentum_buffer"]
                 for p, s in trainer.optimizer.state.items()}

@@ -1,5 +1,5 @@
-"""Static scan: nothing under pemp_tpu_torch/ and nothing in chip_smoke.py,
-kernel_times.py or grad_gaps.py imports jax, flax or pemp_tpu (any module of it), nor
+"""Static scan: nothing under pemp_tpu_torch/ and nothing in chip_smoke.py
+or kernel_times.py imports jax, flax or pemp_tpu (any module of it), nor
 msgpack or pymongo (the port reads the JAX checkpoints and writes the
 Mongo documents itself); the COCO rasterizer is the port's own C++ copy. A sys.modules check would prove nothing here,
 because jax is preloaded in this environment
@@ -15,7 +15,7 @@ ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pemp_tpu", "msgpack",
              "pymongo")
 FILES = sorted((ROOT / "pemp_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "kernel_times.py", ROOT / "grad_gaps.py"]
+    ROOT / "chip_smoke.py", ROOT / "kernel_times.py"]
 
 
 def _imported_modules(tree):
