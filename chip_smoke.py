@@ -76,6 +76,17 @@ SYNTH episodes):
   idle share, eager against a replayed chunk; CaNet's
   history store byte for byte the serial run's (321², three steps a
   chunk); a gloo world on the card refused;
+- serving export (``serving_path``; ResNet-50, 1-shot, 401x401, bf16,
+  seeded weights): stage 1 and the stage-1 -> stage-2 cascade exported
+  with a symbolic batch by ``pemp_tpu_torch/tools/export_serving.py``'s
+  functions (K1 and K2 as the graph nodes ``pemp.mpm_assign`` and
+  ``pemp.mpm_match``), each artifact loaded in a fresh process
+  (``chip_smoke.py serving-worker ...``) and called at B = 1 and 8 on a
+  SYNTH eval batch: K1 and K2 once a stage a call (and as the profiler
+  counts them), logits bit-equal to the live eager forward (cuDNN
+  deterministic), the live forward against the plain mpm; the B = 1
+  latency and B = 8 episodes/s of artifact and live forward, the
+  export's seconds and the artifact's bytes;
 
 and checks that each path went through the kernels and agrees with the
 plain version. The phases ``minplus`` (the EDT kernel, bit-exact, also on
@@ -318,6 +329,20 @@ CANET_FUSE_K = 3
 CANET_FUSE_ARGS = [a for a in CANET_ARGS if not a.startswith(
     "data.train_n=")] + ["data.train_n=24"]
 
+
+# serving_path: PEMP stage 1 and the stage-1 -> stage-2 cascade (ResNet-50,
+# c=512, p=3, 1-shot, 401x401, bf16, weights from SERVE_SEED) exported with
+# a symbolic batch (pemp_tpu_torch/tools/export_serving.py), each artifact
+# loaded in a fresh process (``chip_smoke.py serving-worker``) and called
+# at SERVE_BATCHES on a SYNTH eval batch; K1 and K2 launch once a stage a
+# call
+SERVE_SEED = 1234
+SERVE_BATCHES = (1, 8)
+SERVE_STAGES = {"pemp_stage1": 1, "cascade": 2}
+SERVE_TIMEOUT_S = 300        # each worker
+# cuDNN's kernel that took 92 % of a B = 1 stage-1 call's device time on
+# an H100 80GB HBM3 (700 W): its time by the convolution's input shapes
+SERVE_CONV_BY_SHAPE = ("conv2d_grouped_direct",)
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -3834,6 +3859,275 @@ def fused_path_phase(torch, K, M, smi):
     return out["b_launches"]["fused_bf16"]["device_launches"]
 
 
+def serving_launches():
+    """K1-K5's counts in this process; ``minplus`` 0 when its module was
+    never imported (then nothing launched it)."""
+    mpm = sys.modules["pemp_tpu_torch.ops.kernels.mpm"]
+    minplus = sys.modules.get("pemp_tpu_torch.ops.kernels.minplus")
+    return {**mpm.launches, **mpm.backward_calls,
+            "minplus": minplus.launches["minplus"] if minplus else 0}
+
+
+def serving_worker(argv) -> int:
+    """``chip_smoke.py serving-worker <artifact> <inputs.npz> <out.npz>
+    <cudnn allow_tf32 0|1>``: a fresh process that imports
+    ``load_serving`` alone (which registers the ``pemp::`` operators),
+    loads the artifact and calls it once at each SERVE_BATCHES size under
+    cuDNN's deterministic algorithms (the logits and K1-K5's launches of
+    those calls into <out.npz>, ``.json`` beside it); then, with the
+    flags as found, the host-clock ms of a call at each size and its
+    kernels as the profiler counts them (``serving_timing``)."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(ROOT))
+    from pemp_tpu_torch.tools.export_serving import load_serving
+    artifact, inputs, out = argv[0], argv[1], Path(argv[2])
+    torch.backends.cudnn.allow_tf32 = argv[3] == "1"
+    t0 = time.perf_counter()
+    fn = load_serving(artifact).module()
+    load_s = time.perf_counter() - t0
+    data = np.load(inputs)
+    args = {b: [torch.from_numpy(data[k][:b]).cuda()
+                for k in ("sup_rgb", "sup_mask", "qry_rgb")]
+            for b in SERVE_BATCHES}
+    cudnn = torch.backends.cudnn
+    mpm = sys.modules["pemp_tpu_torch.ops.kernels.mpm"]
+    mpm.reset_launches()
+    logits, per_call = {}, {}
+    cudnn.deterministic = True
+    with torch.no_grad():
+        for b in SERVE_BATCHES:
+            before = serving_launches()
+            logits[f"b{b}"] = fn(*args[b]).float().cpu().numpy()
+            per_call[b] = {k: v - before[k]
+                           for k, v in serving_launches().items()}
+    launches = serving_launches()
+    cudnn.deterministic = False
+    timing = serving_timing(torch, fn, args)
+    np.savez(out, **logits)
+    Path(f"{out}.json").write_text(json.dumps({
+        "load_s": load_s, "launches": launches,
+        "per_call": {str(b): v for b, v in per_call.items()},
+        "timing": timing}))
+    return 0
+
+
+def serving_timing(torch, fn, args):
+    """For each batch size b of ``args``: the host-clock ms of
+    ``fn(*args[b])`` (median of 10 after 3), its device ms, idle share,
+    K1/K2 counts, top kernels and the SERVE_CONV_BY_SHAPE kernels' time by
+    convolution shape (one profiled call)."""
+    out = {}
+    with torch.no_grad():
+        for b in SERVE_BATCHES:
+            ms = host_ms(torch, lambda b=b: fn(*args[b]))
+            prof = device_profile(torch, lambda b=b: fn(*args[b]),
+                                  {k: KERNEL_SYMBOLS[k]
+                                   for k in ("assign", "match")},
+                                  by_shape=SERVE_CONV_BY_SHAPE)
+            device_ms = prof["device_us_total"] / 1e3
+            out[str(b)] = {"host_ms": ms, "device_ms": device_ms,
+                           "device_idle_share": 1 - device_ms / ms,
+                           "assign_calls": prof["assign_calls"],
+                           "match_calls": prof["match_calls"],
+                           "top": prof["top"][:5],
+                           "conv_by_shape": prof["by_input_shape"][:3]}
+    return out
+
+
+def serving_path_phase(torch, K):
+    """Serving export on the card: PEMP stage 1 and the cascade (stage 1,
+    its argmax prior, stage 2), full width in bf16, exported with a
+    symbolic batch through ``pemp_tpu_torch/tools/export_serving.py``'s
+    functions and saved; each loaded in a fresh process
+    (``serving_worker``) and called at B = 1 and 8 on a SYNTH eval batch.
+    Checks: K1 and K2 launch once a stage a call there (also as the
+    profiler counts a B = 8 call) and the export launches nothing; the
+    artifact's logits bit-equal to the live eager forward of the same
+    weights (cuDNN deterministic in both processes); the live forward
+    with the kernels against the plain mpm (as ``main_path`` and
+    ``stage2_path``: max abs err, argmax and prior agreement). Host-clock
+    ms (median of 10 after 3) of a B = 1 call and of a B = 8 call, the
+    artifact's and the live forward's, the export's seconds and the
+    artifact's bytes. Returns K1-K5's launches in the workers' counted
+    calls (the table's ``serving_path_launches``)."""
+    import numpy as np
+    from unittest import mock
+
+    from pemp_tpu_torch.core.experiment import set_precision
+    from pemp_tpu_torch.data import datasets
+    from pemp_tpu_torch.entry import pemp_stage1 as entry
+    from pemp_tpu_torch.models import pemp_stage1 as stage1
+    from pemp_tpu_torch.models import registry
+    from pemp_tpu_torch.tools import export_serving as X
+
+    start = time.perf_counter()
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic
+    cfg = entry.ex.assemble("test", dict(a.split("=", 1)
+                                         for a in MAIN_ARGS[2:]))
+    hw = cfg.data.height
+    set_precision(cfg.dev.precision)
+    models = {}
+    for name in ("pemp_stage1", "pemp_stage2"):
+        models[name] = registry.build(name, cfg)
+        models[name].reset_parameters(
+            torch.Generator().manual_seed(SERVE_SEED))
+    built = {"pemp_stage1": X.build_serving_fn(
+        "pemp_stage1", models["pemp_stage1"], "poly", 1, 1, hw, "cuda"),
+        "cascade": X.build_cascade_serving_fn(
+            models["pemp_stage1"], models["pemp_stage2"], "poly", 1, 1, hw,
+            "cuda")}
+    batch = first_batch(datasets, cfg)
+    if batch["sup_rgb"].shape[0] < max(SERVE_BATCHES):
+        raise AssertionError("the SYNTH eval batch is smaller than "
+                             f"{max(SERVE_BATCHES)}")
+    keys = ("sup_rgb", "sup_mask", "qry_rgb")
+    out, launches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = Path(tmp) / "inputs.npz"
+        np.savez(inputs, **{k: np.asarray(batch[k], np.float32)
+                            for k in keys})
+        for name, (serve, example, dyn) in built.items():
+            before = dict(K.launches)
+            t0 = time.perf_counter()
+            exported = X.export_serving(serve, example, dyn)
+            export_s = time.perf_counter() - t0
+            if K.launches != before:
+                raise AssertionError(f"exporting {name} launched a kernel")
+            nodes = sorted(str(n.target) for n in exported.graph.nodes
+                           if str(n.target).startswith("pemp."))
+            want_nodes = sorted(["pemp.mpm_assign.default",
+                                 "pemp.mpm_match.default"]
+                                * SERVE_STAGES[name])
+            if nodes != want_nodes:
+                raise AssertionError(f"{name} graph's mpm nodes {nodes}")
+            path = Path(tmp) / f"{name}.pt2"
+            nbytes = X.save_serving(exported, path, {
+                "model": name, "hw": hw, "batch": "b",
+                "precision": cfg.dev.precision})
+            del exported
+            w0 = time.perf_counter()
+            run_world(lambda r: ["serving-worker", str(path), str(inputs),
+                                 str(Path(tmp) / f"{name}.out.npz"),
+                                 str(int(cudnn.allow_tf32))],
+                      lambda r: None, 1, SERVE_TIMEOUT_S, tmp)
+            worker_s = time.perf_counter() - w0
+            rep = json.loads(Path(tmp, f"{name}.out.npz.json").read_text())
+            got = np.load(Path(tmp) / f"{name}.out.npz")
+            stages = SERVE_STAGES[name]
+            want_call = {k: stages if k in ("assign", "match") else 0
+                         for k in rep["launches"]}
+            for b in SERVE_BATCHES:
+                if rep["per_call"][str(b)] != want_call:
+                    raise AssertionError(f"{name} B={b} launches "
+                                         f"{rep['per_call'][str(b)]}, "
+                                         f"want {want_call}")
+            art_t = rep["timing"]
+            counted = {b: (v["assign_calls"], v["match_calls"])
+                       for b, v in art_t.items()}
+            if set(counted.values()) != {(stages, stages)}:
+                raise AssertionError(f"{name}: the profiler counts "
+                                     f"(assign, match) {counted}")
+            launches[name] = rep["launches"]
+
+            # the live forward, same weights and inputs, in this process
+            cudnn.deterministic = True
+            eq, vs_plain = {}, {}
+            try:
+                with torch.no_grad():
+                    for b in SERVE_BATCHES:
+                        t = [torch.from_numpy(np.asarray(batch[k][:b],
+                                                         np.float32)).cuda()
+                             for k in keys]
+                        live = serve(*t).float()
+                        art = torch.from_numpy(got[f"b{b}"]).cuda()
+                        if art.shape != (b, 1, hw, hw, 2) or not bool(
+                                torch.isfinite(art).all()):
+                            raise AssertionError(
+                                f"{name} B={b}: logits {tuple(art.shape)} "
+                                "or not finite")
+                        eq[b] = {"bit_equal": bool(torch.equal(art, live)),
+                                 "max_abs_diff": (art - live).abs().max()
+                                 .item()}
+                        vs_plain[b] = serving_vs_plain(
+                            K, mock, stage1, serve, name, t, live)
+            finally:
+                cudnn.deterministic = saved
+            if not all(v["bit_equal"] for v in eq.values()):
+                raise AssertionError(f"{name}: artifact vs live {eq}")
+            bad = {b: v for b, v in vs_plain.items()
+                   if v["max_abs_err"] > LOGIT_ATOL
+                   or v["argmax_agreement"] < MAIN_AGREE
+                   or (v["prior_agreement"] is not None
+                       and v["prior_agreement"] < MAIN_AGREE)}
+            if bad:
+                raise AssertionError(f"{name}: kernels vs plain mpm {bad}")
+            live_t = serving_timing(torch, serve, {
+                b: [torch.from_numpy(np.asarray(batch[k][:b], np.float32))
+                    .cuda() for k in keys] for b in SERVE_BATCHES})
+            big = str(max(SERVE_BATCHES))
+            out[name] = {
+                "export_s": export_s, "artifact_bytes": nbytes,
+                "archive_bytes": archive_bytes(path),
+                "worker_s": worker_s, "load_s": rep["load_s"],
+                "launches": rep["launches"], "per_call": rep["per_call"],
+                "vs_live": eq, "vs_plain": vs_plain,
+                "artifact": art_t, "live": live_t,
+                "artifact_b1_latency_ms": art_t["1"]["host_ms"],
+                "live_b1_latency_ms": live_t["1"]["host_ms"],
+                f"artifact_b{big}_episodes_per_s":
+                    int(big) / art_t[big]["host_ms"] * 1e3,
+                f"live_b{big}_episodes_per_s":
+                    int(big) / live_t[big]["host_ms"] * 1e3}
+    total = {k: sum(v[k] for v in launches.values())
+             for k in launches["pemp_stage1"]}
+    emit({"phase": "serving_path", "hw": hw,
+          "precision": cfg.dev.precision, "batches": list(SERVE_BATCHES),
+          "seed": SERVE_SEED, "wall_s": time.perf_counter() - start,
+          "launches": total, **out,
+          "tolerance": {"artifact_vs_live": "bit-equal (cuDNN "
+                        "deterministic)", "logit_atol": LOGIT_ATOL,
+                        "agree": MAIN_AGREE}})
+    return total
+
+
+def archive_bytes(path):
+    """The ``.pt2`` archive's bytes by folder (its weights, constants,
+    graph), uncompressed."""
+    import zipfile
+    sizes = {}
+    with zipfile.ZipFile(path) as z:
+        for info in z.infolist():
+            parts = info.filename.split("/")
+            key = "/".join(parts[1:3] if len(parts) > 3 else parts[1:2])
+            sizes[key] = sizes.get(key, 0) + info.file_size
+    return dict(sorted(sizes.items(), key=lambda kv: -kv[1])[:6])
+
+
+def serving_vs_plain(K, mock, stage1, serve, name, t, live):
+    """The live forward with the kernels (``live``) against the same
+    forward with the plain mpm, which must launch no kernel; for the
+    cascade, as ``stage2_path``: stage 2 on the kernels' prior both ways,
+    and that prior against the plain mpm's (None for stage 1)."""
+    prior_agree = None
+    if name == "cascade":
+        prior = serve.model.prior(*t)           # with the kernels
+    before = dict(K.launches)
+    with mock.patch.object(stage1, "mpm_chain_packed", plain_chain):
+        if name == "cascade":
+            prior_agree = (serve.model.prior(*t) == prior).float().mean(
+            ).item()
+            plain = serve.model.stage2(*t, prior).float()
+        else:
+            plain = serve(*t).float()
+    if K.launches != before:
+        raise AssertionError(f"{name}: the plain forward launched a kernel")
+    return {"max_abs_err": (live - plain).abs().max().item(),
+            "argmax_agreement": (live.argmax(-1) == plain.argmax(-1))
+            .float().mean().item(),
+            "prior_agreement": prior_agree}
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3881,13 +4175,16 @@ def main() -> int:
     real_launches = real_data_path_phase(torch, K, M)
     parallel_launches = parallel_path_phase(torch, K, M)
     fused_launches = fused_path_phase(torch, K, M, smi)
+    serving = serving_path_phase(torch, K)
 
     # one row per TPU kernel K1-K5. assign and match are one __global__
     # each; the chain (K3, mpm.py:342) is those two launches on the packed
     # tensor and has none of its own (its launches: its calls on the main
     # path, one assign and one match launch each). The mpm rows' launches
     # are the eval path's (their slice), train_path_launches the training
-    # path's, stage2_path_launches the stage-2 cascade's. minplus: one EDT
+    # path's, stage2_path_launches the stage-2 cascade's,
+    # serving_path_launches the exported artifacts' counted calls in their
+    # workers (stage 1 and the cascade at B = 1 and 8). minplus: one EDT
     # = its two launches (ms, plain_ms and bound_ms add both phases at the
     # train shapes). mpm_backward (K4):
     # its two kernels, match_bwd and assign_bwd, one launch each per
@@ -3903,6 +4200,7 @@ def main() -> int:
          "real_data_path_launches": real_launches[name],
          "parallel_path_launches": parallel_launches[name],
          "fused_path_launches": fused_launches[name],
+         "serving_path_launches": serving[name],
          "max_abs_err": worst[name], "ms": times[name],
          "plain_ms": times[f"{name}_plain"], "bound_ms": bounds[name][0],
          "bound_by": bounds[name][1], "library_ms": None}
@@ -3919,6 +4217,7 @@ def main() -> int:
         "real_data_path_launches": real_launches["match"],
         "parallel_path_launches": parallel_launches["match"],
         "fused_path_launches": fused_launches["match"],
+        "serving_path_launches": serving["match"],
         "max_abs_err": worst["chain"], "ms": times["chain"],
         "plain_ms": times["chain_plain"], "bound_ms": bounds["chain"][0],
         "bound_by": bounds["chain"][1], "library_ms": None,
@@ -3938,6 +4237,8 @@ def main() -> int:
         "parallel_path_launches": parallel_launches["match_bwd"],
         "fused_path_launches": {k: fused_launches[k]
                                 for k in ("match_bwd", "assign_bwd")},
+        "serving_path_launches": {k: serving[k]
+                                  for k in ("match_bwd", "assign_bwd")},
         "max_abs_err": bw_worst, "ms": bw_times["bfloat16"],
         "ms_no_spin": bw_times["bfloat16_no_spin"],
         "plain_ms": bw_times["bfloat16_plain"],
@@ -3958,6 +4259,7 @@ def main() -> int:
         "real_data_path_launches": real_launches["minplus"],
         "parallel_path_launches": parallel_launches["minplus"],
         "fused_path_launches": fused_launches["minplus"],
+        "serving_path_launches": serving["minplus"],
         "ms": mp_times["phase1"] + mp_times["phase2"],
         "plain_ms": mp_times["phase1_plain"] + mp_times["phase2_plain"],
         "bound_ms": mp_bounds["phase1"][0] + mp_bounds["phase2"][0],
@@ -3977,7 +4279,8 @@ def main() -> int:
     return 0
 
 
-SUBCOMMANDS = {"parallel-worker": parallel_worker, "entry-run": entry_run}
+SUBCOMMANDS = {"parallel-worker": parallel_worker, "entry-run": entry_run,
+               "serving-worker": serving_worker}
 
 if __name__ == "__main__":
     if len(sys.argv) > 1:

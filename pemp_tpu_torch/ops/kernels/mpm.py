@@ -28,7 +28,18 @@ each ``__global__`` kernel's launches on CUDA, one at the site that
 launches it: ``assign`` (K1), ``match`` (K2), ``match_bwd`` and
 ``assign_bwd`` (K4). The chain launches nothing of its own;
 ``backward_calls`` counts ``MPMChainPacked`` backward passes on either
-device. The plain versions of the kernels' stages: ``plain_assign_blocks``
+device.
+
+K1 and K2 are also the ``torch.library`` operators ``pemp::mpm_assign``
+(``assign_op``) and ``pemp::mpm_match`` (``match_op``), with a CUDA
+implementation (the launch above), a CPU one (the plain version) and a
+fake one (shapes and dtypes, for ``torch.export``); no other device has
+one. The public wrappers and the no-grad chain call them, so an exported
+eval forward holds them as graph nodes and launches the kernels on the
+card (``tools/export_serving.py``). Importing this module registers
+them: load an exported program after it.
+
+The plain versions of the kernels' stages: ``plain_assign_blocks``
 and ``plain_assign_finish`` (K1: the partial sums of each cluster of
 blocks, ``CLUSTER`` times ``assign_grid``'s rows per block, and the
 fixed-order finish of an episode); ``plain_match_bwd_blocks``,
@@ -344,6 +355,76 @@ def _match_launch(fts, s: int, packed, protos: int, dist_scalar: float,
     return (logits, inds) if return_indices else logits
 
 
+def _plain_dtype(*tensors: torch.Tensor) -> torch.dtype:
+    """The plain versions' result dtype: at least float32 (``f32up``)."""
+    dtype = torch.float32
+    for t in tensors:
+        dtype = torch.promote_types(dtype, t.dtype)
+    return dtype
+
+
+@torch.library.custom_op("pemp::mpm_assign", mutates_args=(),
+                         device_types="cpu")
+def assign_op(fts: torch.Tensor, sup_fg: torch.Tensor, sup_bg: torch.Tensor,
+              ctr: torch.Tensor, protos: int, eps: float) -> torch.Tensor:
+    """K1 as an operator: packed prototypes [B, 2p, c] (fg first, then bg)
+    of the support rows of fts [B, S+Q, n, c]. This body is its CPU
+    implementation, the plain version; for CUDA tensors the kernel."""
+    s = sup_fg.shape[1]
+    fg, bg = meta_prototype_assign(fts[:, :s], sup_fg, sup_bg, ctr, protos,
+                                   eps)
+    return torch.cat([fg, bg], dim=1)
+
+
+@assign_op.register_kernel("cuda")
+def _assign_cuda(fts, sup_fg, sup_bg, ctr, protos, eps):
+    return _assign_launch(fts, sup_fg, sup_bg, ctr, protos, eps)
+
+
+@assign_op.register_fake
+def _assign_fake(fts, sup_fg, sup_bg, ctr, protos, eps):
+    return fts.new_empty((fts.shape[0], 2 * protos, fts.shape[-1]),
+                         dtype=_plain_dtype(fts, sup_fg, sup_bg, ctr))
+
+
+@torch.library.custom_op("pemp::mpm_match", mutates_args=(),
+                         device_types="cpu")
+def match_op(fts: torch.Tensor, s: int, packed: torch.Tensor, protos: int,
+             dist_scalar: float, return_indices: bool
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2 as an operator: logits [B, Q, n, 2] of the query rows
+    ``fts[:, s:]`` against packed [B, 2p, c], and the int32 argmax indices
+    [B, Q, n, 2] (an empty [0] tensor unless ``return_indices``). This body
+    is its CPU implementation, the plain version; for CUDA tensors the
+    kernel."""
+    return _pair(prototype_predictions(
+        fts[:, s:], packed[:, :protos], packed[:, protos:], dist_scalar,
+        return_indices), return_indices, fts)
+
+
+@match_op.register_kernel("cuda")
+def _match_cuda(fts, s, packed, protos, dist_scalar, return_indices):
+    return _pair(_match_launch(fts, s, packed, protos, dist_scalar,
+                               return_indices), return_indices, fts)
+
+
+@match_op.register_fake
+def _match_fake(fts, s, packed, protos, dist_scalar, return_indices):
+    b, sq, n, _ = fts.shape
+    shape = (b, sq - s, n, 2)
+    return (fts.new_empty(shape, dtype=_plain_dtype(fts, packed)),
+            fts.new_empty(shape if return_indices else (0,),
+                          dtype=torch.int32))
+
+
+def _pair(out, return_indices: bool, fts: torch.Tensor):
+    """(logits, indices): an empty index tensor when none was asked for
+    (an operator returns a fixed number of tensors)."""
+    if return_indices:
+        return out
+    return out, torch.empty((0,), dtype=torch.int32, device=fts.device)
+
+
 def mpm_assign(fts: torch.Tensor, sup_fg: torch.Tensor, sup_bg: torch.Tensor,
                ctr: torch.Tensor, protos: int, eps: float = ASSIGN_EPS
                ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -353,11 +434,7 @@ def mpm_assign(fts: torch.Tensor, sup_fg: torch.Tensor, sup_bg: torch.Tensor,
     images of each episode are the support. sup_fg / sup_bg [B, S, n],
     ctr [c, 2p]. Returns (fg_proto, bg_proto), each [B, p, c] float32.
     """
-    s = sup_fg.shape[1]
-    if fts.device.type == "cpu":
-        return meta_prototype_assign(fts[:, :s], sup_fg, sup_bg, ctr,
-                                     protos, eps)
-    out = _assign_launch(fts, sup_fg, sup_bg, ctr, protos, eps)
+    out = assign_op(fts, sup_fg, sup_bg, ctr, protos, eps)
     return out[:, :protos], out[:, protos:]
 
 
@@ -367,12 +444,10 @@ def mpm_match(fts: torch.Tensor, s: int, fg_proto: torch.Tensor,
     """Cosine logits of the query rows ``fts[:, s:]`` against per-class
     prototypes fg_proto / bg_proto [B, p, c]. Returns logits [B, Q, n, 2]
     ([bg, fg]) and, if asked, int32 argmax indices [B, Q, n, 2]."""
-    if fts.device.type == "cpu":
-        return prototype_predictions(fts[:, s:], fg_proto, bg_proto,
-                                     dist_scalar, return_indices)
     packed = torch.cat([fg_proto, bg_proto], dim=1)
-    return _match_launch(fts, s, packed, fg_proto.shape[1], dist_scalar,
-                         return_indices)
+    logits, inds = match_op(fts, s, packed, fg_proto.shape[1], dist_scalar,
+                            return_indices)
+    return (logits, inds) if return_indices else logits
 
 
 def _norm_and_guard(x: torch.Tensor):
@@ -708,16 +783,15 @@ def mpm_chain_packed(fts: torch.Tensor, sup_fg: torch.Tensor,
     (S = ``sup_fg.shape[1]``). Returns logits [B, Q, n, 2] and, if asked,
     the argmax indices [B, Q, n, 2]. With grad enabled and an input that
     requires it, the logits come from ``MPMChainPacked`` (same kernels
-    forward, analytic backward)."""
+    forward, analytic backward); otherwise from the operators
+    ``pemp::mpm_assign`` then ``pemp::mpm_match`` (the eval and serving
+    path, which ``torch.export`` keeps as two graph nodes)."""
     s = sup_fg.shape[1]
     if (not return_indices and torch.is_grad_enabled()
             and any(t.requires_grad for t in (fts, sup_fg, sup_bg, ctr))):
         return MPMChainPacked.apply(fts, sup_fg, sup_bg, ctr, protos,
                                     dist_scalar, eps)
-    if fts.device.type == "cpu":
-        fg, bg = meta_prototype_assign(fts[:, :s], sup_fg, sup_bg, ctr,
-                                       protos, eps)
-        return prototype_predictions(fts[:, s:], fg, bg, dist_scalar,
-                                     return_indices)
-    packed = _assign_launch(fts, sup_fg, sup_bg, ctr, protos, eps)
-    return _match_launch(fts, s, packed, protos, dist_scalar, return_indices)
+    packed = assign_op(fts, sup_fg, sup_bg, ctr, protos, eps)
+    logits, inds = match_op(fts, s, packed, protos, dist_scalar,
+                            return_indices)
+    return (logits, inds) if return_indices else logits

@@ -13,6 +13,7 @@ Layout is channels-last with flattened spatial ``[B, S, n, c]``.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -53,10 +54,30 @@ def masked_average_pooling_adjoint(fts: torch.Tensor, mask: torch.Tensor,
     m = f32up(mask)
     rh = interp_matrix(h, big_h, m.device, m.dtype)               # [H, h]
     rw = interp_matrix(w, big_w, m.device, m.dtype)               # [W, w]
-    mdown = torch.einsum("Hh,bsHW,Ww->bshw", rh, m, rw)
+    mdown = torch.ops.aten.einsum(_ADJOINT, [rh, m, rw],
+                                  path=_adjoint_path(h, w, big_h, big_w))
     num = torch.einsum("bshwc,bshw->bsc", f32up(fts), mdown)
     den = m.sum(dim=(-1, -2))[..., None] + eps
     return num / den
+
+
+_ADJOINT = "Hh,bsHW,Ww->bshw"
+
+
+@functools.lru_cache(maxsize=None)
+def _adjoint_path(h: int, w: int, big_h: int, big_w: int):
+    """The contraction order ``torch.einsum`` takes for ``_ADJOINT``
+    (opt_einsum's, flattened; None: left to right), found from the static
+    sizes alone: both pairwise orders scale with B*S and the outer product
+    of the matrices never wins, so the order does not depend on B*S, and
+    a trace with a symbolic batch takes the eager path."""
+    oe = torch.backends.opt_einsum
+    if not (oe.enabled and oe.is_available()):
+        return None
+    path = oe.get_opt_einsum().contract_path(
+        _ADJOINT, (big_h, h), (1, 1, big_h, big_w), (big_w, w), shapes=True,
+        optimize=oe.strategy)[0]
+    return [i for pair in path for i in pair]
 
 
 def _safe_norm(x: torch.Tensor) -> torch.Tensor:

@@ -16,7 +16,9 @@ device once per (sizes, device, dtype): a copy from pageable host memory
 waits for the stream, and a CUDA graph cannot capture it
 (``parallel/step.py``'s fused train step). The cache keeps the
 ``CACHE_SIZE`` most recent; one that a captured graph reads is never
-dropped.
+dropped. Under a trace (``torch.export``, ``torch.compile``) the
+constant is made afresh and never cached: the tensor made there is a
+fake one, and an eager call that read it back would compute on it.
 """
 
 from __future__ import annotations
@@ -62,7 +64,11 @@ def _constant(key: tuple, device: torch.device,
               make: Callable[[], torch.Tensor]) -> torch.Tensor:
     """The cached device tensor ``key`` names, made by ``make`` on a miss.
     A miss under CUDA-graph capture raises: the host copy cannot be
-    captured, so the sizes must have run once before the capture."""
+    captured, so the sizes must have run once before the capture. Under
+    a trace ``make()`` alone, so that the trace holds the constant and
+    the cache keeps no fake tensor."""
+    if torch.compiler.is_compiling():
+        return make()
     t = _held.get(key)
     if t is not None:
         return t

@@ -76,6 +76,25 @@ def test_kernels_match_plain(cuda, dtype, s, n):
                           "assign_bwd": 0}
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mpm_ops_launch_the_kernels(cuda, dtype):
+    """``pemp::mpm_assign`` and ``pemp::mpm_match`` on CUDA tensors launch
+    one kernel each, equal the wrappers bit for bit and pass opcheck."""
+    fts, fg, bg, ctr = _inputs(cuda, 2, 1, 1, 1030, 64, dtype)
+    K.reset_launches()
+    packed = torch.ops.pemp.mpm_assign(fts, fg, bg, ctr, P, K.ASSIGN_EPS)
+    logits, inds = torch.ops.pemp.mpm_match(fts, 1, packed, P, SCALE, True)
+    assert K.launches == {"assign": 1, "match": 1, "match_bwd": 0,
+                          "assign_bwd": 0}
+    cl, ci = K.mpm_chain_packed(fts, fg, bg, ctr, P, SCALE, True)
+    assert torch.equal(logits, cl) and torch.equal(inds, ci)
+    torch.library.opcheck(torch.ops.pemp.mpm_assign.default,
+                          (fts, fg, bg, ctr, P, K.ASSIGN_EPS))
+    for ind in (True, False):
+        torch.library.opcheck(torch.ops.pemp.mpm_match.default,
+                              (fts, 1, packed, P, SCALE, ind))
+
+
 @pytest.mark.parametrize("p", [1, 8])
 def test_assign_tickets_reset_between_launches(cuda, p):
     """Three back-to-back launches give bit-identical prototypes (the last

@@ -1,6 +1,6 @@
-"""Static scan: nothing under pemp_tpu_torch/ and nothing in chip_smoke.py
-or kernel_times.py imports jax, flax or pemp_tpu (any module of it), nor
-msgpack or pymongo (the port reads the JAX checkpoints and writes the
+"""Static scan: nothing under pemp_tpu_torch/ and nothing in chip_smoke.py,
+kernel_times.py or input_times.py imports jax, flax or pemp_tpu (any
+module of it), nor msgpack or pymongo (the port reads the JAX checkpoints and writes the
 Mongo documents itself); the COCO rasterizer is the port's own C++ copy. A sys.modules check would prove nothing here,
 because jax is preloaded in this environment
 (``tests/test_torch_checkpoint_msgpack.py`` runs one in a fresh process).
@@ -15,7 +15,7 @@ ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pemp_tpu", "msgpack",
              "pymongo")
 FILES = sorted((ROOT / "pemp_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "kernel_times.py"]
+    ROOT / "chip_smoke.py", ROOT / "kernel_times.py", ROOT / "input_times.py"]
 
 
 def _imported_modules(tree):
@@ -43,9 +43,10 @@ def test_the_scan_sees_the_package():
                 "utils/observers.py", "core/visualize.py",
                 "core/checkpoint.py", "data/transforms.py", "data/pascal.py",
                 "data/coco.py", "data/coco_index.py", "data/mask_ops.py",
-                "data/episodic.py"):
+                "data/episodic.py", "tools/export_serving.py"):
         assert f"pemp_tpu_torch/{new}" in names
-    assert "chip_smoke.py" in names and len(names) > 20
+    assert {"chip_smoke.py", "kernel_times.py", "input_times.py"} <= names
+    assert len(names) > 20
 
 
 def test_the_rasterizer_builds_from_the_port_copy():
