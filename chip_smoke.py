@@ -87,6 +87,18 @@ SYNTH episodes):
   deterministic), the live forward against the plain mpm; the B = 1
   latency and B = 8 episodes/s of artifact and live forward, the
   export's seconds and the artifact's bytes;
+- the operator tools (``tools_path``; ``pemp_tpu_torch/tools/``, each
+  through its command line's ``main``): ``profile_eval`` (test batch 8,
+  with and without the kernels) and ``profile_train`` (batch 4, cedt,
+  eager and a replayed chunk of 4), K1-K5 as the profiler counts them
+  against the prediction; ``memory_report``'s eight rows (the allocator's
+  peaks at two batches, the projected largest batch under the card's
+  memory); ``exp_train_levers`` (``verify`` within the card's gate, then
+  ``measure`` of the native, space-to-batch and float32-weight-gradient
+  arms, eager and fused) and one dilated 3x3 256->256 convolution alone,
+  native against space-to-batch; ``bench_input`` on its miniature tree;
+  ``verify_real_data``'s dry run, its phase 4 on seeded ``.pth`` files
+  and one planned stage-1 ``test`` whose mIoU it parses;
 
 and checks that each path went through the kernels and agrees with the
 plain version. The phases ``minplus`` (the EDT kernel, bit-exact, also on
@@ -343,6 +355,28 @@ SERVE_TIMEOUT_S = 300        # each worker
 # cuDNN's kernel that took 92 % of a B = 1 stage-1 call's device time on
 # an H100 80GB HBM3 (700 W): its time by the convolution's input shapes
 SERVE_CONV_BY_SHAPE = ("conv2d_grouped_direct",)
+
+# the operator tools (``tools_path``; pemp_tpu_torch/tools/): profile_eval
+# at test batch 8 (two profiled launches), profile_train at batch 4
+# (three profiled steps, and one replayed chunk of TOOLS_FUSE), the levers'
+# measure eager and fused, bench_input's pass length and worker counts
+TOOLS_EVAL_ARGS = ["--batch", "8", "--hw", "401", "--launches", "2"]
+TOOLS_TRAIN_ARGS = ["--bs", "4", "--hw", "401", "--steps", "3", "--loss",
+                    "cedt"]
+TOOLS_FUSE = 4
+TOOLS_INPUT_ARGS = ["--episodes", "24", "--workers", "1,2,4"]
+# one dilated 3x3 256->256 convolution (bf16, channels_last) alone, native
+# against the space-to-batch schedule: (N, C, H, W, dilation, backward):
+# layer3's d=2 at serving B = 1, eval B = 4 and with a backward; the
+# ASPPV2 branches (d=6, 12, 18) at serving B = 1 and with the train step's
+# backward. On an H100 80GB HBM3 (700 W) cuDNN ran d=12 and 18 on its
+# grouped direct kernel (serving B = 1) and its fallback dgrad/wgrad
+# engines (the train step), which the s2b arm avoids
+S2B_CONV_CASES = ((2, 256, 51, 51, 2, False), (8, 256, 51, 51, 2, False),
+                  (4, 256, 51, 51, 2, True)) + tuple(
+    case for d in (6, 12, 18)
+    for case in ((2, 256, 51, 51, d, False), (8, 256, 51, 51, d, True)))
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -776,31 +810,13 @@ def main_path_phase(torch, K):
 
 
 def profile_batch(torch, model, t):
-    """Device time of one batch by kernel (torch.profiler); empty when
-    the profiler records no device time on this machine."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """Device time of one batch by kernel (``device_profile``): the total,
+    the mpm kernels' time and the top 10."""
     with torch.no_grad():
-        model(t["sup_rgb"], t["sup_mask"], t["qry_rgb"])
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            model(t["sup_rgb"], t["sup_mask"], t["qry_rgb"])
-            torch.cuda.synchronize()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", 0)
-
-    # device-side events only: the aten ops above them repeat their time
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
-    total = sum(dev_us(e) for e in events)
-    mpm = sum(dev_us(e) for e in events if "assign_kernel" in e.key
-              or "match_kernel" in e.key)
-    top = sorted(events, key=dev_us, reverse=True)[:10]
-    return {"device_us_total": total, "mpm_kernels_us": mpm,
-            "top": [{"kernel": e.key[:90], "us": dev_us(e),
-                     "calls": e.count} for e in top]}
+        prof = device_profile(torch, lambda: model(
+            t["sup_rgb"], t["sup_mask"], t["qry_rgb"]),
+            {"mpm_kernels": ["assign_kernel", "match_kernel"]})
+    return {k: prof[k] for k in ("device_us_total", "mpm_kernels_us", "top")}
 
 
 def synth_labels(torch, height, width, n, split=0):
@@ -1036,52 +1052,34 @@ def mpm_backward_phase(torch, K, plain):
 
 
 def device_profile(torch, fn, names, by_shape=()):
-    """Device time of one call of ``fn`` by kernel (torch.profiler): the
-    total, the time, share and kernel count of each group in ``names``
-    ({group: [substrings]}) and the top 10. For each kernel whose name holds a substring of
-    ``by_shape``, its time grouped by the convolution op that launched it
-    and that op's input shapes (``record_shapes``)."""
-    from torch.autograd import DeviceType
+    """Device time of one call of ``fn`` by kernel (torch.profiler, read by
+    ``pemp_tpu_torch/utils/profiling.py``): the total, the time, share and
+    kernel count of each group in ``names`` ({group: [substrings]}) and the
+    top 10. For each kernel whose name holds a substring of ``by_shape``,
+    its time grouped by the convolution op that launched it and that op's
+    input shapes (``record_shapes``)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from pemp_tpu_torch.utils import profiling
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=bool(by_shape)) as prof:
         fn()
         torch.cuda.synchronize()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", 0)
-
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
-    total = sum(dev_us(e) for e in events)
+    times = profiling.device_times(prof)
+    total = sum(us for us, _ in times.values())
     out = {"device_us_total": total}
     for group, keys in names.items():
-        mine = [e for e in events if any(k in e.key for k in keys)]
-        us = sum(dev_us(e) for e in mine)
-        out[f"{group}_calls"] = sum(e.count for e in mine)
+        us, calls = profiling.matching(times, keys)
+        out[f"{group}_calls"] = calls
         out[f"{group}_us"] = us
         out[f"{group}_share"] = us / total if total else 0.0
-    out["top"] = [{"kernel": e.key[:90], "us": dev_us(e), "calls": e.count}
-                  for e in sorted(events, key=dev_us, reverse=True)[:10]]
+    ranked = sorted(times.items(), key=lambda kv: -kv[1][0])
+    out["top"] = [{"kernel": name[:90], "us": us, "calls": calls}
+                  for name, (us, calls) in ranked[:10]]
     if by_shape:
-        groups = {}
-        for e in prof.events():
-            for k in getattr(e, "kernels", ()):
-                if not any(sub in k.name for sub in by_shape):
-                    continue
-                op = e
-                while op.cpu_parent is not None and "conv" not in op.name:
-                    op = op.cpu_parent
-                key = (k.name[:60], op.name, str(op.input_shapes))
-                us, calls = groups.get(key, (0.0, 0))
-                groups[key] = (us + k.duration, calls + 1)
-        out["by_input_shape"] = [
-            {"kernel": kn, "op": op, "input_shapes": shapes, "us": us,
-             "calls": calls}
-            for (kn, op, shapes), (us, calls) in sorted(
-                groups.items(), key=lambda kv: -kv[1][0])]
+        out["by_input_shape"] = profiling.conv_by_shape(prof, None, by_shape)
     return out
 
 
@@ -1418,7 +1416,7 @@ def stage2_path_phase(torch, K, M):
         "minplus_kernel": ["minplus_kernel"]}, ("",))
     # every convolution's kernels by the op's input shape: the CM stages'
     # first convolutions (4, 66, 258 and 514 input channels) among them
-    convs = [g for g in prof.pop("by_input_shape") if "conv" in g["op"]]
+    convs = prof.pop("by_input_shape")
     odd_shape = re.compile(r"\[\d+, (4|66|258|514), \d+, \d+\]")
     odd = [g for g in convs if odd_shape.search(g["input_shapes"])]
     prof["conv_by_input_shape_top"] = convs[:12]
@@ -1471,9 +1469,9 @@ def counted(torch, K, M, fn):
 
 
 def conv_profile(prof):
-    """A ``device_profile(..., by_shape=("",))`` with its kernels grouped
-    by op cut to the convolutions: their total and the top 12."""
-    convs = [g for g in prof.pop("by_input_shape") if "conv" in g["op"]]
+    """A ``device_profile(..., by_shape=("",))`` with its convolutions'
+    kernels by op and input shape cut to their total and the top 12."""
+    convs = prof.pop("by_input_shape")
     prof["conv_us"] = sum(g["us"] for g in convs)
     prof["conv_by_input_shape_top"] = convs[:12]
     return prof
@@ -4128,6 +4126,287 @@ def serving_vs_plain(K, mock, stage1, serve, name, t, live):
             .float().mean().item(),
             "prior_agreement": prior_agree}
 
+
+def conv_s2b_times(torch, flush):
+    """One dilated 3x3 256->256 convolution (bf16, channels_last) on the
+    card, cuDNN's native dilated kernels against ``S2BConv2d``'s
+    space-to-batch schedule, per ``S2B_CONV_CASES`` (the forward, or the
+    forward and backward): CUDA-event ms behind a device spin, cuDNN's
+    flags as the phase found them, and the two outputs' largest
+    difference. A printed measurement, not a check."""
+    from pemp_tpu_torch.tools.exp_train_levers import S2BConv2d
+    device = torch.device("cuda")
+    gen = torch.Generator(device=device).manual_seed(0)
+    rows = []
+    for n, c, h, w, d, backward in S2B_CONV_CASES:
+        conv = torch.nn.Conv2d(c, c, 3, padding=d, dilation=d, bias=False)
+        conv = conv.to(device, torch.bfloat16,
+                       memory_format=torch.channels_last)
+        s2b = S2BConv2d(conv)
+        x = torch.randn(n, c, h, w, generator=gen, device=device,
+                        dtype=torch.bfloat16).to(
+            memory_format=torch.channels_last).requires_grad_(backward)
+        g = torch.randn(n, c, h, w, generator=gen, device=device,
+                        dtype=torch.bfloat16).to(
+            memory_format=torch.channels_last)
+        row = {"input": [n, c, h, w], "dilation": d, "dtype": "bfloat16",
+               "backward": backward}
+        outs = {}
+        for name, mod in (("native", conv), ("s2b", s2b)):
+            def call(mod=mod):
+                if backward:
+                    conv.weight.grad = x.grad = None
+                    mod(x).backward(g)
+                else:
+                    with torch.no_grad():
+                        return mod(x)
+            row[f"{name}_ms"] = time_ms(torch, call, flush,
+                                        spin_cycles=LONG_SPIN_CYCLES)
+            with torch.no_grad():
+                outs[name] = mod(x).float()
+        row["s2b_over_native"] = row["s2b_ms"] / row["native_ms"]
+        row["max_abs_diff"] = (outs["s2b"] - outs["native"]).abs().max().item()
+        rows.append(row)
+    return rows
+
+
+def synth_eval_inputs(batch, shots, hw):
+    """The first SYNTH test batch (split 0, seed 1234) of ``batch``
+    episodes at ``hw`` in ``profile_eval.make_inputs``' layout: (sup
+    [B,S,H,W,3], msk [B,S,H,W,2], qry [B,1,H,W,3], ref [B,H,W]) numpy
+    arrays, blob masks on textured images, where the two classes'
+    prototypes differ."""
+    from pemp_tpu_torch.data import datasets
+    from pemp_tpu_torch.entry import pemp_stage1 as entry
+    cfg = entry.ex.assemble("test", {
+        "split": "0", "data.dataset": "SYNTH", "data.height": str(hw),
+        "data.width": str(hw), "shot": str(shots), "query": "1",
+        "data.test_bs": str(batch), "data.test_n": str(batch),
+        "seed": "1234"})
+    ds, loader, _ = datasets.load(cfg)
+    ds.sample_tasks()
+    b = next(iter(loader))
+    return (b["sup_rgb"], b["sup_mask"], b["qry_rgb"],
+            b["qry_msk"][:, 0].astype("int32"))
+
+
+def tools_path_phase(torch, K, M, smi):
+    """The operator tools (``pemp_tpu_torch/tools/``) on the card, each
+    through its command line's ``main`` (each prints its JSON line):
+
+    - ``profile_eval`` (stage 1 at test batch 8, 401², bf16, two profiled
+      launches): the profiler counts one assign and one match kernel a
+      launch, as the wrappers do; with ``--no-kernels`` none. On the
+      tool's own inputs (noise images, random masks: the two classes'
+      prototypes nearly equal, every pixel a near-tie) only the logits
+      are compared: within LOGIT_ATOL of the plain route's, the argmax
+      flipping only where the plain top-two gap is <= 2 x the measured
+      error; the agreement is printed. The tool's counts are held on
+      inputs where the classes separate: the tool run again, kernels and
+      ``--no-kernels``, on the first SYNTH test batch
+      (``synth_eval_inputs`` in place of its ``make_inputs``); there the
+      argmax agrees on >= MAIN_AGREE of the pixels, and the counts
+      differ by at most 3 (1 - MAIN_AGREE) of them (a flipped pixel
+      moves three counts by one);
+    - ``profile_train`` (batch 4, 401², cedt, bf16): three eager steps
+      and one replayed chunk of TOOLS_FUSE, K1-K5 counted by the profiler
+      as predicted (STEP_LAUNCHES a step), the replay's as recorded;
+    - ``memory_report``, all eight rows: peak(b2) > peak(b1) > the
+      parameter bytes;
+    - ``exp_train_levers``: ``verify`` (every arm within the card's gate),
+      ``measure`` of native, s2b and wgrad32, eager and with ``--fuse``,
+      and one dilated convolution alone, native against S2BConv2d
+      (``conv_s2b_times``: printed, not checked), under PyTorch's
+      default cuDNN flags (set at the phase's start);
+    - ``bench_input`` on its miniature tree (24 episodes, 1, 2, 4
+      workers), the demand this phase's profiles measured, with the
+      decoded-image cache warm (augment and collate) and with
+      ``--no-cache`` (the JPEG decode too);
+    - ``verify_real_data``: the dataless dry run (every phase SKIP), phase
+      4 on seeded reference-layout ``.pth`` files of both stages, and one
+      planned stage-1 ``test`` command on a miniature PASCAL tree
+      (``write_voc_tree``; ``data.test_n=8 te.epochs=1``) whose mIoU the
+      tool's parser reads, finite.
+
+    Returns K1-K5's wrapper counts over the phase (the table's
+    ``tools_path_launches``)."""
+    import io
+    from contextlib import redirect_stdout
+    from unittest import mock
+
+    import numpy as np
+
+    from pemp_tpu_torch.tools import (
+        bench_input, exp_train_levers, memory_report, profile_eval,
+        profile_train, verify_real_data,
+    )
+
+    device = torch.device("cuda")
+    start = time.perf_counter()
+    # PyTorch's default cuDNN flags: earlier phases turn TF32 off for
+    # their f32 runs (set_precision), which the wgrad32 arm's float32
+    # weight-gradient convolutions would otherwise inherit
+    cudnn = torch.backends.cudnn
+    cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32 = False, False, True
+    K.reset_launches()
+    M.reset_launches()
+    out = {"phase": "tools_path", "nvidia_smi": smi}
+    none = {k: 0 for k in STEP_LAUNCHES}
+
+    # profile_eval, kernels and plain
+    ev = profile_eval.main(TOOLS_EVAL_ARGS)
+    ev_plain = profile_eval.main(TOOLS_EVAL_ARGS + ["--no-kernels"])
+    want = {k: 2 * n for k, n in EVAL_LAUNCHES.items()}
+    if ev["profiled_launches"] != want or ev["launches"] != want:
+        raise AssertionError(f"profile_eval launches {ev['launches']}, "
+                             f"profiled {ev['profiled_launches']}, want {want}")
+    if ev_plain["profiled_launches"] != none or ev_plain["launches"] != none:
+        raise AssertionError(f"--no-kernels launched {ev_plain}")
+    batch, hw = int(TOOLS_EVAL_ARGS[1]), int(TOOLS_EVAL_ARGS[3])
+    pixels = batch * hw * hw
+    model = profile_eval.build_model(device)
+
+    def kernels_vs_plain(inputs):
+        sup, msk, qry, _ = (torch.from_numpy(a).to(device) for a in inputs)
+        with torch.no_grad():
+            lk = model(sup, msk, qry).float()
+            with profile_eval.plain_mpm():
+                lp = model(sup, msk, qry).float()
+        same = lk.argmax(-1) == lp.argmax(-1)
+        return (lk - lp).abs().max().item(), same, lp
+
+    # the tool's own inputs: the logits, and flips only at near-ties
+    err, same, lp = kernels_vs_plain(profile_eval.make_inputs(batch, 1, hw))
+    gap = (lp[..., 1] - lp[..., 0]).abs()
+    flips_outside = int((~same & (gap > 2 * err)).sum())
+    agree = same.float().mean().item()
+    if err > LOGIT_ATOL or flips_outside:
+        raise AssertionError(
+            f"profile_eval kernels vs plain: logits max abs err {err}, "
+            f"{flips_outside} flips outside near-ties")
+    # the counts, where the two classes separate: the tool on the first
+    # SYNTH test batch at its shapes, kernels and plain
+    with mock.patch.object(profile_eval, "make_inputs", synth_eval_inputs):
+        sk = profile_eval.main(TOOLS_EVAL_ARGS)
+        sp = profile_eval.main(TOOLS_EVAL_ARGS + ["--no-kernels"])
+    s_err, s_same, _ = kernels_vs_plain(synth_eval_inputs(batch, 1, hw))
+    s_agree = s_same.float().mean().item()
+    moved = int(np.abs(np.asarray(sk["counts"])
+                       - np.asarray(sp["counts"])).sum())
+    del model, lp, gap, same, s_same
+    if (s_err > LOGIT_ATOL or s_agree < MAIN_AGREE
+            or moved > 3 * (1 - MAIN_AGREE) * pixels
+            or sk["launches"] != want or sp["launches"] != none):
+        raise AssertionError(
+            f"profile_eval on the SYNTH batch: logits max abs err {s_err}, "
+            f"argmax agreement {s_agree}, counts {sk['counts']} vs "
+            f"{sp['counts']} ({moved} moved of {pixels} pixels), launches "
+            f"{sk['launches']} / {sp['launches']}")
+    out["profile_eval"] = {"kernels": ev, "plain": ev_plain,
+                           "logits_max_abs_err_vs_plain": err,
+                           "argmax_agreement_vs_plain": agree,
+                           "synth_counts": {"kernels": sk["counts"],
+                                            "plain": sp["counts"]},
+                           "synth_counts_moved": moved, "pixels": pixels,
+                           "synth_logits_max_abs_err_vs_plain": s_err,
+                           "synth_argmax_agreement_vs_plain": s_agree,
+                           "main_agree": MAIN_AGREE}
+    torch.cuda.empty_cache()
+
+    # profile_train, eager and one replayed chunk
+    tr = profile_train.main(TOOLS_TRAIN_ARGS)
+    fu = profile_train.main(TOOLS_TRAIN_ARGS[:-4] + [
+        "--steps", str(TOOLS_FUSE), "--loss", "cedt", "--fuse",
+        str(TOOLS_FUSE)])
+    for r in (tr, fu):
+        want = {k: r["steps_traced"] * n for k, n in STEP_LAUNCHES.items()}
+        if r["profiled_launches"] != want or r["launches"] != want:
+            raise AssertionError(
+                f"profile_train (fuse {r['fuse_steps']}) launches "
+                f"{r['launches']}, profiled {r['profiled_launches']}, "
+                f"want {want}")
+    out["profile_train"] = {"eager": tr, "fused": fu}
+    torch.cuda.empty_cache()
+
+    # memory_report, every row
+    rows = memory_report.main([])
+    for r in rows:
+        p1, p2 = r["peak_bytes"]
+        if not p2 > p1 > r["params_bytes"]:
+            raise AssertionError(f"memory row {r}")
+    out["memory_report"] = rows
+    torch.cuda.empty_cache()
+
+    # the train levers
+    out["levers_verify"] = exp_train_levers.main(["verify"])
+    out["levers_measure"] = {
+        "eager": exp_train_levers.main(["measure"]),
+        "fused": exp_train_levers.main(["measure", "--fuse",
+                                        str(TOOLS_FUSE)])}
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=device)
+    out["conv_s2b_vs_native"] = conv_s2b_times(torch, flush)
+    del flush
+    torch.cuda.empty_cache()
+
+    # bench_input, at the demand measured above
+    demand = f"train={tr['device_eps']},test={ev['device_eps']}"
+    out["bench_input"] = {
+        "cached": bench_input.main(TOOLS_INPUT_ARGS
+                                   + ["--device-eps", demand]),
+        "no_cache": bench_input.main(TOOLS_INPUT_ARGS
+                                     + ["--device-eps", demand,
+                                        "--no-cache"])}
+
+    # verify_real_data: the dry run, phase 4, one planned test
+    text = io.StringIO()
+    with redirect_stdout(text):
+        rc = verify_real_data.main(["--splits", "0", "--shots", "1",
+                                    "--families", "pemp_stage1,pemp_stage2"])
+    dry = text.getvalue()
+    print(dry, flush=True)
+    if rc != 0 or dry.count("[SKIP]") != 5:
+        raise AssertionError(f"verify_real_data dry run rc {rc}")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        ckpts = tmp / "ckpts"
+        ckpts.mkdir()
+        for seed, fam in enumerate(("pemp_stage1", "pemp_stage2")):
+            m = verify_real_data.family_model(fam, 1)
+            m.reset_parameters(torch.Generator().manual_seed(seed))
+            torch.save(m.state_dict(),
+                       ckpts / f"{fam}_pascal_split0_shot1.pth")
+        found = {"pascal": False, "coco": False}
+        convert = verify_real_data.phase_convert(tmp, found, ckpts)
+        if convert[0] != verify_real_data.OK:
+            raise AssertionError(f"verify_real_data phase 4 {convert}")
+        write_voc_tree(tmp / "VOCdevkit" / "VOC2012")
+        plan = verify_real_data.miou_plan(
+            tmp, None, ["pemp_stage1"], [0], [1], ["pascal"], tmp / "md",
+            "cuda", ["data.test_n=8", "te.epochs=1"])
+        t0 = time.perf_counter()
+        rc, miou, tail = verify_real_data.run_row(plan[0]["cmd"],
+                                                  timeout=SERVE_TIMEOUT_S)
+        if rc != 0 or miou is None or not math.isfinite(miou):
+            raise AssertionError(f"planned test rc {rc}, mIoU {miou}: "
+                                 f"{tail}")
+        pub = plan[0]["published"]
+        out["verify_real_data"] = {
+            "dry_run_rc": 0, "convert": convert,
+            "planned_cmd": plan[0]["cmd"][2:], "miou": miou,
+            "published": pub, "status": (
+                "no published row" if pub is None else
+                "PASS" if abs(miou - pub) <= verify_real_data.TOLERANCE
+                else "FAIL (expected on a miniature tree)"),
+            "planned_wall_s": time.perf_counter() - t0}
+
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in {**K.launches, **M.launches}.items()
+                if k in STEP_LAUNCHES}
+    out.update(launches=launches, wall_s=time.perf_counter() - start)
+    emit(out)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4176,6 +4455,7 @@ def main() -> int:
     parallel_launches = parallel_path_phase(torch, K, M)
     fused_launches = fused_path_phase(torch, K, M, smi)
     serving = serving_path_phase(torch, K)
+    tools = tools_path_phase(torch, K, M, smi)
 
     # one row per TPU kernel K1-K5. assign and match are one __global__
     # each; the chain (K3, mpm.py:342) is those two launches on the packed
@@ -4201,6 +4481,7 @@ def main() -> int:
          "parallel_path_launches": parallel_launches[name],
          "fused_path_launches": fused_launches[name],
          "serving_path_launches": serving[name],
+         "tools_path_launches": tools[name],
          "max_abs_err": worst[name], "ms": times[name],
          "plain_ms": times[f"{name}_plain"], "bound_ms": bounds[name][0],
          "bound_by": bounds[name][1], "library_ms": None}
@@ -4218,6 +4499,7 @@ def main() -> int:
         "parallel_path_launches": parallel_launches["match"],
         "fused_path_launches": fused_launches["match"],
         "serving_path_launches": serving["match"],
+        "tools_path_launches": tools["match"],
         "max_abs_err": worst["chain"], "ms": times["chain"],
         "plain_ms": times["chain_plain"], "bound_ms": bounds["chain"][0],
         "bound_by": bounds["chain"][1], "library_ms": None,
@@ -4239,6 +4521,8 @@ def main() -> int:
                                 for k in ("match_bwd", "assign_bwd")},
         "serving_path_launches": {k: serving[k]
                                   for k in ("match_bwd", "assign_bwd")},
+        "tools_path_launches": {k: tools[k]
+                                for k in ("match_bwd", "assign_bwd")},
         "max_abs_err": bw_worst, "ms": bw_times["bfloat16"],
         "ms_no_spin": bw_times["bfloat16_no_spin"],
         "plain_ms": bw_times["bfloat16_plain"],
@@ -4260,6 +4544,7 @@ def main() -> int:
         "parallel_path_launches": parallel_launches["minplus"],
         "fused_path_launches": fused_launches["minplus"],
         "serving_path_launches": serving["minplus"],
+        "tools_path_launches": tools["minplus"],
         "ms": mp_times["phase1"] + mp_times["phase2"],
         "plain_ms": mp_times["phase1_plain"] + mp_times["phase2_plain"],
         "bound_ms": mp_bounds["phase1"][0] + mp_bounds["phase2"][0],

@@ -22,3 +22,10 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "CUDA is not available; pass device='cpu' (dev.device=cpu on "
             "the command line) to run on the CPU")
     return dev
+
+
+def tool_precision(device: torch.device) -> str:
+    """The compute precision of an operator tool on ``device``, taken from
+    the platform as the JAX tools take theirs: bf16 on the card, f32 on
+    the CPU."""
+    return "bf16" if device.type == "cuda" else "f32"

@@ -17,6 +17,10 @@ of autograd's through the plain chain (float32 features). Captured in a
 CUDA graph (the fused train step's path), the chain's forward and
 backward and the EDT replay bit-equal to their eager launches, and a
 replay counts no launch; a kernel's plan or tickets missing at capture raise.
+The operator tools: ``S2BConv2d`` against cuDNN's dilated convolution
+(outputs and gradients, float32 with TF32 off and bfloat16),
+``memory_report``'s ``s1_train`` row, and ``profile_train``'s profile
+counting K1-K5 as their wrappers do.
 """
 
 import pytest
@@ -445,3 +449,58 @@ def test_capture_raises_where_a_kernel_plan_is_missing(cuda):
     with pytest.raises(RuntimeError, match="CUDA-graph capture"):
         with torch.cuda.graph(graph):
             K.mpm_chain_packed(fts, fg, bg, ctr, P, SCALE)
+
+
+# --- the operator tools (pemp_tpu_torch/tools/) on the card -------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [2, 6, 12, 18])
+def test_s2b_conv_matches_the_dilated_conv_on_the_card(cuda, dtype, d):
+    """``S2BConv2d`` against cuDNN's dilated convolution (TF32 off):
+    outputs and both gradients within 1e-4 of the largest magnitude at
+    float32, two bf16 ulps (2^-7) at bfloat16."""
+    from pemp_tpu_torch.tools.exp_train_levers import S2BConv2d
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        g = torch.Generator(device=cuda).manual_seed(d)
+        conv = torch.nn.Conv2d(64, 48, 3, padding=d, dilation=d).to(
+            cuda, dtype, memory_format=torch.channels_last)
+        x = torch.randn(2, 64, 51, 47, generator=g, device=cuda,
+                        dtype=dtype).to(memory_format=torch.channels_last)
+        r = torch.randn(2, 48, 51, 47, generator=g, device=cuda, dtype=dtype)
+        outs = []
+        for mod in (conv, S2BConv2d(conv)):
+            conv.weight.grad = conv.bias.grad = None
+            xi = x.clone().requires_grad_()
+            y = mod(xi)
+            y.backward(r)
+            outs.append([t.float() for t in (y, xi.grad, conv.weight.grad,
+                                              conv.bias.grad)])
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    for want, got in zip(*outs):
+        assert (got - want).abs().max() <= tol * want.abs().max()
+
+
+def test_memory_report_s1_train_row_runs(cuda):
+    from pemp_tpu_torch.tools import memory_report
+    row = memory_report.report_row("s1_train", cuda)
+    p1, p2 = row["peak_bytes"]
+    assert p2 > p1 > row["params_bytes"] and row["optimizer_bytes"] > 0
+    assert row["budget_bytes"] == torch.cuda.get_device_properties(
+        cuda).total_memory
+    assert row["projected_max_batch"] > 4
+
+
+def test_profile_train_counts_the_kernels_in_the_profile(cuda):
+    from pemp_tpu_torch.tools import profile_train
+    out = profile_train.main(["--bs", "2", "--hw", "97", "--steps", "2",
+                              "--loss", "cedt"])
+    want = {"assign": 2, "match": 2, "match_bwd": 2, "assign_bwd": 2,
+            "minplus": 4}
+    assert out["timeline"] == "cuda" and out["kernels"] is True
+    assert out["profiled_launches"] == want and out["launches"] == want
+    assert 0 < out["device_ms_per_step"] < out["wall_ms_per_step"]
+    assert out["groups_ms_per_step"]["custom-call/kernels"] > 0
