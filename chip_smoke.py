@@ -99,6 +99,20 @@ SYNTH episodes):
   native against space-to-batch; ``bench_input`` on its miniature tree;
   ``verify_real_data``'s dry run, its phase 4 on seeded ``.pth`` files
   and one planned stage-1 ``test`` whose mIoU it parses;
+- the last operator tools (``ops_tools_path``): the stage-1 launch
+  preset's ``print_config cuda`` (``dev.fuse_steps = 8``); the SIGTERM /
+  resume drill (``soak_run``) through that preset at 401², fused chunks
+  of 8, three epochs, SIGTERM once epoch 1 is recorded, both phases exit
+  0, every epoch recorded once, the chained test, the run's records;
+  the int8 microbenchmarks (``exp_int8_conv``, ``exp_int8_blend``'s 23
+  rows at B = 64: bf16 cuDNN, the same GEMMs in bf16 and int8
+  ``torch._int_mm``, each GEMM alone), no arm in error, the int32
+  accumulation exact on a case of each formulation; the cuDNN flag
+  sweep (``exp_cudnn_flags``, base, benchmark and deterministic at batch
+  4) with the dilation-12 and -18 convolutions' device ms; a seeded
+  stage-1 ``.pth`` through both checkpoint converters bit for bit, and
+  the converted ``.pt``'s eval forward on the card bit-equal to the
+  ``.pth``'s;
 
 and checks that each path went through the kernels and agrees with the
 plain version. The phases ``minplus`` (the EDT kernel, bit-exact, also on
@@ -125,6 +139,7 @@ from __future__ import annotations
 import copy
 import json
 import math
+import os
 import random
 import re
 import statistics
@@ -365,6 +380,27 @@ TOOLS_TRAIN_ARGS = ["--bs", "4", "--hw", "401", "--steps", "3", "--loss",
                     "cedt"]
 TOOLS_FUSE = 4
 TOOLS_INPUT_ARGS = ["--episodes", "24", "--workers", "1,2,4"]
+# the last operator tools (``ops_tools_path``): the stage-1 preset's
+# print_config; the SIGTERM / resume drill through the preset on the card
+# (fused chunks of 8), OPS_SOAK_TRAIN_N episodes an epoch (an epoch of
+# several polls), SIGTERM once epoch 1 is recorded, the eval and chained
+# test cut to OPS_SOAK_ARGS; the int8 microbenchmarks, their int32
+# accumulation held exact on one case a formulation (OPS_INT8_EXACT:
+# name, N, H, Cin, Cout, k, stride, dilation) at two images; the cuDNN
+# flag sweep's arms at batch 4, OPS_FLAG_BUDGET seconds each; a seeded
+# stage-1 ResNet-50 .pth through both converters and its eval forward
+# at test batch OPS_CKPT_BATCH
+OPS_SOAK_TRAIN_N = 400
+OPS_SOAK_ARGS = ["tr.total_epochs=3", "data.test_n=16", "data.test_bs=8",
+                 "te.epochs=1", "seed=1234"]
+OPS_SOAK_POLL = 0.5
+OPS_SOAK_DEVICE = "cuda"
+OPS_INT8_EXACT = (("res_1x1", 2, 51, 1024, 256, 1, 1, 1),
+                  ("aspp_3x3_d6", 2, 51, 256, 256, 3, 1, 6),
+                  ("stem_7x7_s2", 2, 401, 3, 64, 7, 2, 1))
+OPS_FLAG_ARMS = ["base", "benchmark", "deterministic"]
+OPS_FLAG_BUDGET = "3"
+OPS_CKPT_BATCH = 8
 # one dilated 3x3 256->256 convolution (bf16, channels_last) alone, native
 # against the space-to-batch schedule: (N, C, H, W, dilation, backward):
 # layer3's d=2 at serving B = 1, eval B = 4 and with a backward; the
@@ -4407,6 +4443,238 @@ def tools_path_phase(torch, K, M, smi):
     return launches
 
 
+def ops_int8_exact(torch, conv_tool, device):
+    """The int8 tools' int32 accumulation (a ``torch._int_mm`` GEMM) against
+    the exact integer convolution (float64 ``F.conv2d``, whose integer
+    sums are exact) on one case a formulation of OPS_INT8_EXACT, seeded
+    int8 inputs at the cases' widths: {case: (formulation, equal)}."""
+    gen = torch.Generator().manual_seed(0)
+    out = {}
+    for name, n, h, ci, co, k, s, d in OPS_INT8_EXACT:
+        xq = torch.randint(-127, 128, (n, h, h, ci), generator=gen,
+                           dtype=torch.int8).to(device)
+        wq = torch.randint(-127, 128, (k, k, ci, co), generator=gen,
+                           dtype=torch.int8).to(device)
+        conv = conv_tool.gemm_conv(wq, s, d)
+        got = conv_tool.int8_conv(xq, conv).long()
+        want = conv_tool.exact_conv(xq, wq, s, d)
+        out[name] = {"formulation": conv.kind, "k_pad": list(conv.k_pad),
+                     "equal": bool(torch.equal(got, want)),
+                     "max_abs_acc": int(want.abs().max())}
+    return out
+
+
+def ops_ckpt_roundtrip(torch, tmp):
+    """A seeded stage-1 ResNet-50 reference ``.pth`` through
+    ``convert_reference_ckpt`` (-> ``.pt``) and ``export_reference_ckpt``
+    (-> ``.pth``), bit-equal; the eval forward of the converted ``.pt``
+    on the card against that of the ``.pth`` loaded directly (f32, cuDNN
+    deterministic), bit-equal; K1/K2 once a forward."""
+    from pemp_tpu_torch.core.experiment import load_weights
+    from pemp_tpu_torch.tools import convert_reference_ckpt as convert
+    from pemp_tpu_torch.tools import export_reference_ckpt as export
+    from pemp_tpu_torch.tools.verify_real_data import load_strict, read_pth
+
+    device = torch.device("cuda")
+    model = convert.build_model("pemp_stage1", "resnet50", 1)
+    model.reset_parameters(torch.Generator().manual_seed(7))
+    ref, pt, back = tmp / "ref.pth", tmp / "conv.pt", tmp / "back.pth"
+    torch.save(export.reference_sd(model), ref)
+    args = ["--model", "pemp_stage1", "--backbone", "resnet50"]
+    t0 = time.perf_counter()
+    convert.main([*args, "--ckpt", str(ref), "--out", str(pt)])
+    export.main([*args, "--ckpt", str(pt), "--out", str(back)])
+    convert_s = time.perf_counter() - t0
+    want, got = read_pth(ref), read_pth(back)
+    same = set(want) == set(got) and all(
+        got[k].dtype == v.dtype and torch.equal(got[k], v)
+        for k, v in want.items())
+    if not same:
+        raise AssertionError("converted .pth -> .pt -> .pth differs")
+
+    sup, msk, qry, _ = (torch.from_numpy(a).to(device) for a in
+                        synth_eval_inputs(OPS_CKPT_BATCH, 1, 401))
+    cudnn = torch.backends.cudnn
+    flags = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    logits = {}
+    try:
+        for how in ("pth", "pt"):
+            m = convert.build_model("pemp_stage1", "resnet50", 1)
+            if how == "pth":
+                load_strict(m, want)
+            else:
+                load_weights(m, pt)
+            m = m.to(device).eval()
+            with torch.no_grad():
+                logits[how] = m(sup, msk, qry).float()
+            torch.cuda.synchronize()
+            del m
+    finally:
+        cudnn.deterministic, cudnn.benchmark = flags
+    equal = torch.equal(logits["pt"], logits["pth"])
+    finite = bool(torch.isfinite(logits["pt"]).all())
+    if not (equal and finite):
+        raise AssertionError(
+            f"forward of the converted .pt vs the .pth: equal {equal}, "
+            f"finite {finite}, max abs diff "
+            f"{(logits['pt'] - logits['pth']).abs().max().item()}")
+    return {"tensors": len(want), "pth_roundtrip_bit_equal": True,
+            "forward_bit_equal": True, "logits_shape":
+            list(logits["pt"].shape), "convert_export_s": convert_s,
+            "file_bytes": {p.name: p.stat().st_size for p in (ref, pt,
+                                                              back)}}
+
+
+def ops_launches(n: int) -> dict:
+    """A kernel row's ``ops_tools_path_launches``: the in-process count
+    (the converters' forwards) and the parts run in subprocesses."""
+    return {"in_process": n, "soak_drill": "subprocess",
+            "flag_sweep": "subprocess"}
+
+
+def ops_tools_path_phase(torch, K, M, smi):
+    """The last operator tools on the card:
+
+    - the launch preset: ``pemp_tpu_torch/scripts/pemp_stage1.sh
+      print_config cuda`` shows ``dev.fuse_steps = 8``;
+    - ``soak_run``: the stage-1 preset's ``train cuda`` (401², ResNet-50,
+      fused chunks of 8, prefetch, observers and ``g.mongodb``),
+      OPS_SOAK_TRAIN_N episodes an epoch, three epochs, SIGTERM once
+      epoch 1 is recorded, then ``resume=True exp_id=1``: both phases exit
+      0, three epochs recorded once each, the chained test's line, the run
+      folder's checkpoints, records and Mongo files; where the stop landed
+      (epoch, steps, chunks) is printed;
+    - ``exp_int8_conv`` (3 cases) and ``exp_int8_blend`` (23 rows, B = 64):
+      no arm errors; the int32 accumulation exact on one case a
+      formulation (``ops_int8_exact``);
+    - ``exp_cudnn_flags`` at batch 4, arms OPS_FLAG_ARMS: every arm ran,
+      with the dilation-12 and -18 convolutions' device ms;
+    - the converters (``ops_ckpt_roundtrip``), in this process.
+
+    Returns K1-K5's wrapper counts over the phase's in-process parts (the
+    soak drill and the flag sweep run in subprocesses, not counted)."""
+    from pemp_tpu_torch.tools import (
+        exp_cudnn_flags, exp_int8_blend, exp_int8_conv, soak_run,
+    )
+
+    device = torch.device("cuda")
+    start = time.perf_counter()
+    # PyTorch's default cuDNN flags, as in tools_path (the flag sweep's
+    # arms set theirs in their own processes)
+    cudnn = torch.backends.cudnn
+    cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32 = False, False, True
+    K.reset_launches()
+    M.reset_launches()
+    out = {"phase": "ops_tools_path", "nvidia_smi": smi}
+
+    # the launch preset
+    preset = ROOT / "pemp_tpu_torch" / "scripts" / "pemp_stage1.sh"
+    r = subprocess.run(["bash", str(preset), "print_config", "cuda"],
+                       capture_output=True, text=True, timeout=300,
+                       env={**os.environ, "PYTHON": sys.executable})
+    if r.returncode != 0 or "dev.fuse_steps = 8" not in r.stdout:
+        raise AssertionError(f"preset print_config rc {r.returncode}: "
+                             f"{r.stdout[-800:]} {r.stderr[-800:]}")
+    out["preset_print_config"] = [ln.strip() for ln in r.stdout.splitlines()
+                                  if ln.strip().startswith(
+                                      ("dev.", "tag", "tr.total_epochs",
+                                       "loss", "net.backbone ="))]
+
+    # the SIGTERM / resume drill
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as md:
+        soak = soak_run.drill(Path(md), OPS_SOAK_TRAIN_N, 1, OPS_SOAK_POLL,
+                              OPS_SOAK_DEVICE, OPS_SOAK_ARGS)
+        print("SOAK_SUMMARY " + json.dumps(soak), flush=True)
+        run_dir = Path(md) / "pemp_stage1" / "1"
+        files = sorted(p.name for p in run_dir.iterdir())
+        mongo = sorted(p.name for p in (run_dir / "mongo").iterdir()) \
+            if (run_dir / "mongo").is_dir() else []
+        log = (Path(md) / "soak_train.log").read_text()
+        first = log.find("Traceback")
+        log_tail = (log[first:first + 4000] + " ... " if first >= 0
+                    else "") + log[-2000:]
+    soak["wall_s"] = time.perf_counter() - t0
+    soak["run_files"], soak["mongo_files"] = files, mongo
+    out["soak"] = soak
+    stop = soak.get("stop") or {}
+    print(f"ops_tools_path soak: SIGTERM at epoch {soak['sigterm_at_epoch']}"
+          f", stop inside epoch {stop.get('epoch')} after "
+          f"{stop.get('steps')} steps = {stop.get('chunks')} chunks of "
+          f"{stop.get('fuse_steps')}", flush=True)
+    want_files = {"ckpt.pt", "bestckpt.pt", "config.json", "metrics.json",
+                  "mongo"}
+    if not ((soak["rc1"], soak["rc2"]) == (0, 0)
+            and soak["epochs_recorded"] == 3
+            and soak["duplicate_epochs"] == [] and soak["final_test"]
+            and soak["sigterm_at_epoch"] is not None and stop
+            and want_files <= set(files)
+            and mongo == ["metrics.json", "runs.json"]):
+        raise AssertionError(f"soak drill {soak}; log tail {log_tail}")
+    torch.cuda.empty_cache()
+
+    # the int8 microbenchmarks
+    t0 = time.perf_counter()
+    conv_rows = exp_int8_conv.main([])
+    blend_rows, blend = exp_int8_blend.main([])
+    errors = [r["case"] for r in conv_rows + blend_rows
+              if any(k.endswith("_error") for k in r)]
+    exact = ops_int8_exact(torch, exp_int8_conv, device)
+    out["int8"] = {"conv": conv_rows, "blend_rows": blend_rows,
+                   "blend": blend, "exact": exact,
+                   "wall_s": time.perf_counter() - t0}
+    if errors or "speedup" not in blend or len(blend_rows) != 23 or not all(
+            e["equal"] for e in exact.values()):
+        raise AssertionError(f"int8: error rows {errors}, blend {blend}, "
+                             f"exact {exact}")
+    for r in conv_rows + blend_rows:
+        print(f"ops_tools_path int8 {r['case']}: bf16 {r['bf16_ms']:.4f} "
+              f"ms, bf16 GEMM {r['bf16_gemm_ms']:.4f} ms, int8 "
+              f"{r['int8_ms']:.4f} ms; GEMM alone bf16 "
+              f"{r['bf16_mm_ms']:.4f} ms, int8 {r['int8_mm_ms']:.4f} ms",
+              flush=True)
+    print(f"ops_tools_path int8 blend: bf16 {blend['blend_bf16_ms']:.3f} ms"
+          f", bf16 GEMM {blend['blend_bf16_gemm_ms']:.3f} ms, int8 "
+          f"{blend['blend_int8_ms']:.3f} ms, speedup {blend['speedup']:.4f}"
+          f" (vs bf16 GEMM {blend['speedup_vs_bf16_gemm']:.4f}); GEMM alone"
+          f" bf16 {blend['blend_bf16_mm_ms']:.3f} ms, int8 "
+          f"{blend['blend_int8_mm_ms']:.3f} ms", flush=True)
+    torch.cuda.empty_cache()
+
+    # the cuDNN flag sweep (a subprocess an arm)
+    t0 = time.perf_counter()
+    rows, summary = exp_cudnn_flags.main(["--bs", "4", "--budget",
+                                          OPS_FLAG_BUDGET, "--arms",
+                                          *OPS_FLAG_ARMS])
+    bad = [r for r in rows if "error" in r]
+    if bad or [r["arm"] for r in rows] != OPS_FLAG_ARMS:
+        raise AssertionError(f"flag sweep: {bad or rows}")
+    out["cudnn_flags"] = {"rows": rows, "summary": summary,
+                          "wall_s": time.perf_counter() - t0}
+    for r in rows:
+        print(f"ops_tools_path flags {r['arm']}: step {r['step_ms']} ms, "
+              f"device {r['device_ms_per_step']} ms/step, idle "
+              f"{r['device_idle_share']}, d12/d18 convs "
+              f"{r['conv_ms_by_dilation']} ms", flush=True)
+
+    # the converters, in this process (K1/K2 counted)
+    K.reset_launches()
+    M.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        out["ckpt"] = ops_ckpt_roundtrip(torch, Path(tmp))
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in {**K.launches, **M.launches}.items()
+                if k in STEP_LAUNCHES}
+    want = {k: 2 * n for k, n in EVAL_LAUNCHES.items()}
+    if launches != want:
+        raise AssertionError(f"converter forwards launched {launches}, "
+                             f"want {want}")
+    out.update(launches=launches, wall_s=time.perf_counter() - start)
+    emit(out)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4456,6 +4724,7 @@ def main() -> int:
     fused_launches = fused_path_phase(torch, K, M, smi)
     serving = serving_path_phase(torch, K)
     tools = tools_path_phase(torch, K, M, smi)
+    ops = ops_tools_path_phase(torch, K, M, smi)
 
     # one row per TPU kernel K1-K5. assign and match are one __global__
     # each; the chain (K3, mpm.py:342) is those two launches on the packed
@@ -4482,6 +4751,7 @@ def main() -> int:
          "fused_path_launches": fused_launches[name],
          "serving_path_launches": serving[name],
          "tools_path_launches": tools[name],
+         "ops_tools_path_launches": ops_launches(ops[name]),
          "max_abs_err": worst[name], "ms": times[name],
          "plain_ms": times[f"{name}_plain"], "bound_ms": bounds[name][0],
          "bound_by": bounds[name][1], "library_ms": None}
@@ -4500,6 +4770,7 @@ def main() -> int:
         "fused_path_launches": fused_launches["match"],
         "serving_path_launches": serving["match"],
         "tools_path_launches": tools["match"],
+        "ops_tools_path_launches": ops_launches(ops["match"]),
         "max_abs_err": worst["chain"], "ms": times["chain"],
         "plain_ms": times["chain_plain"], "bound_ms": bounds["chain"][0],
         "bound_by": bounds["chain"][1], "library_ms": None,
@@ -4523,6 +4794,8 @@ def main() -> int:
                                   for k in ("match_bwd", "assign_bwd")},
         "tools_path_launches": {k: tools[k]
                                 for k in ("match_bwd", "assign_bwd")},
+        "ops_tools_path_launches": {k: ops_launches(ops[k])
+                                    for k in ("match_bwd", "assign_bwd")},
         "max_abs_err": bw_worst, "ms": bw_times["bfloat16"],
         "ms_no_spin": bw_times["bfloat16_no_spin"],
         "plain_ms": bw_times["bfloat16_plain"],
@@ -4545,6 +4818,7 @@ def main() -> int:
         "fused_path_launches": fused_launches["minplus"],
         "serving_path_launches": serving["minplus"],
         "tools_path_launches": tools["minplus"],
+        "ops_tools_path_launches": ops_launches(ops["minplus"]),
         "ms": mp_times["phase1"] + mp_times["phase2"],
         "plain_ms": mp_times["phase1_plain"] + mp_times["phase2_plain"],
         "bound_ms": mp_bounds["phase1"][0] + mp_bounds["phase2"][0],

@@ -341,8 +341,10 @@ class Trainer:
                     self.try_snapshot(epoch - 1, final=True,
                                       lr_state=boundary_lr)
                     self.logger.info(
-                        f"Graceful stop inside epoch {epoch} - snapshot "
-                        f"records completed epoch {epoch - 1}; resume with "
+                        f"Graceful stop inside epoch {epoch} after "
+                        f"{n_steps} steps (fuse_steps {self.fuse_steps}) - "
+                        f"snapshot records completed epoch {epoch - 1}; "
+                        "resume with "
                         "`train with resume=True exp_id=<id>`")
                     return
                 # one host fetch of the epoch's losses (a fused chunk's

@@ -404,7 +404,12 @@ class FusedTrainStep:
         before = [dict(m.launches) for m in _KERNEL_MODULES]
         current = torch.cuda.current_stream(self.device)
         self.side.wait_stream(current)
-        with torch.cuda.graph(g.graph, stream=self.side):
+        # thread-local capture: the DevicePrefetcher's thread keeps copying
+        # the next batches (device allocations, pinned buffers) while this
+        # thread captures; under the default global mode its first such
+        # call invalidates the capture
+        with torch.cuda.graph(g.graph, stream=self.side,
+                              capture_error_mode="thread_local"):
             outs = [self.step(g.inputs[j], g.lr[j]) for j in range(k)]
             g.losses = torch.stack([o[0] for o in outs])
             if self.with_aux:

@@ -1,0 +1,12 @@
+#!/usr/bin/env bash
+# Usage: bash pemp_tpu_torch/scripts/pemp_stage1.sh <command> <device> [k=v ...]
+#   <command>: train | test | visualize | print_config | help
+#   <device>:  cuda (default) | cpu | cpu<N> (N processes over gloo)
+# The hyperparameter preset of scripts/pemp_stage1.sh, for the PyTorch port
+# (launch.sh); explicit k=v overrides still win.
+
+FAMILY=pemp_stage1
+PRESET="tag=pemp_stage1 split=0
+  loss=cedt tr.total_epochs=90 net.backbone=resnet50"
+
+source "$(dirname "$(realpath "$0")")/launch.sh"

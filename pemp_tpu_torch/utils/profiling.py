@@ -14,7 +14,8 @@ result is computed from its events:
   kernels' names mapped onto them (``GROUPS``); ``matching``: the time
   and calls of the names that hold given substrings;
 - ``conv_by_shape``: the time of the convolutions' kernels grouped by the
-  convolution op that launched them and its input shapes;
+  convolution op that launched them, its input shapes and its dilation
+  (``dilation``: the ASPPV2 branches share their shapes);
 - ``summarize``: all of it per step; on the card also the device ms a
   step and the device idle share of the profiled window, 1 - device
   time / wall time (PERF.md §2), which a CPU-only profile leaves None;
@@ -118,13 +119,34 @@ def kernel_launches(times: Dict[str, Tuple[float, int]]) -> Dict[str, int]:
     return {k: matching(times, (sym,))[1] for k, sym in KERNEL_SYMBOLS.items()}
 
 
+# the dilation's position among the concrete inputs of the convolution
+# ops every backend's forward and backward pass through
+DILATION_ARG = {"aten::conv2d": 5, "aten::convolution": 5,
+                "aten::_convolution": 5, "aten::convolution_backward": 6}
+
+
+def dilation(op) -> Optional[int]:
+    """The dilation of the convolution ``op`` belongs to (its own or its
+    nearest ``DILATION_ARG`` ancestor's concrete inputs, recorded with
+    ``record_shapes=True``); None where the profile has no such record."""
+    while op is not None and op.name not in DILATION_ARG:
+        op = op.cpu_parent
+    if op is None:
+        return None
+    args = getattr(op, "concrete_inputs", None) or []
+    idx = DILATION_ARG[op.name]
+    value = args[idx] if idx < len(args) else None
+    return int(value[0]) if value else None
+
+
 def conv_by_shape(prof, top: Optional[int] = 12, kernels=("",)
                   ) -> List[Dict]:
-    """The convolutions' time grouped by (kernel, conv op, input shapes),
-    largest first (the ``top`` rows; all with None): each device kernel
-    whose name holds one of the substrings ``kernels`` under the nearest
-    op whose name holds "conv"; on a CPU-only profile, each conv op's own
-    CPU time (no device kernels). Needs ``record_shapes=True``."""
+    """The convolutions' time grouped by (kernel, conv op, input shapes,
+    dilation), largest first (the ``top`` rows; all with None): each
+    device kernel whose name holds one of the substrings ``kernels`` under
+    the nearest op whose name holds "conv"; on a CPU-only profile, each
+    conv op's own CPU time (no device kernels). Needs
+    ``record_shapes=True``."""
     found: Dict[tuple, List[float]] = {}
     any_kernel = False
     for e in prof.events():
@@ -137,7 +159,7 @@ def conv_by_shape(prof, top: Optional[int] = 12, kernels=("",)
                 op = op.cpu_parent
             if "conv" not in op.name:
                 continue
-            key = (k.name[:60], op.name, str(op.input_shapes))
+            key = (k.name[:60], op.name, str(op.input_shapes), dilation(op))
             acc = found.setdefault(key, [0.0, 0])
             acc[0] += k.duration
             acc[1] += 1
@@ -147,13 +169,14 @@ def conv_by_shape(prof, top: Optional[int] = 12, kernels=("",)
             if "conv" not in e.name or (parent is not None
                                         and "conv" in parent.name):
                 continue
-            key = ("", e.name, str(e.input_shapes))
+            key = ("", e.name, str(e.input_shapes), dilation(e))
             acc = found.setdefault(key, [0.0, 0])
             acc[0] += e.cpu_time_total
             acc[1] += 1
     rows = sorted(found.items(), key=lambda kv: -kv[1][0])[:top]
-    return [{"kernel": kn, "op": op, "input_shapes": shapes, "us": us,
-             "calls": calls} for (kn, op, shapes), (us, calls) in rows]
+    return [{"kernel": kn, "op": op, "input_shapes": shapes, "dilation": d,
+             "us": us, "calls": calls}
+            for (kn, op, shapes, d), (us, calls) in rows]
 
 
 def summarize(prof, steps: int, wall_s: float, top: int = 20) -> Dict:

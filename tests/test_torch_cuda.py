@@ -16,7 +16,8 @@ inputs) and the squared EDT are bit-equal to their plain versions;
 of autograd's through the plain chain (float32 features). Captured in a
 CUDA graph (the fused train step's path), the chain's forward and
 backward and the EDT replay bit-equal to their eager launches, and a
-replay counts no launch; a kernel's plan or tickets missing at capture raise.
+replay counts no launch; a kernel's plan or tickets missing at capture raise;
+``FusedTrainStep`` captures while the ``DevicePrefetcher``'s thread copies.
 The operator tools: ``S2BConv2d`` against cuDNN's dilated convolution
 (outputs and gradients, float32 with TF32 off and bfloat16),
 ``memory_report``'s ``s1_train`` row, and ``profile_train``'s profile
@@ -440,6 +441,53 @@ def test_kernels_replay_in_a_cuda_graph_as_eager(cuda):
     # a replay counts no launch (parallel/step.py::FusedTrainStep counts
     # what its replays launched)
     assert {**K.launches, **M.launches} == recorded
+
+
+def test_fused_capture_survives_the_prefetcher_thread(cuda):
+    """``FusedTrainStep`` captures while the ``DevicePrefetcher``'s thread
+    keeps copying the next batches (new device memory on its side
+    stream), as in a loader-fed epoch, where the default global capture
+    mode failed (ROADMAP.md §3, F8): the capture holds and the replays
+    train."""
+    import time
+
+    import numpy as np
+
+    from pemp_tpu_torch.core import solver
+    from pemp_tpu_torch.parallel.step import DevicePrefetcher, FusedTrainStep
+
+    k, chunks = 8, 4
+    w = torch.nn.Parameter(torch.randn(256, 256, device=cuda) * 0.05)
+    opt = torch.optim.SGD([w], lr=0.1, momentum=0.9, fused=True)
+
+    def step(t, lr):
+        opt.zero_grad(set_to_none=True)
+        h = t["x"]
+        for _ in range(4):
+            h = torch.tanh(h @ w)
+        loss = h.square().mean()
+        loss.backward()
+        solver.step(opt, lr)
+        return loss.detach(), None
+
+    def loader():       # slower than the steps: the thread never idles
+        rng = np.random.RandomState(0)
+        for _ in range(8 * k * chunks):
+            time.sleep(0.001)
+            yield {"x": rng.randn(512, 256).astype(np.float32)}
+
+    fused = FusedTrainStep(step, k, cuda, opt, compact_wire=False,
+                           keys=("x",), warmup_steps=k)
+    feed = iter(DevicePrefetcher(loader(), cuda, depth=8 * k * chunks,
+                                 compact_wire=False, keys=("x",)))
+    try:
+        losses = [fused([next(feed) for _ in range(k)], [0.01] * k)[0]
+                  for _ in range(chunks)]   # warm-up, capture, replays
+        torch.cuda.synchronize()
+    finally:
+        feed.close()
+    assert fused.captures == 1 and fused.replays == chunks - 1
+    assert torch.isfinite(torch.cat(losses)).all()
 
 
 def test_capture_raises_where_a_kernel_plan_is_missing(cuda):

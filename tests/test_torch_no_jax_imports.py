@@ -1,12 +1,15 @@
 """Static scan: nothing under pemp_tpu_torch/ and nothing in chip_smoke.py,
 kernel_times.py or input_times.py imports jax, flax or pemp_tpu (any
-module of it), nor msgpack or pymongo (the port reads the JAX checkpoints and writes the
+module of it), nor msgpack or pymongo; the launch presets
+(``pemp_tpu_torch/scripts/*.sh``) run the port's entries and name no JAX
+setting, module or script (the port reads the JAX checkpoints and writes the
 Mongo documents itself); the COCO rasterizer is the port's own C++ copy. A sys.modules check would prove nothing here,
 because jax is preloaded in this environment
 (``tests/test_torch_checkpoint_msgpack.py`` runs one in a fresh process).
 """
 
 import ast
+import re
 from pathlib import Path
 
 import pytest
@@ -43,7 +46,11 @@ def test_the_scan_sees_the_package():
                 "utils/observers.py", "core/visualize.py",
                 "core/checkpoint.py", "data/transforms.py", "data/pascal.py",
                 "data/coco.py", "data/coco_index.py", "data/mask_ops.py",
-                "data/episodic.py", "tools/export_serving.py"):
+                "data/episodic.py", "tools/export_serving.py",
+                "tools/soak_run.py", "tools/exp_int8_conv.py",
+                "tools/exp_int8_blend.py", "tools/exp_cudnn_flags.py",
+                "tools/convert_reference_ckpt.py",
+                "tools/export_reference_ckpt.py"):
         assert f"pemp_tpu_torch/{new}" in names
     assert {"chip_smoke.py", "kernel_times.py", "input_times.py"} <= names
     assert len(names) > 20
@@ -65,3 +72,24 @@ def test_no_jax_or_pemp_tpu_import(path):
     for module in _imported_modules(tree):
         top = module.split(".")[0]
         assert top not in FORBIDDEN, f"{path.name} imports {module}"
+
+
+SCRIPTS = sorted((ROOT / "pemp_tpu_torch" / "scripts").glob("*.sh"))
+JAX_WORDS = re.compile(r"\bjax\b|JAX_|XLA_|\bflax\b|pemp_tpu(?!_torch)|"
+                       r"\bentry/|tpu\.", re.I)
+
+
+def test_the_scan_sees_the_presets():
+    assert {p.stem for p in SCRIPTS} == {
+        "launch", "baseline", "canet", "panet", "pemp_stage1",
+        "pemp_stage2", "pfenet", "rpmms"}
+
+
+@pytest.mark.parametrize("path", SCRIPTS, ids=lambda p: p.name)
+def test_preset_runs_the_port_only(path):
+    code = [ln for ln in path.read_text().splitlines()
+            if not ln.lstrip().startswith("#")]
+    for ln in code:
+        assert not JAX_WORDS.search(ln), f"{path.name}: {ln}"
+    assert any("launch.sh" in ln or "pemp_tpu_torch.entry." in ln
+               for ln in code)

@@ -34,6 +34,9 @@ def test_canet_world_matches_one_process(tmp_path):
     assert (r0["world"], r1["world"]) == (2, 2)
     assert r0["losses"] == r1["losses"] and len(r0["losses"]) == 8
     assert _metrics(r0["test"]) == _metrics(r1["test"])
+    # the world's runs are read: their checkpoints go before the single
+    # process writes its own (F7: the test's peak on disk)
+    shutil.rmtree(tmp_path / "multi")
     losses, test = _single(canet, [*args,
                                    f"g.model_dir={tmp_path / 'single'}"])
     assert r0["losses"] == pytest.approx(losses, rel=1e-5)

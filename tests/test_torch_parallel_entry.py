@@ -78,6 +78,9 @@ def test_baseline_world_records_on_rank0_and_matches_one_process(tmp_path):
         "ckpt.pt", "bestckpt.pt", "config.json", "metrics.json"}
     assert r0["losses"] == r1["losses"] and len(r0["losses"]) == 2
     assert _metrics(r0["test"]) == _metrics(r1["test"])
+    # the world's run is read: its checkpoints go before the single
+    # process writes its own (F7: the test's peak on disk)
+    shutil.rmtree(multi)
     losses, test = _single(baseline, [*TRAIN, "data.bs=4",
                                       f"g.model_dir={single}"])
     assert r0["losses"] == pytest.approx(losses, rel=1e-5)

@@ -32,8 +32,9 @@ from tests.test_torch_parallel_entry import (  # noqa: F401
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """(the stage-1 snapshot, the root of the runs, each rank's results)
-    of one world that trains every family; the runs (gigabytes of
-    checkpoints) are removed once the module's tests end."""
+    of one world that trains every family; each case removes its family's
+    runs (hundreds of MB of checkpoints each) once it has read them, and
+    what is left goes once the module's tests end."""
     root = tmp_path_factory.mktemp("families")
     cfg = pemp_stage1.ex.assemble("test", {"split": "0", "dev.device": "cpu"})
     s1 = root / "stage1.pt"
@@ -54,16 +55,24 @@ def test_family_world_matches_one_process(runs, name):
     import importlib
 
     s1, root, ranks = runs
-    r0, r1 = (r[name] for r in ranks)
-    assert (r0["world"], r0["rank"], r1["world"], r1["rank"]) == (2, 0, 2, 1)
-    assert r0["run_id"] == 1 and r1["run_id"] is None
-    assert sorted(p.name for p in (root / "multi" / name / name).iterdir()) \
-        == ["1"]
-    assert r0["losses"] == r1["losses"] and len(r0["losses"]) == 2
-    assert _metrics(r0["test"]) == _metrics(r1["test"])
-    mod = importlib.import_module(f"pemp_tpu_torch.entry.{name}")
-    with worker.float64(mod):
-        result = mod.main(worker.family_args(name, s1, 4,
-                                             root / "single" / name))
-    assert r0["losses"] == pytest.approx(result["train"]["losses"], rel=1e-9)
-    _same_metrics(r0["test"], result["test"], rel=1e-9)
+    multi, single = root / "multi" / name, root / "single" / name
+    try:
+        r0, r1 = (r[name] for r in ranks)
+        assert (r0["world"], r0["rank"], r1["world"], r1["rank"]) \
+            == (2, 0, 2, 1)
+        assert r0["run_id"] == 1 and r1["run_id"] is None
+        assert sorted(p.name for p in (multi / name).iterdir()) == ["1"]
+        # the world's run is read: its checkpoints go before the single
+        # process writes its own (F7: the module's peak on disk)
+        shutil.rmtree(multi)
+        assert r0["losses"] == r1["losses"] and len(r0["losses"]) == 2
+        assert _metrics(r0["test"]) == _metrics(r1["test"])
+        mod = importlib.import_module(f"pemp_tpu_torch.entry.{name}")
+        with worker.float64(mod):
+            result = mod.main(worker.family_args(name, s1, 4, single))
+        assert r0["losses"] == pytest.approx(result["train"]["losses"],
+                                             rel=1e-9)
+        _same_metrics(r0["test"], result["test"], rel=1e-9)
+    finally:
+        shutil.rmtree(multi, ignore_errors=True)
+        shutil.rmtree(single, ignore_errors=True)

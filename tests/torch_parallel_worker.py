@@ -336,7 +336,10 @@ def float64(mod):
 
 def families(s1, model_dir):
     """Each family of ``FAMILIES`` trained in the live world at float64,
-    one after another: {name: the result with the world it ran in}."""
+    one after another: {name: the result with the world it ran in}. Once
+    a family's run has ended (its chained test read rank 0's snapshot and
+    broadcast it), rank 0 removes the run's checkpoints, which nothing
+    reads again; its run folder and records stay."""
     import importlib
 
     torch.set_num_threads(1)
@@ -348,6 +351,9 @@ def families(s1, model_dir):
                 name, s1, 2, Path(model_dir) / name))
         out[name].update(world=mesh.process_count(),
                          rank=mesh.process_index())
+        if mesh.process_index() == 0:
+            for ckpt in (Path(model_dir) / name).rglob("*.pt"):
+                ckpt.unlink()
     return out
 
 
