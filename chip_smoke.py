@@ -16,7 +16,9 @@ SYNTH episodes):
 - the stage-2 cascade: ``pemp_stage2``'s ``train`` entry (ResNetCM and
   PurifierV1 behind a frozen, seed-initialised stage 1, cedt, lr 0.0035),
   six steps, the online eval and the chained ``test``, with the f32 step
-  and one eval batch held against the plain mpm (``stage2_path``);
+  and one eval batch held against the plain mpm, and both PEMP stages at
+  ``net.protos`` 9 and 16 trained and tested through their entries
+  against ``dev.use_kernels=False`` (``stage2_path``);
 - PEMP with ``net.backbone=vgg16``: both stages' ``train`` entries (VGG16,
   then VGG16CM behind that run's stage 1, clip 1.1), their launches per
   step and per eval batch, the kernels on the VGG features, one eval
@@ -176,6 +178,13 @@ GRAD_RTOL_BF16 = 2.0 ** -7
 # one f32 train step, kernels vs plain mpm: relative loss error, and the
 # relative L2 error of every trainable gradient
 TRAIN_LOSS_RTOL = 1e-5
+# net.protos 9 and 16 through the PEMP entries: one snapshot tested with
+# the kernels and with dev.use_kernels=False (f32), the test's loss
+# (relative: float32 sums in another order, and for stage 2 a stage-1
+# prior that may part at a near-tie pixel) and its mIoU (absolute: a flip
+# at a near-tie pixel moves it)
+WIDE_LOSS_RTOL = 1e-4
+WIDE_MIOU_ATOL = 1e-2
 # EDT distances on the card vs the CPU: the squared distances are
 # bit-equal; the float32 square roots may differ by one ulp (2^-23)
 EDT_SQRT_RTOL = 2.0 ** -23
@@ -224,6 +233,12 @@ BASELINE_ARGS = ["train", "with", "split=0", "data.dataset=SYNTH",
                  "tr.lr=0.001", "data.test_bs=8", "data.test_n=16",
                  "te.epochs=1", "net.backbone=vgg16", "dev.precision=bf16",
                  "seed=1234"]
+WIDE_PROTOS = (9, 16)
+WIDE_ARGS = ["train", "with", "split=0", "data.dataset=SYNTH",
+             "data.height=193", "data.width=193", "shot=1", "query=1",
+             "data.bs=2", "data.train_n=6", "tr.total_epochs=1",
+             "data.test_bs=2", "data.test_n=4", "te.epochs=1", "loss=cedt",
+             "dev.precision=f32", "seed=1234"]
 PANET_ARGS = [a for a in BASELINE_ARGS if not a.startswith(
     ("data.bs=", "data.train_n="))] + ["data.bs=1", "data.train_n=6"]
 # CaNet, RPMMs and PFENet at their scripts' sizes and learning rates
@@ -290,14 +305,13 @@ LOADER_WARM = 2
 
 
 # K1-K5's launches per train step and per eval batch of one mpm chain
-STEP_LAUNCHES = {"assign": 1, "match": 1, "match_bwd": 1, "assign_bwd": 1,
+STEP_LAUNCHES = {"assign": 1, "match": 1, "mpm_bwd": 1,
                  "minplus": 2}
-EVAL_LAUNCHES = {"assign": 1, "match": 1, "match_bwd": 0, "assign_bwd": 0,
+EVAL_LAUNCHES = {"assign": 1, "match": 1, "mpm_bwd": 0,
                  "minplus": 0}
 # each count's kernel, as torch.profiler names it on the device
 KERNEL_SYMBOLS = {"assign": ["assign_kernel"], "match": ["match_kernel"],
-                  "match_bwd": ["match_bwd_kernel"],
-                  "assign_bwd": ["assign_bwd_kernel"],
+                  "mpm_bwd": ["mpm_bwd_kernel"],
                   "minplus": ["minplus_kernel"]}
 
 # parallel_path: PEMP stage 1 (ResNet-50, c=512, p=3, 401x401, bf16, cedt,
@@ -621,6 +635,11 @@ def kernel_phase(torch, K, plain):
         ("p1_bf16", 8, 1, 1, 2601, 512, 1, bf16, False),
         ("p8_bf16", 8, 1, 1, 2601, 512, 8, bf16, False),
         ("p8_f32", 4, 2, 1, 1030, 512, 8, f32, False),
+        # p above 8: the padded instances 12 and 16
+        ("p9_bf16", 4, 1, 1, 2601, 512, 9, bf16, False),
+        ("p12_f32", 2, 2, 1, 1030, 512, 12, f32, False),
+        ("p16_bf16", 4, 1, 1, 1030, 512, 16, bf16, False),
+        ("p16_f32", 2, 1, 1, 1030, 512, 16, f32, False),
         # more than 512 channels: column passes (1512 bf16 at two stages)
         ("c1024_bf16", 4, 1, 1, 2601, 1024, 3, bf16, False),
         ("c768_f32", 2, 2, 1, 1030, 768, 3, f32, False),
@@ -696,7 +715,7 @@ def kernel_phase(torch, K, plain):
     marginal = extra / ((t["assign_s4"] - t["assign"]) * 1e-3)
     b = 8
     fts, fg, bg, ctr = make_inputs(torch, b, s, q, n, c, p, bf16)
-    slots = K._assign_plan(K._lib(), fts.device, c, p, 1)[1]
+    slots = K._assign_plan(K._lib(1), fts.device, c, p, 1)[1]
     packed = K._assign_launch(fts, fg, bg, ctr, p, eps)
     pf, pb = packed[:, :p], packed[:, p:]
     t.update({
@@ -789,7 +808,7 @@ def main_path_phase(torch, K):
     if not math.isfinite(result["miou"]) or not math.isfinite(result["loss"]):
         raise AssertionError(f"main path result not finite: {result}")
     if (min(launches["assign"], launches["match"]) <= 0
-            or launches["match_bwd"] or launches["assign_bwd"]):
+            or launches["mpm_bwd"]):
         raise AssertionError(f"main path launches {launches}")
 
     # one batch through the model twice: kernels vs plain mpm
@@ -961,17 +980,112 @@ def minplus_phase(torch):
     return t, bounds
 
 
+BWD_SWEEP_BATCHES = (1, 2, 4, 8)
+BWD_SWEEP_CALLS = 20
+
+
+def mpm_backward_sweep(torch, fns, esize=2):
+    """{B: {kernel: us, "other_us": us}} of one call of each ``fns[B]``
+    (torch.profiler over BWD_SWEEP_CALLS calls; every kernel whose name
+    holds ``_bwd``, and the call's other device us), and per kernel the
+    least-squares line us = fixed_us + bytes / marginal_bytes_per_s over
+    the batches (bytes: ``mpm_backward_work`` at the train shapes)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pemp_tpu_torch.utils import profiling
+    per_b = {}
+    for b, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(BWD_SWEEP_CALLS):
+                fn()
+            torch.cuda.synchronize()
+        times = profiling.device_times(prof)
+        row = {re.search(r"\w*_bwd\w*", name).group(0): us / BWD_SWEEP_CALLS
+               for name, (us, _) in times.items() if "_bwd" in name}
+        row["other_us"] = (sum(us for us, _ in times.values())
+                           / BWD_SWEEP_CALLS - sum(row.values()))
+        per_b[b] = row
+    fits = {}
+    for name in per_b[min(per_b)]:
+        xs = [mpm_backward_work(b, 1, 1, 2601, 512, 3, esize)[0]
+              for b in per_b]
+        ys = [per_b[b].get(name, 0.0) for b in per_b]
+        mx, my = statistics.fmean(xs), statistics.fmean(ys)
+        slope = (sum((x - mx) * (y - my) for x, y in zip(xs, ys))
+                 / sum((x - mx) ** 2 for x in xs))
+        fits[name] = {"fixed_us": my - slope * mx,
+                      "marginal_bytes_per_s": (1e6 / slope if slope > 0
+                                               else None)}
+    return {"us_per_call": {str(b): row for b, row in per_b.items()},
+            "fit": fits}
+
+
+def backward_call(torch, K, b, s, q, n, c, p, dtype):
+    """(call, (fts, fg, bg, ctr, g)): ``call`` takes ``torch.autograd.grad``
+    of MPMChainPacked's logits at the given shapes (make_inputs, seed 3;
+    the cotangent ``g`` seeded 4) with respect to the features and the
+    centers."""
+    scale, eps = 20.0, K.ASSIGN_EPS
+    fts, fg, bg, ctr = make_inputs(torch, b, s, q, n, c, p, dtype, seed=3)
+    g = torch.randn(b, q, n, 2, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(4))
+    fk, ck = fts.clone().requires_grad_(), ctr.clone().requires_grad_()
+    lk = K.MPMChainPacked.apply(fk, fg, bg, ck, p, scale, eps)
+    return (lambda: torch.autograd.grad(lk, (fk, ck), g, retain_graph=True),
+            (fts, fg, bg, ctr, g))
+
+
+def graph_backward_vs_eager(torch, K, fts, fg, bg, ctr, g, p):
+    """K4 captured in a CUDA graph (after an eager call on the capture
+    stream makes its plan and barrier counters) and replayed twice, each
+    replay bit-equal to the eager call; the counters back at 0."""
+    scale, eps = 20.0, K.ASSIGN_EPS
+    packed, num, den, sm = K._assign_launch(fts, fg, bg, ctr, p, eps,
+                                            partials=True)
+    _, inds = K._match_launch(fts, fg.shape[1], packed, p, scale, True)
+    args = (fts, fg, bg, ctr, packed, inds, num, den, sm, g, p, scale, eps,
+            True)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        eager = K._backward_launch(*args)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            captured = K._backward_launch(*args)
+    torch.cuda.current_stream().wait_stream(stream)
+    same = []
+    for _ in range(2):
+        for t in captured:
+            t.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        same.append(all(torch.equal(x, y) for x, y in zip(eager, captured)))
+    tickets = int(K._ticket_bufs[(fts.device, stream.cuda_stream,
+                                  "mpm_bwd")].abs().sum())
+    del graph
+    return all(same) and tickets == 0
+
+
 def mpm_backward_phase(torch, K, plain):
-    """MPMChainPacked's backward (the match_bwd and assign_bwd kernels)
+    """MPMChainPacked's backward (K4: the one kernel of csrc/mpm_bwd.cu)
     against the plain backward on the card (``_match_backward`` then
     ``_assign_backward``, PyTorch ops, from the forward's prototypes and
     indices) and against autograd of the plain chain: at the train shapes
-    in bf16 and f32, with S=Q=2 at n=1030 (a partial last stage) and at
-    c=1024 (two column passes); two calls bit-identical, each launching
-    both kernels once, the tickets back at 0. Timed at the train shapes
-    with a long device spin (LONG_SPIN_CYCLES: its device work, however
-    long the host takes to enqueue it) and without (what the step waits),
-    beside the plain backward and autograd of the plain chain."""
+    in bf16 and f32, with S=Q=2 at n=1030 (a partial last stage), at
+    c=1024 (two column passes), f32 at c=768 (no ring: rows read from
+    device memory) and at p = 9 and 16 (the padded instances 12 and 16,
+    p = 16 also in f32); two calls bit-identical, each launching the
+    kernel once, the barrier counters back at 0; the train shapes in a
+    captured and replayed CUDA graph bit-equal to eager. Timed at the
+    train shapes with a long device spin (LONG_SPIN_CYCLES: its device
+    work, however long the host takes to enqueue it) and without (what the
+    step waits), beside the plain backward and autograd of the plain
+    chain; then B = 1, 2, 4, 8 at the train shapes otherwise (bf16), each
+    timed and profiled (the kernel's device us, the call's other device
+    us, the fixed and marginal split)."""
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
     scale, eps = 20.0, plain.ASSIGN_EPS
     bf16, f32 = torch.bfloat16, torch.float32
@@ -982,19 +1096,18 @@ def mpm_backward_phase(torch, K, plain):
         ("s2q2_n1030_bf16", 4, 2, 2, 1030, 512, 3, bf16),
         ("s2q2_n1030_f32", 4, 2, 2, 1030, 512, 3, f32),
         ("c1024_bf16", 4, 1, 1, 2601, 1024, 3, bf16),
+        ("c768_f32_no_ring", 2, 2, 1, 1030, 768, 3, f32),
+        ("p9_bf16", 4, 1, 1, 2601, 512, 9, bf16),
+        ("p16_bf16", 4, 1, 1, 2601, 512, 16, bf16),
+        ("p16_f32", 2, 1, 1, 1030, 512, 16, f32),
     ]
     rows, times, calls, worst = [], {}, {}, 0.0
     for name, b, s, q, n, c, p, dtype in cases:
-        fts, fg, bg, ctr = make_inputs(torch, b, s, q, n, c, p, dtype, seed=3)
-        g = torch.randn(b, q, n, 2, device="cuda",
-                        generator=torch.Generator(device="cuda").manual_seed(4))
-        fk, ck = fts.clone().requires_grad_(), ctr.clone().requires_grad_()
-        lk = K.MPMChainPacked.apply(fk, fg, bg, ck, p, scale, eps)
-        before = dict(K.launches)
-        runs = [torch.autograd.grad(lk, (fk, ck), g, retain_graph=True)
-                for _ in range(2)]
-        launched = all(K.launches[k] - before[k] == 2
-                       for k in ("match_bwd", "assign_bwd"))
+        call, (fts, fg, bg, ctr, g) = backward_call(torch, K, b, s, q, n, c,
+                                                    p, dtype)
+        before = K.launches["mpm_bwd"]
+        runs = [call() for _ in range(2)]
+        launched = K.launches["mpm_bwd"] - before == 2
         bitwise = all(torch.equal(x, y) for x, y in zip(*runs))
         gk = runs[0]
         # the plain backward from the forward's own prototypes and indices
@@ -1035,12 +1148,19 @@ def mpm_backward_phase(torch, K, plain):
                       for r in (vs_plain, vs_autograd)))
         row = {"case": name, "B": b, "S": s, "Q": q, "n": n, "c": c, "p": p,
                "dtype": str(dtype).replace("torch.", ""),
+               "plan": K._plans[("mpm_bwd", fts.device, c,
+                                 K.padded_protos(p), int(dtype == bf16))],
                "fts_grad_vs_plain_backward": vs_plain[0],
                "ctr_grad_vs_plain_backward": vs_plain[1],
                "fts_grad_vs_autograd_plain": vs_autograd[0],
                "ctr_grad_vs_autograd_plain": vs_autograd[1],
                "index_agreement": agree, "bit_identical_x2": bitwise,
-               "kernels_launched": launched, "ok": ok}
+               "kernel_launched": launched, "ok": ok}
+        if name == "train_bf16":
+            row["graph_replay_bit_equal"] = graph_backward_vs_eager(
+                torch, K, fts, fg, bg, ctr, g, p)
+            ok = ok and row["graph_replay_bit_equal"]
+            row["ok"] = ok
         rows.append(row)
         worst = max(worst, vs_plain[0][0], vs_plain[1][0])
         if not ok:
@@ -1048,8 +1168,7 @@ def mpm_backward_phase(torch, K, plain):
             raise AssertionError(f"mpm backward ({name}) disagrees with plain")
         if name.startswith("train"):
             tag = str(dtype).replace("torch.", "")
-            calls[tag] = (lambda lk=lk, fk=fk, ck=ck, g=g: torch.autograd.grad(
-                lk, (fk, ck), g, retain_graph=True))
+            calls[tag] = call
             calls[f"{tag}_plain"] = plain_backward
             calls[f"{tag}_autograd_plain"] = (
                 lambda lp=lp, fp=fp, cp=cp, g=g: torch.autograd.grad(
@@ -1061,27 +1180,39 @@ def mpm_backward_phase(torch, K, plain):
     for tag, fn in calls.items():
         times[tag] = time_ms(torch, fn, flush, spin_cycles=LONG_SPIN_CYCLES)
         times[f"{tag}_no_spin"] = time_ms(torch, fn, flush, spin=False)
-    # each backward kernel's device time (torch.profiler)
-    split = device_profile(torch, calls["bfloat16"], {
-        "match_bwd": ["match_bwd_kernel"], "assign_bwd": ["assign_bwd_kernel"]})
+    # the batch sweep (bf16, train shapes otherwise)
+    sweep_fns = {bb: (calls["bfloat16"] if bb == 4 else backward_call(
+        torch, K, bb, 1, 1, 2601, 512, 3, bf16)[0])
+        for bb in BWD_SWEEP_BATCHES}
+    for bb, fn in sweep_fns.items():
+        times[f"bfloat16_b{bb}"] = time_ms(torch, fn, flush,
+                                           spin_cycles=LONG_SPIN_CYCLES)
+    sweep = mpm_backward_sweep(torch, sweep_fns)
     b, s, q, n, c, p = 4, 1, 1, 2601, 512, 3
     fts, fg, bg, ctr = make_inputs(torch, b, s, q, n, c, p, bf16)
-    _, num, den = K._assign_launch(fts, fg, bg, ctr, p, eps, partials=True)
+    _, num, den, sm = K._assign_launch(fts, fg, bg, ctr, p, eps,
+                                       partials=True)
+    # the function's traffic: the forward's assign partials are what any
+    # backward reads in place of a second pass over the support rows; the
+    # class softmax this design also reads (where the function can
+    # recompute it from the rows it reads anyway) is its own traffic,
+    # reported beside the bound
     bound = bound_ms(*mpm_backward_work(
         b, s, q, n, c, p, 2, 4 * (num.numel() + den.numel())))
+    softmax_bytes = 4 * sm.numel()
     emit({"phase": "mpm_backward", "cases": rows, "timing_shapes": {
         "B": b, "S": s, "Q": q, "n": n, "c": c, "p": p}, "ms": times,
-        "bfloat16_kernel_us": {k: split[f"{k}_us"]
-                               for k in ("match_bwd", "assign_bwd")},
-        "plans": {k[0]: v for k, v in K._plans.items()
-                  if isinstance(k[0], str) and k[0].endswith("_bwd")
-                  and k[2:] == (c, p, 1)},
-        "note": "bfloat16/float32: the kernels; *_plain: the plain "
+        "bfloat16_kernel_us": sweep["us_per_call"]["4"],
+        "batch_sweep": sweep,
+        "note": "bfloat16/float32: the kernel; *_plain: the plain "
                 "backward (torch ops); *_autograd_plain: autograd of the "
                 "plain chain; each with a ~2 ms device spin (device work) "
                 "and *_no_spin without it (dispatch included: what the "
-                "step waits)",
+                "step waits); bfloat16_b<B>: the kernel at B episodes; "
+                "batch_sweep: its device us a call by torch.profiler",
         "bound_ms_bf16": bound[0], "bound_by": bound[1],
+        "softmax_read_bytes": softmax_bytes,
+        "softmax_read_ms_at_hbm_rate": softmax_bytes / HBM_BYTES_PER_S * 1e3,
         "tolerance": {"grad_rtol": GRAD_RTOL, "bf16_fts_grad_rtol":
                       GRAD_RTOL_BF16, "index_margin": MARGIN}})
     return times, bound, worst
@@ -1152,8 +1283,7 @@ def train_path_phase(torch, K, M):
     steps = len(losses)
     evals = 2 * -(-cfg.data.test_n // cfg.data.test_bs) * cfg.te.epochs
     want = {"assign": steps + evals, "match": steps + evals,
-            "match_bwd": steps, "assign_bwd": steps,
-            "minplus": 2 * steps, "mpm_backward": steps}
+            "mpm_bwd": steps, "minplus": 2 * steps, "mpm_backward": steps}
     if steps != cfg.data.train_n // cfg.data.bs or not all(
             math.isfinite(x) for x in losses):
         raise AssertionError(f"train losses {losses}")
@@ -1199,7 +1329,7 @@ def train_path_phase(torch, K, M):
     step_ms = statistics.median(step_s) * 1e3
     prof = device_profile(torch, lambda: trainer.train_step(batch), {
         "mpm_kernels": ["assign_kernel", "match_kernel"],
-        "mpm_backward_kernels": ["match_bwd_kernel", "assign_bwd_kernel"],
+        "mpm_backward_kernels": ["mpm_bwd_kernel"],
         "minplus_kernel": ["minplus_kernel"]}, CONV_FALLBACK)
     del trainer, opt, params, model
 
@@ -1326,7 +1456,7 @@ def stage2_path_phase(torch, K, M):
     # match, the backward's two kernels, the cedt EDT's two min-plus
     # launches); an eval batch: both stages' assign and match
     want = {"assign": 2 * (steps + evals), "match": 2 * (steps + evals),
-            "match_bwd": steps, "assign_bwd": steps, "minplus": 2 * steps,
+            "mpm_bwd": steps, "minplus": 2 * steps,
             "mpm_backward": steps}
     if steps != cfg.data.train_n // cfg.data.bs or not all(
             math.isfinite(x) for x in losses):
@@ -1448,7 +1578,7 @@ def stage2_path_phase(torch, K, M):
     step_ms = host_ms(torch, lambda: trainer.train_step(batch))
     prof = device_profile(torch, lambda: trainer.train_step(batch), {
         "mpm_kernels": ["assign_kernel", "match_kernel"],
-        "mpm_backward_kernels": ["match_bwd_kernel", "assign_bwd_kernel"],
+        "mpm_backward_kernels": ["mpm_bwd_kernel"],
         "minplus_kernel": ["minplus_kernel"]}, ("",))
     # every convolution's kernels by the op's input shape: the CM stages'
     # first convolutions (4, 66, 258 and 514 input channels) among them
@@ -1491,8 +1621,92 @@ def stage2_path_phase(torch, K, M):
           "steady_eval_episodes_per_s": cfg.data.test_bs / eval_ms * 1e3,
           "eval_device_idle_share": 1 - eval_prof["device_us_total"] / 1e3
           / eval_ms,
-          "profile": prof, "eval_profile": eval_prof})
+          "profile": prof, "eval_profile": eval_prof,
+          "wide_protos": wide_protos_entries(torch, K, M)})
     return launches
+
+
+def wide_protos_entries(torch, K, M):
+    """F9 through the entries: PEMP stage 1 at ``net.protos=p`` and the
+    cascade's stage 2 at ``net.protos2=p`` behind that stage 1's file, for
+    p in WIDE_PROTOS. Each stage's ``train`` entry (WIDE_ARGS, chained
+    test) runs with the kernels and with ``dev.use_kernels=False``, and
+    its ``test`` entry runs the kernels' run's snapshot with
+    ``dev.use_kernels=False``. The kernels launch as a step and an eval
+    batch do, the plain runs launch none; the test of one snapshot within
+    WIDE_LOSS_RTOL (loss) and WIDE_MIOU_ATOL (mIoU); stage 1's first step
+    (same weights, same batch) within TRAIN_LOSS_RTOL. Printed, not held:
+    the later steps, whose weights part after the first update (the
+    argmax over p of a random model's nearly equal prototypes routes a
+    pixel's gradient to another prototype), and stage 2's first step,
+    whose input holds stage 1's argmax (the prior): in one run of this
+    phase it read 1e-7 apart, in another 1.8e-3, with the same code and a
+    stage-1 file trained anew, which only a discrete input can do."""
+    from pemp_tpu_torch.core import checkpoint as ckpt_lib
+    from pemp_tpu_torch.entry import pemp_stage1 as entry1
+    from pemp_tpu_torch.entry import pemp_stage2 as entry2
+
+    def run(entry, argv):
+        K.reset_launches()
+        M.reset_launches()
+        return entry.main(argv), {**K.launches, **M.launches}
+
+    cfg = entry1.ex.assemble("train", dict(
+        a.split("=", 1) for a in WIDE_ARGS[2:]))
+    steps = cfg.data.train_n // cfg.data.bs
+    evals = 2 * -(-cfg.data.test_n // cfg.data.test_bs)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for p in WIDE_PROTOS:
+            s1_file = None
+            for stage, entry in ((1, entry1), (2, entry2)):
+                extra = [f"net.protos={p}"] + (
+                    [f"net.protos2={p}", "tr.lr=0.0035",
+                     f"s1.ckpt={s1_file}"] if stage == 2 else [])
+                dirs = {on: f"g.model_dir={Path(tmp) / f'p{p}_{on}'}"
+                        for on in (True, False)}
+                on, launched = run(entry, WIDE_ARGS + extra + [dirs[True]])
+                off, plain_launched = run(entry, WIDE_ARGS + extra + [
+                    "dev.use_kernels=False", dirs[False]])
+                rid = on["train"]["run_id"]
+                tested, test_launched = run(entry, ["test"] + WIDE_ARGS[1:]
+                                            + extra + [
+                    "dev.use_kernels=False", dirs[True], f"exp_id={rid}",
+                    "-u"])
+                if stage == 1:
+                    s1_file = (Path(tmp) / f"p{p}_True" / "pemp_stage1"
+                               / str(rid) / ckpt_lib.BEST)
+                want = {"assign": stage * (steps + evals),
+                        "match": stage * (steps + evals), "mpm_bwd": steps,
+                        "minplus": 2 * steps}
+                first = on["train"]["losses"][0]
+                first_rel = abs(first - off["train"]["losses"][0]) / first
+                test_rel = (abs(on["test"]["loss"] - tested["loss"])
+                            / abs(tested["loss"]))
+                miou_gap = abs(on["test"]["miou"] - tested["miou"])
+                row = {"losses": on["train"]["losses"],
+                       "losses_plain": off["train"]["losses"],
+                       "first_loss_rel_err": first_rel,
+                       "test": on["test"], "test_plain": tested,
+                       "test_loss_rel_err": test_rel,
+                       "test_miou_abs_err": miou_gap, "launches": launched}
+                out[f"stage{stage}_p{p}"] = row
+                if (launched != want or any(plain_launched.values())
+                        or any(test_launched.values())
+                        or len(on["train"]["losses"]) != steps
+                        or not all(math.isfinite(x) for x in
+                                   on["train"]["losses"])
+                        or not (stage == 2 or first_rel <= TRAIN_LOSS_RTOL)
+                        or not test_rel <= WIDE_LOSS_RTOL
+                        or not miou_gap <= WIDE_MIOU_ATOL):
+                    raise AssertionError(
+                        f"stage {stage} at protos {p}, kernels vs plain: "
+                        f"{row}, want launches {want}, plain launches "
+                        f"{plain_launched}, {test_launched}")
+    out["tolerance"] = {"stage1_first_loss_rtol": TRAIN_LOSS_RTOL,
+                        "test_loss_rtol": WIDE_LOSS_RTOL,
+                        "test_miou_atol": WIDE_MIOU_ATOL}
+    return out
 
 
 def counted(torch, K, M, fn):
@@ -1729,8 +1943,7 @@ def vgg_path_phase(torch, K, M, plain):
     # the steady steps of both stages, and their launches per train step
     # and per eval batch
     groups = {"mpm_kernels": ["assign_kernel", "match_kernel"],
-              "mpm_backward_kernels": ["match_bwd_kernel",
-                                       "assign_bwd_kernel"],
+              "mpm_backward_kernels": ["mpm_bwd_kernel"],
               "minplus_kernel": ["minplus_kernel"]}
     tbatch = first_batch(datasets, cfg1, "train")
     steady = {}
@@ -2894,7 +3107,7 @@ def real_data_path_phase(torch, K, M):
             fed[name] = fed_steps(torch, trainer, loader_f)
         prof = device_profile(torch, lambda: trainer.train_step(tbatch), {
             "mpm_kernels": ["assign_kernel", "match_kernel"],
-            "mpm_backward_kernels": ["match_bwd_kernel", "assign_bwd_kernel"],
+            "mpm_backward_kernels": ["mpm_bwd_kernel"],
             "minplus_kernel": ["minplus_kernel"]})
         device_ms = prof["device_us_total"] / 1e3
         for v in fed.values():
@@ -3330,7 +3543,7 @@ def parallel_path_phase(torch, K, M):
         fed[name] = fed_steps(torch, trainer, loader_f)
     prof = device_profile(torch, lambda: trainer.train_step(host[0]), {
         "mpm_kernels": ["assign_kernel", "match_kernel"],
-        "mpm_backward_kernels": ["match_bwd_kernel", "assign_bwd_kernel"],
+        "mpm_backward_kernels": ["mpm_bwd_kernel"],
         "minplus_kernel": ["minplus_kernel"], "memcpy": ["Memcpy"]})
     device_ms = prof["device_us_total"] / 1e3
     for v in fed.values():
@@ -4272,6 +4485,7 @@ def tools_path_phase(torch, K, M, smi):
 
     import numpy as np
 
+    from pemp_tpu_torch.ops.kernels import use_kernels
     from pemp_tpu_torch.tools import (
         bench_input, exp_train_levers, memory_report, profile_eval,
         profile_train, verify_real_data,
@@ -4306,7 +4520,7 @@ def tools_path_phase(torch, K, M, smi):
         sup, msk, qry, _ = (torch.from_numpy(a).to(device) for a in inputs)
         with torch.no_grad():
             lk = model(sup, msk, qry).float()
-            with profile_eval.plain_mpm():
+            with use_kernels(False):
                 lp = model(sup, msk, qry).float()
         same = lk.argmax(-1) == lp.argmax(-1)
         return (lk - lp).abs().max().item(), same, lp
@@ -4736,8 +4950,8 @@ def main() -> int:
     # workers (stage 1 and the cascade at B = 1 and 8). minplus: one EDT
     # = its two launches (ms, plain_ms and bound_ms add both phases at the
     # train shapes). mpm_backward (K4):
-    # its two kernels, match_bwd and assign_bwd, one launch each per
-    # backward pass of the training path.
+    # its one kernel, mpm_bwd, one launch per backward pass of the
+    # training path.
     mpm_cu = "pemp_tpu_torch/ops/kernels/csrc/mpm.cu"
     table = [
         {"name": name, "route": "cuda", "source": mpm_cu,
@@ -4780,31 +4994,27 @@ def main() -> int:
         "name": "mpm_backward", "route": "cuda",
         "source": "pemp_tpu_torch/ops/kernels/csrc/mpm_bwd.cu",
         "replaces": "pemp_tpu/ops/pallas/mpm_vjp.py:216",
-        "launches": train_launches["mpm_backward"],
-        "kernel_launches": {k: train_launches[k]
-                            for k in ("match_bwd", "assign_bwd")},
-        "stage2_path_launches": stage2_launches["mpm_backward"],
-        "vgg_path_launches": vgg_launches["mpm_backward"],
-        "run_path_launches": run_launches["match_bwd"],
-        "real_data_path_launches": real_launches["match_bwd"],
-        "parallel_path_launches": parallel_launches["match_bwd"],
-        "fused_path_launches": {k: fused_launches[k]
-                                for k in ("match_bwd", "assign_bwd")},
-        "serving_path_launches": {k: serving[k]
-                                  for k in ("match_bwd", "assign_bwd")},
-        "tools_path_launches": {k: tools[k]
-                                for k in ("match_bwd", "assign_bwd")},
-        "ops_tools_path_launches": {k: ops_launches(ops[k])
-                                    for k in ("match_bwd", "assign_bwd")},
+        "launches": train_launches["mpm_bwd"],
+        "backward_calls": train_launches["mpm_backward"],
+        "stage2_path_launches": stage2_launches["mpm_bwd"],
+        "vgg_path_launches": vgg_launches["mpm_bwd"],
+        "run_path_launches": run_launches["mpm_bwd"],
+        "real_data_path_launches": real_launches["mpm_bwd"],
+        "parallel_path_launches": parallel_launches["mpm_bwd"],
+        "fused_path_launches": fused_launches["mpm_bwd"],
+        "serving_path_launches": serving["mpm_bwd"],
+        "tools_path_launches": tools["mpm_bwd"],
+        "ops_tools_path_launches": ops_launches(ops["mpm_bwd"]),
         "max_abs_err": bw_worst, "ms": bw_times["bfloat16"],
         "ms_no_spin": bw_times["bfloat16_no_spin"],
         "plain_ms": bw_times["bfloat16_plain"],
         "plain_ms_no_spin": bw_times["bfloat16_plain_no_spin"],
         "autograd_plain_ms": bw_times["bfloat16_autograd_plain"],
         "bound_ms": bw_bound[0], "bound_by": bw_bound[1], "library_ms": None,
-        "note": "MPMChainPacked.backward: match_bwd then assign_bwd; ms "
-                "and plain_ms with a ~2 ms device spin (device work), "
-                "*_no_spin without it (host dispatch included)"})
+        "note": "MPMChainPacked.backward: one cooperative launch of "
+                "mpm_bwd_kernel; ms and plain_ms with a ~2 ms device spin "
+                "(device work), *_no_spin without it (host dispatch "
+                "included)"})
     table.append({
         "name": "minplus", "route": "cuda",
         "source": "pemp_tpu_torch/ops/kernels/csrc/minplus.cu",

@@ -18,7 +18,22 @@ features, n=2601, c=512, p=3 unless named):
 - ``match_eval``, ``chain_eval``: ``mpm_match``, ``mpm_chain_packed`` at B=8;
 - ``minplus_phase1`` / ``minplus_phase2``: the EDT's two ``minplus``
   products at B=4, 401x401;
-- ``mpm_backward``: the backward of ``MPMChainPacked`` at B=4.
+- ``mpm_backward``: the backward of ``MPMChainPacked`` at B=4 (and
+  ``mpm_backward_f32`` with float32 features, ``mpm_backward_p12`` at
+  p=12 where the checkout takes it);
+- ``mpm_backward_b1`` / ``_b2`` / ``_b8``: the same at B=1, 2 and 8;
+- ``chain_train`` / ``chain_train_step``: ``MPMChainPacked``'s forward on
+  inputs that require grad at B=4 (what a train step's forward launches:
+  K1, saving what its backward reads, then K2), and that forward with its
+  backward.
+
+``mpm_backward_sweep`` profiles the backward at B=1, 2, 4 and 8
+(``chip_smoke.mpm_backward_sweep``): each backward kernel's device us a
+call (every kernel whose name holds ``_bwd``), the call's other device
+us (what the wrapper and autograd launch besides), and per kernel a
+least-squares line us = fixed + bytes / rate over the four batches
+(``fixed_us``, ``marginal_bytes_per_s``; bytes as
+``chip_smoke.mpm_backward_work`` counts them).
 
 Only wrappers that every checkout since the port's training slice has
 are called, so two checkouts run with the same timer: run the script once
@@ -110,13 +125,33 @@ def main() -> int:
     calls["minplus_phase1"] = lambda: M.minplus(off, src)
     calls["minplus_phase2"] = lambda: M.minplus(g2, off)
 
-    fts4, fg4, bg4, ctr4 = smoke.make_inputs(torch, 4, 1, 1, 2601, 512, 3,
-                                             bf16, seed=3)
-    fk, ck = fts4.clone().requires_grad_(), ctr4.clone().requires_grad_()
-    logits = K.MPMChainPacked.apply(fk, fg4, bg4, ck, 3, scale, eps)
-    cot = torch.randn(logits.shape, generator=g, device="cuda")
-    calls["mpm_backward"] = lambda: torch.autograd.grad(
-        logits, (fk, ck), cot, retain_graph=True)
+    def backward(b, p=3, dtype=bf16):
+        fts, fg_, bg_, ctr_ = smoke.make_inputs(torch, b, 1, 1, 2601, 512, p,
+                                                dtype, seed=3)
+        fk, ck = fts.clone().requires_grad_(), ctr_.clone().requires_grad_()
+        logits = K.MPMChainPacked.apply(fk, fg_, bg_, ck, p, scale, eps)
+        cot = torch.randn(logits.shape, generator=g, device="cuda")
+        return lambda: torch.autograd.grad(logits, (fk, ck), cot,
+                                           retain_graph=True)
+
+    def train_chain(b=4, p=3):
+        fts, fg_, bg_, ctr_ = smoke.make_inputs(torch, b, 1, 1, 2601, 512, p,
+                                                bf16, seed=3)
+        fk, ck = fts.clone().requires_grad_(), ctr_.clone().requires_grad_()
+
+        def forward():
+            return K.MPMChainPacked.apply(fk, fg_, bg_, ck, p, scale, eps)
+        cot = torch.randn(forward().shape, generator=g, device="cuda")
+        return forward, lambda: torch.autograd.grad(forward(), (fk, ck), cot)
+
+    calls["chain_train"], calls["chain_train_step"] = train_chain()
+    calls["mpm_backward"] = backward(4)
+    calls["mpm_backward_f32"] = backward(4, dtype=torch.float32)
+    if "mpm_backward_p12" not in args.skip and K.MAX_PROTOS >= 12:
+        calls["mpm_backward_p12"] = backward(4, p=12)
+    for b in smoke.BWD_SWEEP_BATCHES:
+        if b != 4:
+            calls[f"mpm_backward_b{b}"] = backward(b)
 
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
     out = {"label": args.label or str(root), "nvidia_smi": smi,
@@ -124,11 +159,15 @@ def main() -> int:
     for name, fn in calls.items():
         if name in args.skip:
             continue
-        cycles = (smoke.LONG_SPIN_CYCLES if name == "mpm_backward"
+        cycles = (smoke.LONG_SPIN_CYCLES
+                  if name.startswith(("mpm_backward", "chain_train"))
                   else smoke.SPIN_CYCLES)
         for key, spin in (("device_ms", True), ("host_ms", False)):
             out[key][name] = smoke.time_ms(torch, fn, flush, spin=spin,
                                            spin_cycles=cycles)
+    out["mpm_backward_sweep"] = smoke.mpm_backward_sweep(
+        torch, {b: calls["mpm_backward" if b == 4 else f"mpm_backward_b{b}"]
+                for b in smoke.BWD_SWEEP_BATCHES})
     print(json.dumps(out), flush=True)
     return 0
 

@@ -56,7 +56,8 @@ class GlobalConfig:
 class DeviceConfig:
     """Scope ``dev``: device, compute precision, the world and the input
     path (the JAX package's ``tpu`` scope: ``mesh``, ``prefetch``,
-    ``compact_wire`` and ``fuse_steps`` keep its defaults and meanings)."""
+    ``compact_wire`` and ``fuse_steps`` keep its defaults and meanings;
+    ``use_kernels`` is its ``use_pallas``)."""
     device: str = "cuda"                # cuda | cpu (cpu only when asked)
     precision: str = "bf16"             # backbone compute dtype: bf16 | f32
     mesh: int = 0                       # processes sharing a batch: 0 or
@@ -72,6 +73,11 @@ class DeviceConfig:
     #                                     per-step dispatch (ignored by a
     #                                     runtime with a per-step host hook
     #                                     and no chunk flush)
+    use_kernels: bool = True            # the hand-written CUDA kernels
+    #                                     (K1-K5) for tensors on the card;
+    #                                     False runs their plain PyTorch
+    #                                     versions there (the JAX package's
+    #                                     tpu.use_pallas)
 
 
 @dataclass

@@ -80,6 +80,7 @@ from pemp_tpu_torch.data import datasets
 from pemp_tpu_torch.device import resolve_device
 from pemp_tpu_torch.models import registry
 from pemp_tpu_torch.models.layers import global_batchnorm
+from pemp_tpu_torch.ops import kernels
 from pemp_tpu_torch.parallel import mesh
 from pemp_tpu_torch.parallel.step import DevicePrefetcher
 from pemp_tpu_torch.utils import pretrained
@@ -257,6 +258,15 @@ class EntryRuntime:
         """The ``test`` command (of run ``exp_id``'s snapshot when it names
         no ``ckpt``): returns loss, mIoU, bIoU (fractions), the episodes/s
         of the eval steps and the device the run used."""
+        with self.kernels():
+            return self._test()
+
+    def kernels(self):
+        """The block in which the commands run: the kernels, or their plain
+        versions on the card with ``dev.use_kernels=False``."""
+        return kernels.use_kernels(self.cfg.dev.use_kernels)
+
+    def _test(self) -> Dict[str, float]:
         cfg, logger = self.cfg, self.logger
         device = resolve_device(cfg.dev.device)
         mesh.resolve_mesh(cfg.dev.mesh)
@@ -295,6 +305,10 @@ class EntryRuntime:
         """The ``train`` command: ``{"train": <the training summary>}`` plus,
         for a recorded run that was not stopped, ``"test"``: the chained
         ``test`` of ``bestckpt.pt``."""
+        with self.kernels():
+            return self._train_and_test()
+
+    def _train_and_test(self) -> Dict:
         result = {"train": self._train()}
         # rank 0 alone records, but every rank takes the chained test (its
         # eval gathers are collectives): rank 0 says which run it tests;

@@ -83,6 +83,14 @@ def evaluate_and_save(runtime, max_episodes: int = 50) -> str:
     model = runtime.build_model(cfg, device)
     runtime.logger.info(f"Model initialized from {cfg.ckpt}")
 
+    with runtime.kernels():
+        return _dump_episodes(runtime, model, ds, loader, http_dir,
+                              max_episodes)
+
+
+def _dump_episodes(runtime, model, ds, loader, http_dir,
+                   max_episodes: int) -> str:
+    cfg, device = runtime.cfg, resolve_device(runtime.cfg.dev.device)
     for i, batch in enumerate(loader):
         if i >= max_episodes or i >= len(ds.sampler.tasks):
             break

@@ -1,11 +1,16 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, loaded with ``ctypes``. The
-library lands in ``build/pemp_tpu_torch/`` at the root of the checkout,
-named after a hash of its source and flags, so it is rebuilt only when
-the source changes. Several sources build in parallel, one ``nvcc``
-each. Nothing here runs at import time: the first kernel call builds.
+Each library is a ``csrc/<source>.cu`` compiled by ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface, loaded with
+``ctypes``. The mpm sources hold an instance of each kernel per p and
+feature type, so each is compiled twice, once per feature type
+(``-DPEMP_FEATURE_BF16=1`` or ``0``: ``mpm_bf16``, ``mpm_f32``,
+``mpm_bwd_bf16``, ``mpm_bwd_f32``), and a library takes only its own
+type. The library lands in ``build/pemp_tpu_torch/`` at the root of the
+checkout, named after a hash of its source and flags, so it is rebuilt
+only when the source changes. The libraries build in parallel, one
+``nvcc`` each. Nothing here runs at import time: the first kernel call
+builds.
 """
 
 from __future__ import annotations
@@ -23,7 +28,13 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "pemp_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("mpm", "mpm_bwd", "minplus")
+# library -> (source, extra nvcc flags)
+LIBRARIES = {
+    **{f"{src}_{tag}": (src, (f"-DPEMP_FEATURE_BF16={flag}",))
+       for src in ("mpm", "mpm_bwd")
+       for tag, flag in (("bf16", 1), ("f32", 0))},
+    "minplus": ("minplus", ()),
+}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -38,15 +49,16 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    src, flags = LIBRARIES[name]
+    h = hashlib.sha256((CSRC / f"{src}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + flags).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build(names: Iterable[str] = SOURCES) -> Dict[str, dict]:
-    """Compile every named source whose library is missing, all ``nvcc``
+def build(names: Iterable[str] = tuple(LIBRARIES)) -> Dict[str, dict]:
+    """Compile every named library that is missing, all ``nvcc``
     processes started together; returns each library's path, build
     seconds and compiler log (``-Xptxas -v``: registers, spills)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -58,7 +70,9 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, dict]:
                           "cached": True}
             continue
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        src, flags = LIBRARIES[name]
+        cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp),
+               str(CSRC / f"{src}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, path, time.perf_counter())
@@ -78,7 +92,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, dict]:
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library ``name`` (``LIBRARIES``), built on first use."""
     if name not in _loaded:
         path = build([name])[name]["path"]
         _loaded[name] = ctypes.CDLL(str(path))

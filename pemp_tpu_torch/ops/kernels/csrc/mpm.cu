@@ -27,6 +27,11 @@
 // first-occurrence argmax that reads them) are bit-identical run to run.
 // Rows >= n are never loaded (the ring zero-fills them; K1 drops their
 // assignment with a select, K2 writes nothing for them).
+// p above 8 runs on the instances P = 12 and 16 (mpm_common.cuh): the
+// wrapper pads the centers (K1) and the prototypes (K2) with zero columns,
+// K1 gives the padded columns no share of the class softmax and K2 none of
+// the max; there 2P + 1 sums a row exceed the warp at P = 16, so |f|^2 is
+// summed apart, and a column pass holds 256 channels.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -81,7 +86,8 @@ constexpr int kCluster = 2;                        // blocks of an image per clu
 template <int P>
 struct AssignShape {
   static constexpr int K2 = 2 * P;
-  static constexpr int W = 2 * P + 1;              // sums per row: 2p dots, |f|^2
+  static constexpr bool SQ = K2 + 1 <= 32;         // |f|^2 in the butterfly (else apart)
+  static constexpr int W = SQ ? K2 + 1 : K2;       // sums per row: 2p dots (and |f|^2)
   static constexpr int R = 4 * W <= 32 ? 4 : 2 * W <= 32 ? 2 : 1;   // rows per group
 };
 
@@ -90,7 +96,7 @@ struct AssignShape {
 // [2p][min(c, kPassCols)]) reuses at the end
 constexpr size_t assign_smem_bytes(int c, int p, int esize, int ns) {
   const size_t ring = (size_t)ns * kStageRows * c * esize;
-  const size_t tree = (size_t)kWarps / 2 * 2 * p * (c < kPassCols ? c : kPassCols) * 4;
+  const size_t tree = (size_t)kWarps / 2 * 2 * p * (c < pass_cols(p) ? c : pass_cols(p)) * 4;
   return (size_t)2 * p * c * 4 + (size_t)ns * 2 * kStageRows * 4 + (ring > tree ? ring : tree);
 }
 
@@ -99,12 +105,15 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
 assign_kernel(const T* __restrict__ fts, const float* __restrict__ fg,
               const float* __restrict__ bg, const float* __restrict__ ctr,
               float* __restrict__ num_part, float* __restrict__ den_part,
-              int* __restrict__ tickets, float* __restrict__ protos, int S, int SQ,
-              int n, int c, int rows, int ns, float eps) {
+              int* __restrict__ tickets, float* __restrict__ protos,
+              float* __restrict__ sm_out, int S, int SQ, int n, int c, int rows, int ns,
+              int live_p, float eps) {
   using Shape = AssignShape<P>;
   constexpr int K2 = Shape::K2, W = Shape::W, R = Shape::R;
+  constexpr bool HAS_SQ = Shape::SQ;
   constexpr int V = Vec<T>::N;
-  constexpr int NCH = kPassCols / (32 * V);         // 16-byte chunks per lane and pass
+  constexpr int COLS = pass_cols(P);                 // channels a pass
+  constexpr int NCH = COLS / (32 * V);               // 16-byte chunks per lane and pass
   const unsigned full = 0xffffffffu;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -127,7 +136,7 @@ assign_kernel(const T* __restrict__ fts, const float* __restrict__ fg,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int cv = c / V;                         // 16-byte chunks per row
   const int qz = z * 32 * NCH;                  // first chunk of the pass
-  const int pc = min(c, kPassCols);             // tree slot stride
+  const int pc = min(c, COLS);                  // tree slot stride
   const T* src = fts + ((size_t)img * n + row0) * c;
   const float* mfg = fg + (size_t)i * n + row0;
   const float* mbg = bg + (size_t)i * n + row0;
@@ -166,7 +175,7 @@ assign_kernel(const T* __restrict__ fts, const float* __restrict__ fg,
     }
   };
   const int n_ctr4 = c * K2 / 4;
-  constexpr int kCtr = K2 * kPassCols / 4 / kThreads;       // float4 a thread
+  constexpr int kCtr = K2 * kPassCols / 4 / kThreads < 8 ? K2 * kPassCols / 4 / kThreads : 8;
   float4 cv4[kCtr];
 #pragma unroll
   for (int j = 0; j < kCtr; ++j) {
@@ -208,16 +217,21 @@ assign_kernel(const T* __restrict__ fts, const float* __restrict__ fg,
       if (g >= live_rows) break;                               // warp-uniform
       // per-lane partial dots and |f|^2 of rows g .. g+R-1, over all columns
       // (rows past the block's are zero-filled in the ring)
-      float v[32], unused[R];
+      float v[32], sqr[R];
 #pragma unroll
       for (int j = 0; j < 32; ++j) v[j] = 0.f;
-      group_sums<T, K2, R, W, true>(tile, g, kStageRows, ctr_s, c, lane, v, unused);
+#pragma unroll
+      for (int r = 0; r < R; ++r) sqr[r] = 0.f;
+      group_sums<T, K2, R, W, HAS_SQ>(tile, g, kStageRows, ctr_s, c, lane, v, sqr);
+      float sq_apart = 0.f;
+      if constexpr (!HAS_SQ) sq_apart = warp_sum(sqr[0]);       // R == 1
       reduce_scatter<16>(v, lane);
       const float tot = v[0];
-      // softmax over each class's own p columns, R*2p lanes at once
+      // softmax over each class's own p columns, R*2p lanes at once (a
+      // padded column's distance is -inf: no share)
       const int rbase = my_r * W;
-      const float sq = __shfl_sync(full, tot, (rbase + K2) & 31);
-      const float dist = -(sq - 2.f * tot + csq_s[kk]);
+      const float sq = HAS_SQ ? __shfl_sync(full, tot, (rbase + K2) & 31) : sq_apart;
+      const float dist = kk % P < live_p ? -(sq - 2.f * tot + csq_s[kk]) : -INFINITY;
       const int cbase = rbase + cls * P;
       float mx = -INFINITY;
 #pragma unroll
@@ -230,6 +244,9 @@ assign_kernel(const T* __restrict__ fts, const float* __restrict__ fg,
       const bool live = my_r < R && my_k < K2 && row < live_rows;
       const float a = live ? ex * (mk[min(row, kStageRows - 1)] / fmaxf(sum, 1e-30f)) : 0.f;
       den += a;
+      // the class softmax of the row (unmasked), for the backward
+      if (sm_out != nullptr && z == 0 && live)
+        sm_out[((size_t)i * n + row0 + st * kStageRows + row) * K2 + kk] = ex / fmaxf(sum, 1e-30f);
       // a^T f on the lane's own columns of the pass
       float ar[R][K2];
 #pragma unroll
@@ -292,7 +309,7 @@ assign_kernel(const T* __restrict__ fts, const float* __restrict__ fg,
   const int cparts = tiles / kCluster;                       // cluster partials per image
   const size_t part = (size_t)i * cparts + t / kCluster;
   const int n_all = K2 * c;                                  // a multiple of 16
-  const int pc4 = min(kPassCols, c - z * kPassCols) / 4;     // float4 columns of the pass
+  const int pc4 = min(COLS, c - z * COLS) / 4;               // float4 columns of the pass
   const int n4 = K2 * pc4;
   for (int idx = n4 * rank / kCluster + threadIdx.x; idx < n4 * (rank + 1) / kCluster;
        idx += kThreads) {
@@ -304,7 +321,7 @@ assign_kernel(const T* __restrict__ fts, const float* __restrict__ fg,
           cluster.map_shared_rank(red_s, r) + k * pc + col);
       x.x += y.x; x.y += y.y; x.z += y.z; x.w += y.w;
     }
-    *reinterpret_cast<float4*>(num_part + part * n_all + k * c + z * kPassCols + col) = x;
+    *reinterpret_cast<float4*>(num_part + part * n_all + k * c + z * COLS + col) = x;
   }
   if (z == 0 && rank == 0 && threadIdx.x < K2) {
     float d = 0.f;
@@ -383,7 +400,8 @@ assign_kernel(const T* __restrict__ fts, const float* __restrict__ fg,
 template <int P>
 struct MatchShape {
   static constexpr int K2 = 2 * P;
-  static constexpr int W = 2 * P + 1;              // sums per row: 2p dots, |q|^2
+  static constexpr bool SQ = K2 + 1 <= 32;         // |q|^2 in the butterfly (else apart)
+  static constexpr int W = SQ ? K2 + 1 : K2;       // sums per row: 2p dots (and |q|^2)
   static constexpr int R = 4 * W <= 32 ? 4 : 2 * W <= 32 ? 2 : 1;   // rows per group
 };
 
@@ -397,9 +415,10 @@ template <typename T, int P>
 __global__ void __launch_bounds__(kThreads, 2)
 match_kernel(const T* __restrict__ fts, const float* __restrict__ protos,
              float* __restrict__ logits, int* __restrict__ inds, int S, int Q, int SQ, int n,
-             int c, int rows, int ns, float dist_scalar, float cos_eps) {
+             int c, int rows, int ns, int live_p, float dist_scalar, float cos_eps) {
   using Shape = MatchShape<P>;
   constexpr int K2 = Shape::K2, W = Shape::W, R = Shape::R;
+  constexpr bool HAS_SQ = Shape::SQ;
   constexpr int V = Vec<T>::N;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* tab_s = reinterpret_cast<float*>(smem_raw);             // [K2][c] permuted
@@ -459,25 +478,29 @@ match_kernel(const T* __restrict__ fts, const float* __restrict__ protos,
     for (int gi = 0; gi < kRowsPerWarp / R; ++gi) {
       const int g = gi * R;
       if (g >= live_rows) break;                               // warp-uniform
-      float v[32], unused[R];
+      float v[32], sqr[R];
 #pragma unroll
       for (int j = 0; j < 32; ++j) v[j] = 0.f;
+#pragma unroll
+      for (int r = 0; r < R; ++r) sqr[r] = 0.f;
       if (ns > 0)
-        group_sums<T, K2, R, W, true>(wring + (size_t)(st % ns) * kRowsPerWarp * c, g,
-                                      live_rows, tab_s, c, lane, v, unused);
+        group_sums<T, K2, R, W, HAS_SQ>(wring + (size_t)(st % ns) * kRowsPerWarp * c, g,
+                                        live_rows, tab_s, c, lane, v, sqr);
       else
-        group_sums<T, K2, R, W, true>(src + (size_t)r0 * c, g, live_rows, tab_s, c, lane, v,
-                                      unused);
+        group_sums<T, K2, R, W, HAS_SQ>(src + (size_t)r0 * c, g, live_rows, tab_s, c, lane, v,
+                                        sqr);
+      float sq_apart = 0.f;
+      if constexpr (!HAS_SQ) sq_apart = warp_sum(sqr[0]);       // R == 1
       reduce_scatter<16>(v, lane);
       const float dot = v[0];
-      const float sq = __shfl_sync(kFull, dot, (my_r * W + K2) & 31);
+      const float sq = HAS_SQ ? __shfl_sync(kFull, dot, (my_r * W + K2) & 31) : sq_apart;
       const float sim = dot / fmaxf(sqrtf(fmaxf(sq, 1e-30f)) * pn, cos_eps) * dist_scalar;
       float best = __shfl_sync(kFull, sim, cbase & 31);
       int idx = 0;
 #pragma unroll
       for (int j = 1; j < P; ++j) {
         const float s = __shfl_sync(kFull, sim, (cbase + j) & 31);
-        if (s > best) {
+        if (j < live_p && s > best) {                  // a padded column never wins
           best = s;
           idx = j;
         }
@@ -498,7 +521,7 @@ match_kernel(const T* __restrict__ fts, const float* __restrict__ protos,
 
 template <typename T>
 using AssignFn = void (*)(const T*, const float*, const float*, const float*, float*, float*,
-                          int*, float*, int, int, int, int, int, int, float);
+                          int*, float*, float*, int, int, int, int, int, int, int, float);
 
 // the assign kernel instance for p (p is a template parameter: the
 // accumulators are registers)
@@ -513,6 +536,8 @@ AssignFn<T> assign_kernel_for(int p) {
     case 6: return assign_kernel<T, 6>;
     case 7: return assign_kernel<T, 7>;
     case 8: return assign_kernel<T, 8>;
+    case 12: return assign_kernel<T, 12>;
+    case 16: return assign_kernel<T, 16>;
     default: return nullptr;
   }
 }
@@ -556,7 +581,7 @@ int assign_slots(int c, int p) {
 
 template <typename T>
 using MatchFn = void (*)(const T*, const float*, float*, int*, int, int, int, int, int, int,
-                         int, float, float);
+                         int, int, float, float);
 
 template <typename T>
 MatchFn<T> match_kernel_for(int p) {
@@ -569,6 +594,8 @@ MatchFn<T> match_kernel_for(int p) {
     case 6: return match_kernel<T, 6>;
     case 7: return match_kernel<T, 7>;
     case 8: return match_kernel<T, 8>;
+    case 12: return match_kernel<T, 12>;
+    case 16: return match_kernel<T, 16>;
     default: return nullptr;
   }
 }
@@ -584,33 +611,37 @@ int match_plan(int c, int p, int* slots) {
 
 template <typename T>
 int match_launch(const void* fts, const void* protos, void* logits, void* inds, int B, int S,
-                 int Q, int n, int c, int p, int rows, int tiles, int ns, float dist_scalar,
-                 float cos_eps, void* stream) {
+                 int Q, int n, int c, int p, int live_p, int rows, int tiles, int ns,
+                 float dist_scalar, float cos_eps, void* stream) {
   const MatchFn<T> kernel = match_kernel_for<T>(p);
-  if (kernel == nullptr || ns == 1 || ns < 0 || ns > kMatchStages) return cudaErrorInvalidValue;
+  if (kernel == nullptr || ns == 1 || ns < 0 || ns > kMatchStages || live_p < 1 || live_p > p)
+    return cudaErrorInvalidValue;
   const size_t smem = match_smem_bytes(c, p, sizeof(T), ns);
   const cudaError_t e = launch_config(kernel, smem);
   if (e != cudaSuccess) return e;
   kernel<<<dim3(tiles, B * Q), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(fts), static_cast<const float*>(protos), static_cast<float*>(logits),
-      static_cast<int*>(inds), S, Q, S + Q, n, c, rows, ns, dist_scalar, cos_eps);
+      static_cast<int*>(inds), S, Q, S + Q, n, c, rows, ns, live_p, dist_scalar, cos_eps);
   return cudaGetLastError();
 }
 
 template <typename T>
 int assign_launch(const void* fts, const void* fg, const void* bg, const void* ctr, void* num,
-                  void* den, void* tickets, void* protos, int B, int S, int Q, int n, int c,
-                  int p, int rows, int tiles, int ns, float eps, void* stream) {
+                  void* den, void* tickets, void* protos, void* sm, int B, int S, int Q, int n,
+                  int c, int p, int live_p, int rows, int tiles, int ns, float eps,
+                  void* stream) {
   const AssignFn<T> kernel = assign_kernel_for<T>(p);
-  if (kernel == nullptr || ns < kMinStages || ns > RingStages<T>::NS) return cudaErrorInvalidValue;
+  if (kernel == nullptr || ns < kMinStages || ns > RingStages<T>::NS || live_p < 1 || live_p > p)
+    return cudaErrorInvalidValue;
   const size_t smem = assign_smem_bytes(c, p, sizeof(T), ns);
   const cudaError_t e = launch_config(kernel, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid(tiles, B * S, (c + kPassCols - 1) / kPassCols);
+  const dim3 grid(tiles, B * S, (c + pass_cols(p) - 1) / pass_cols(p));
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(fts), static_cast<const float*>(fg), static_cast<const float*>(bg),
       static_cast<const float*>(ctr), static_cast<float*>(num), static_cast<float*>(den),
-      static_cast<int*>(tickets), static_cast<float*>(protos), S, S + Q, n, c, rows, ns, eps);
+      static_cast<int*>(tickets), static_cast<float*>(protos), static_cast<float*>(sm), S, S + Q,
+      n, c, rows, ns, live_p, eps);
   return cudaGetLastError();
 }
 
@@ -621,7 +652,9 @@ extern "C" {
 int pemp_mpm_max_protos() { return kMaxProtos; }
 int pemp_mpm_stage_rows() { return kStageRows; }
 int pemp_mpm_cluster() { return kCluster; }
-int pemp_mpm_pass_channels() { return kPassCols; }
+// the instance that runs p prototypes a class, and its column pass
+int pemp_mpm_padded_protos(int p) { return padded_protos(p); }
+int pemp_mpm_pass_channels(int p) { return pass_cols(padded_protos(p)); }
 
 const char* pemp_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
@@ -630,52 +663,54 @@ const char* pemp_cuda_error_string(int code) {
 // Ring stages the assign kernel takes for (c, p) on the current device;
 // 0 when its shared memory does not fit a block even at the fewest.
 int pemp_mpm_assign_stages(int c, int p, int is_bf16) {
-  return is_bf16 ? assign_stages<__nv_bfloat16>(c, p) : assign_stages<float>(c, p);
+  return is_bf16 == kFeatureBf16 ? assign_stages<Feature>(c, p) : 0;
 }
 
 // Blocks of the assign kernel the current device holds at once (SMs x
 // blocks per SM), or minus a CUDA error code.
 int pemp_mpm_assign_slots(int c, int p, int is_bf16) {
-  return is_bf16 ? assign_slots<__nv_bfloat16>(c, p) : assign_slots<float>(c, p);
+  return is_bf16 == kFeatureBf16 ? assign_slots<Feature>(c, p) : -(int)cudaErrorInvalidValue;
 }
 
-// K1. fts [B, S+Q, n, c] (f32 or bf16), fg/bg [B*S, n] f32, ctr [c, 2p]
+// K1 on the instance p (padded_protos), live_p <= p columns a class live.
+// fts [B, S+Q, n, c] (f32 or bf16), fg/bg [B*S, n] f32, ctr [c, 2p]
 // f32; scratch num [B*S, tiles/2, 2p, c] and den [B*S, tiles/2, 2p] f32
 // (one partial per 2-block cluster);
 // tickets [B] int32, zero before the launch and after it; protos
-// [B, 2p, c] f32 out (fg prototypes first, then bg). Block t of a support
+// [B, 2p, c] f32 out (fg prototypes first, then bg); sm [B*S, n, 2p] f32
+// out or NULL: each support row's class softmax before the mask (0 in a
+// padded column), what the backward reads. Block t of a support
 // image takes pixel rows [t*rows, min(n, (t+1)*rows)), tiles = cdiv(n,
-// rows) rounded up to whole clusters, in cdiv(c, 512) column passes,
+// rows) rounded up to whole clusters, in cdiv(c, pass_cols(p)) column passes,
 // with `ns` ring stages
 // (pemp_mpm_assign_stages). Returns cudaGetLastError().
 int pemp_mpm_assign(const void* fts, int is_bf16, const void* fg, const void* bg,
-                    const void* ctr, void* num, void* den, void* tickets, void* protos,
-                    int B, int S, int Q, int n, int c, int p, int rows, int tiles, int ns,
-                    float eps, void* stream) {
-  return is_bf16 ? assign_launch<__nv_bfloat16>(fts, fg, bg, ctr, num, den, tickets, protos,
-                                                B, S, Q, n, c, p, rows, tiles, ns, eps, stream)
-                 : assign_launch<float>(fts, fg, bg, ctr, num, den, tickets, protos, B, S,
-                                        Q, n, c, p, rows, tiles, ns, eps, stream);
+                    const void* ctr, void* num, void* den, void* tickets, void* protos, void* sm,
+                    int B, int S, int Q, int n, int c, int p, int live_p, int rows, int tiles,
+                    int ns, float eps, void* stream) {
+  if (is_bf16 != kFeatureBf16) return cudaErrorInvalidValue;
+  return assign_launch<Feature>(fts, fg, bg, ctr, num, den, tickets, protos, sm, B, S, Q, n, c,
+                                p, live_p, rows, tiles, ns, eps, stream);
 }
 
 // Ring stages of the match kernel for (c, p) on the current device (2..3,
 // or 0: rows read from device memory) and, in *slots, the blocks the
 // device holds at once; -1 when not even its table fits a block.
 int pemp_mpm_match_plan(int c, int p, int is_bf16, int* slots) {
-  return is_bf16 ? match_plan<__nv_bfloat16>(c, p, slots) : match_plan<float>(c, p, slots);
+  return is_bf16 == kFeatureBf16 ? match_plan<Feature>(c, p, slots) : -1;
 }
 
-// K2. fts [B, S+Q, n, c] (f32 or bf16), protos [B, 2p, c] f32 (fg then bg),
+// K2 on the instance p, live_p <= p columns a class live (the others
+// never win). fts [B, S+Q, n, c] (f32 or bf16), protos [B, 2p, c] f32 (fg then bg),
 // logits [B*Q, n, 2] f32 out ([bg, fg]), inds [B*Q, n, 2] i32 out or NULL.
 // Block t of a query image takes pixel rows [t*rows, min(n, (t+1)*rows)),
 // tiles = cdiv(n, rows), with `ns` ring stages (pemp_mpm_match_plan).
 int pemp_mpm_match(const void* fts, int is_bf16, const void* protos, void* logits, void* inds,
-                   int B, int S, int Q, int n, int c, int p, int rows, int tiles, int ns,
-                   float dist_scalar, float cos_eps, void* stream) {
-  return is_bf16 ? match_launch<__nv_bfloat16>(fts, protos, logits, inds, B, S, Q, n, c, p,
-                                               rows, tiles, ns, dist_scalar, cos_eps, stream)
-                 : match_launch<float>(fts, protos, logits, inds, B, S, Q, n, c, p, rows,
-                                       tiles, ns, dist_scalar, cos_eps, stream);
+                   int B, int S, int Q, int n, int c, int p, int live_p, int rows, int tiles,
+                   int ns, float dist_scalar, float cos_eps, void* stream) {
+  if (is_bf16 != kFeatureBf16) return cudaErrorInvalidValue;
+  return match_launch<Feature>(fts, protos, logits, inds, B, S, Q, n, c, p, live_p, rows, tiles,
+                               ns, dist_scalar, cos_eps, stream);
 }
 
 }  // extern "C"

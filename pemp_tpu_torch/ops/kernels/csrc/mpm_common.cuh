@@ -14,20 +14,36 @@
 // - `group_sums` + `reduce_scatter`: the per-row dot products of a group
 //   of R rows against such a table, summed over the warp by one
 //   reduce-scatter butterfly (31 shuffles), so that lane l ends with sum l.
-// - `block_tree` and `sum_parts4`: fixed-order sums (over the warps of a
-//   block, over partials in device memory), so every result is
-//   bit-identical run to run without atomics on any sum.
+// - `block_tree`: a fixed-order sum over the warps of a block, so every
+//   result is bit-identical run to run without atomics on any sum.
+// - p above 8 runs on the instance of the next of 12 and 16
+//   (`padded_protos`): the wrappers pad the centers and prototypes with
+//   zero columns, the kernels take the live count p and keep the padded
+//   columns out of every softmax and max; such an instance accumulates
+//   column passes of 256 channels (`pass_cols`), half the registers.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "async_copy.cuh"
+
+// The build compiles each mpm source once per feature type, in parallel
+// (build.py): -DPEMP_FEATURE_BF16=1 instantiates the bfloat16 kernels, 0
+// the float32 ones, and a library's entry points refuse the other type.
+#ifndef PEMP_FEATURE_BF16
+#error "compile with -DPEMP_FEATURE_BF16=1 (bfloat16 features) or 0 (float32)"
+#endif
 
 namespace pemp {
 
-constexpr int kMaxProtos = 8;                      // p <= 8 (2p <= 16 columns)
+using Feature = std::conditional_t<PEMP_FEATURE_BF16 != 0, __nv_bfloat16, float>;
+constexpr int kFeatureBf16 = PEMP_FEATURE_BF16 != 0;
+
+constexpr int kMaxProtos = 16;                     // p <= 16 (2p <= 32 columns)
 constexpr int kMaxK2 = 2 * kMaxProtos;
 constexpr int kThreads = 256;                      // 8 warps
 constexpr int kWarps = kThreads / 32;
@@ -35,6 +51,16 @@ constexpr int kStageRows = 32;                     // pixel rows per ring stage
 constexpr int kRowsPerWarp = kStageRows / kWarps;  // 4
 constexpr int kPassCols = 512;                     // channels a pass: 16 per lane
 constexpr int kMinStages = 2;
+
+// the instance that runs p prototypes a class: p itself up to 8, then
+// 12 or 16 (0: none)
+__host__ __device__ constexpr int padded_protos(int p) {
+  return p < 1 ? 0 : p <= 8 ? p : p <= 12 ? 12 : p <= 16 ? 16 : 0;
+}
+
+// channels of a column pass of the instance P: the accumulators hold
+// 2P x pass_cols / 32 floats a lane
+__host__ __device__ constexpr int pass_cols(int P) { return P <= 8 ? kPassCols : kPassCols / 2; }
 constexpr unsigned kFull = 0xffffffffu;
 
 // most stages of a row ring of the feature type T: 128 KB bf16, 192 KB f32
@@ -151,15 +177,6 @@ __device__ __forceinline__ void load_table_rows(float* tab, int k0, const float*
     *reinterpret_cast<float4*>(tab + tab_off<V>(k0 + k, col, c)) =
         __ldg(reinterpret_cast<const float4*>(src) + idx);
   }
-}
-
-// Copy a column-major [c][nt] fp32 table (the centers' layout) into rows
-// k0 .. k0+nt-1 of the permuted table `tab`.
-template <int V>
-__device__ __forceinline__ void load_table_cols(float* tab, int k0, const float* src, int nt,
-                                                int c) {
-  for (int idx = threadIdx.x; idx < c * nt; idx += kThreads)
-    tab[tab_off<V>(k0 + idx % nt, idx / nt, c)] = __ldg(src + idx);
 }
 
 // Per-lane partial sums of rows g .. g+R-1 of `tile` (row stride c; rows
@@ -281,48 +298,6 @@ __device__ __forceinline__ void store_cols(const float (&acc)[K][NCH * V], float
                           acc[k][j * V + e + 3]);
     }
   }
-}
-
-// float4 `idx` of the sum of `count` partials part[u * stride + ...] in
-// u order; kBatch loads in flight (read through L2: other blocks wrote
-// them in this launch)
-__device__ __forceinline__ float4 sum_parts4(const float* part, size_t stride, int count,
-                                             int idx) {
-  constexpr int kBatch = 8;
-  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int u0 = 0; u0 < count; u0 += kBatch) {
-    float4 xs[kBatch];
-#pragma unroll
-    for (int j = 0; j < kBatch; ++j)
-      if (u0 + j < count)
-        xs[j] = __ldcg(reinterpret_cast<const float4*>(part + (u0 + j) * stride) + idx);
-#pragma unroll
-    for (int j = 0; j < kBatch; ++j)
-      if (u0 + j < count) {
-        s.x += xs[j].x; s.y += xs[j].y; s.z += xs[j].z; s.w += xs[j].w;
-      }
-  }
-  return s;
-}
-
-// sum of `count` scalars part[u * stride] in u order
-__device__ __forceinline__ float sum_parts1(const float* part, size_t stride, int count) {
-  float s = 0.f;
-  for (int u = 0; u < count; ++u) s += __ldcg(part + u * stride);
-  return s;
-}
-
-// Block-wide ticket: every thread fences its writes, then thread 0 takes
-// a ticket of `counter`; true in every thread of the block that drew the
-// last of `total` tickets (which then sees every other block's writes).
-__device__ __forceinline__ bool last_ticket(int* counter, int total, int* flag_s) {
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) *flag_s = atomicAdd(counter, 1) == total - 1;
-  __syncthreads();
-  const bool last = *flag_s;
-  if (last) __threadfence();
-  return last;
 }
 
 // ---------------------------------------------------------------------------

@@ -7,8 +7,9 @@ Replaces the TPU kernel ``_kernel`` of ``pemp_tpu/ops/pallas/minplus.py``
 
 ``minplus(a, b)`` takes ``a`` [M, K] or [Z, M, K] and ``b`` [K, N] or
 [Z, K, N]; a 2-D operand is shared by every ``z`` (batch stride 0 in the
-kernel). For tensors on the CPU it runs ``plain_minplus``; for CUDA
-tensors it launches the kernel or raises. ``launches["minplus"]`` counts
+kernel). For tensors on the CPU it runs ``plain_minplus`` (and for CUDA
+tensors when asked to, ``dev.use_kernels=False``, ``ops/kernels``); for
+CUDA tensors it launches the kernel or raises. ``launches["minplus"]`` counts
 each launch on CUDA, at the launch (under CUDA-graph capture, its
 recording into the graph; a replay adds nothing to it, and
 ``parallel/step.py``'s fused step counts what its replays launched).
@@ -26,6 +27,7 @@ from typing import Dict
 
 import torch
 
+from pemp_tpu_torch.ops.kernels import kernels_on
 from pemp_tpu_torch.ops.kernels.build import load_library
 
 TILE = 64                   # csrc/minplus.cu kTile (output tile per block)
@@ -131,7 +133,8 @@ def plain_minplus(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def minplus(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Min-plus product ``min_k a[.., m, k] + b[.., k, n]``: the plain
-    version for CPU tensors, the CUDA kernel for CUDA tensors."""
-    if a.device.type == "cpu" and b.device.type == "cpu":
+    version for CPU tensors (and for CUDA tensors with the kernels off,
+    ``dev.use_kernels=False``), the CUDA kernel for CUDA tensors."""
+    if not (kernels_on(a.device) or kernels_on(b.device)):
         return plain_minplus(a, b)
     return _minplus_launch(a, b)

@@ -16,19 +16,28 @@ Replaces the TPU kernels of ``pemp_tpu/ops/pallas/mpm.py``:
   support rows ``(i//S)(S+Q)+i%S`` and query rows ``(i//Q)(S+Q)+S+i%Q``
   themselves, so no split copy is made;
 - ``MPMChainPacked`` <- the custom VJPs of ``pemp_tpu/ops/pallas/mpm_vjp.py``
-  (K4): K1 and K2 forward; backward the two kernels of ``csrc/mpm_bwd.cu``
-  (``match_bwd`` on the query rows, then ``assign_bwd`` on the support
-  rows), which reuse K1's cluster partials of the forward.
+  (K4): K1 and K2 forward; backward the one persistent kernel of
+  ``csrc/mpm_bwd.cu`` (query rows, the episodes' finish, support rows,
+  the centers' finish, between grid-wide barriers), which reuses K1's
+  cluster partials and class softmax of the forward.
 
 For a tensor on the CPU each wrapper runs the plain version
 (``pemp_tpu_torch.ops.prototypes``; for the backward ``_match_backward``
-and ``_assign_backward``, the JAX package's jnp backward in PyTorch ops);
-for a CUDA tensor it launches its kernels or raises. ``launches`` counts
-each ``__global__`` kernel's launches on CUDA, one at the site that
-launches it: ``assign`` (K1), ``match`` (K2), ``match_bwd`` and
-``assign_bwd`` (K4). The chain launches nothing of its own;
-``backward_calls`` counts ``MPMChainPacked`` backward passes on either
-device.
+and ``_assign_backward``, the JAX package's jnp backward in PyTorch ops),
+and so does a CUDA tensor when the kernels are switched off
+(``dev.use_kernels=False``, ``ops/kernels/__init__.py``); otherwise a
+CUDA tensor launches its kernels or raises. ``launches`` counts each
+``__global__`` kernel's launches on CUDA, one at the site that launches
+it: ``assign`` (K1), ``match`` (K2) and ``mpm_bwd`` (K4). The chain
+launches nothing of its own; ``backward_calls`` counts ``MPMChainPacked``
+backward passes on either device.
+
+p prototypes a class run on the kernels' instance ``padded_protos(p)``:
+p itself up to 8, else 12 or 16 (``MAX_PROTOS``). The wrappers pad the
+centers and the prototypes with zero columns after each class's p
+(``pad_protos``), the kernels take the live p and keep the padded
+columns out of every softmax and max (the JAX kernels' ``p_pad``), and
+the results come back without them (``unpad_protos``).
 
 K1 and K2 are also the ``torch.library`` operators ``pemp::mpm_assign``
 (``assign_op``) and ``pemp::mpm_match`` (``match_op``), with a CUDA
@@ -39,15 +48,18 @@ eval forward holds them as graph nodes and launches the kernels on the
 card (``tools/export_serving.py``). Importing this module registers
 them: load an exported program after it.
 
-The plain versions of the kernels' stages: ``plain_assign_blocks``
-and ``plain_assign_finish`` (K1: the partial sums of each cluster of
-blocks, ``CLUSTER`` times ``assign_grid``'s rows per block, and the
-fixed-order finish of an episode); ``plain_match_bwd_blocks``,
-``plain_shot_sums``, ``plain_match_bwd_finish``,
-``plain_assign_bwd_blocks`` and ``plain_assign_bwd_finish`` (K4: the
-block partials of each backward kernel and their finishes). The kernels'
-tickets are kept per device, stream and kernel: launches of one stream
-run in order and leave them at zero.
+The plain versions of the kernels' stages: ``plain_assign_blocks``,
+``plain_assign_finish`` and ``plain_assign_softmax`` (K1: the partial
+sums of each cluster of blocks, ``CLUSTER`` times ``assign_grid``'s rows
+per block, the fixed-order finish of an episode, and each support row's
+class softmax, which K1 writes for the backward); K4's four phases,
+``plain_match_bwd_blocks`` (A: the query rows' cotangent and each row
+tile's partials), ``plain_shot_sums`` and ``plain_match_bwd_finish`` (B:
+the episodes' finish), ``plain_assign_bwd_blocks`` (C: the support rows)
+and ``plain_assign_bwd_finish`` (D: the centers' cotangent), each on the
+padded layout when given it (``live``). The kernels' tickets (K1's per
+episode, K4's barrier counters) are kept per device, stream and kernel:
+launches of one stream run in order and leave them at zero.
 
 Under CUDA-graph capture (``parallel/step.py``'s fused train step) a
 wrapper records its kernel into the graph on the capture stream.
@@ -63,26 +75,28 @@ the same shapes makes both.
 from __future__ import annotations
 
 import ctypes
-from functools import partial
 from typing import Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from pemp_tpu_torch.ops.dtypes import f32up
+from pemp_tpu_torch.ops.kernels import kernels_on
 from pemp_tpu_torch.ops.kernels.build import load_library
 from pemp_tpu_torch.ops.prototypes import (
     ASSIGN_EPS, COS_EPS, meta_prototype_assign, prototype_predictions,
     soft_assignment,
 )
 
-MAX_PROTOS = 8           # csrc/mpm_common.cuh kMaxProtos
+MAX_PROTOS = 16          # csrc/mpm_common.cuh kMaxProtos
+PADDED = (12, 16)        # instances that run p = 9..16, padded
 STAGE_ROWS = 32          # csrc/mpm_common.cuh kStageRows (rows per ring stage)
 CLUSTER = 2              # csrc/mpm.cu kCluster (assign blocks per cluster)
 PASS_CHANNELS = 512      # csrc/mpm_common.cuh kPassCols (channels a pass)
+USE_KERNELS_HINT = ("set dev.use_kernels=False to run the plain PyTorch "
+                    "versions on the card")
 
-launches: Dict[str, int] = {"assign": 0, "match": 0, "match_bwd": 0,
-                            "assign_bwd": 0}
+launches: Dict[str, int] = {"assign": 0, "match": 0, "mpm_bwd": 0}
 backward_calls: Dict[str, int] = {"mpm_backward": 0}
 
 _P = ctypes.c_void_p
@@ -93,7 +107,40 @@ _bound: Dict[str, ctypes.CDLL] = {}
 _plans: Dict[tuple, Tuple[int, int]] = {}   # (ring stages, slots) per kernel
 _ticket_bufs: Dict[tuple, torch.Tensor] = {}
 _retired: List[torch.Tensor] = []           # outgrown tickets, kept alive
-_BWD_KIND = {"match_bwd": 0, "assign_bwd": 1}
+
+
+def padded_protos(p: int) -> int:
+    """The kernels' instance that runs p prototypes a class: p up to 8,
+    else the next of ``PADDED`` (csrc/mpm_common.cuh ``padded_protos``)."""
+    if not 1 <= p <= MAX_PROTOS:
+        raise ValueError(f"protos={p} outside [1, {MAX_PROTOS}] of the mpm "
+                         f"kernels: {USE_KERNELS_HINT}")
+    return p if p <= 8 else next(q for q in PADDED if p <= q)
+
+
+def pass_channels(pp: int) -> int:
+    """Channels of a column pass of the instance ``pp`` (csrc
+    ``pass_cols``): the accumulators hold 2pp x pass / 32 floats a lane."""
+    return PASS_CHANNELS if pp <= 8 else PASS_CHANNELS // 2
+
+
+def pad_protos(x: torch.Tensor, p: int, pp: int, dim: int) -> torch.Tensor:
+    """Size 2p -> 2pp along ``dim`` (fg columns, then bg): zero columns
+    after each class's p."""
+    if pp == p:
+        return x
+    shape = list(x.shape)
+    shape[dim] = pp - p
+    zeros = x.new_zeros(shape)
+    fg, bg = x.split(p, dim=dim)
+    return torch.cat([fg, zeros, bg, zeros], dim=dim)
+
+
+def unpad_protos(x: torch.Tensor, p: int, pp: int, dim: int) -> torch.Tensor:
+    """Size 2pp -> 2p along ``dim``: each class's first p columns."""
+    if pp == p:
+        return x
+    return torch.cat([x.narrow(dim, 0, p), x.narrow(dim, pp, p)], dim=dim)
 
 
 def reset_launches() -> None:
@@ -109,52 +156,61 @@ def _not_capturing(what: str) -> None:
                            "the step eagerly on the capture stream first")
 
 
-def _lib():
-    if "mpm" not in _bound:
-        lib = load_library("mpm")
-        lib.pemp_mpm_assign.argtypes = [_P, _I, _P, _P, _P, _P, _P, _P, _P,
-                                        _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                        _F, _P]
+def _feature(is_bf16: int) -> str:
+    return "bf16" if is_bf16 else "f32"
+
+
+def _lib(is_bf16: int):
+    """The forward kernels' library for bfloat16 (1) or float32 (0)
+    features (build.py compiles one a feature type)."""
+    name = f"mpm_{_feature(is_bf16)}"
+    if name not in _bound:
+        lib = load_library(name)
+        lib.pemp_mpm_assign.argtypes = [_P, _I] + [_P] * 8 + [_I] * 10 + [
+            _F, _P]
         lib.pemp_mpm_assign.restype = _I
         lib.pemp_mpm_assign_slots.argtypes = [_I, _I, _I]
         lib.pemp_mpm_assign_slots.restype = _I
         lib.pemp_mpm_assign_stages.argtypes = [_I, _I, _I]
         lib.pemp_mpm_assign_stages.restype = _I
-        lib.pemp_mpm_match.argtypes = [_P, _I, _P, _P, _P, _I, _I, _I, _I,
-                                       _I, _I, _I, _I, _I, _F, _F, _P]
+        lib.pemp_mpm_match.argtypes = [_P, _I, _P, _P, _P] + [_I] * 10 + [
+            _F, _F, _P]
         lib.pemp_mpm_match.restype = _I
         lib.pemp_mpm_match_plan.argtypes = [_I, _I, _I, _IP]
         lib.pemp_mpm_match_plan.restype = _I
         lib.pemp_cuda_error_string.argtypes = [_I]
         lib.pemp_cuda_error_string.restype = ctypes.c_char_p
-        for name, want in (("pemp_mpm_max_protos", MAX_PROTOS),
-                           ("pemp_mpm_stage_rows", STAGE_ROWS),
-                           ("pemp_mpm_cluster", CLUSTER),
-                           ("pemp_mpm_pass_channels", PASS_CHANNELS)):
-            fn = getattr(lib, name)
+        checks = [("pemp_mpm_max_protos", (), MAX_PROTOS),
+                  ("pemp_mpm_stage_rows", (), STAGE_ROWS),
+                  ("pemp_mpm_cluster", (), CLUSTER)]
+        for q in range(1, MAX_PROTOS + 1):
+            checks += [("pemp_mpm_padded_protos", (q,), padded_protos(q)),
+                       ("pemp_mpm_pass_channels", (q,),
+                        pass_channels(padded_protos(q)))]
+        for entry, args, want in checks:
+            fn = getattr(lib, entry)
             fn.restype = _I
-            if fn() != want:
-                raise RuntimeError(f"{name}() = {fn()} != {want}: the "
-                                   "wrapper and csrc/mpm.cu disagree")
-        _bound["mpm"] = lib
-    return _bound["mpm"]
+            fn.argtypes = [_I] * len(args)
+            if fn(*args) != want:
+                raise RuntimeError(f"{entry}{args} = {fn(*args)} != {want}: "
+                                   "the wrapper and csrc/mpm.cu disagree")
+        _bound[name] = lib
+    return _bound[name]
 
 
-def _bwd_lib():
-    if "mpm_bwd" not in _bound:
-        lib = load_library("mpm_bwd")
-        lib.pemp_mpm_match_bwd.argtypes = (
-            [_P, _I] + [_P] * 11 + [_I] * 10 + [_F, _F, _F, _P])
-        lib.pemp_mpm_match_bwd.restype = _I
-        lib.pemp_mpm_assign_bwd.argtypes = (
-            [_P, _I] + [_P] * 14 + [_I] * 9 + [_P])
-        lib.pemp_mpm_assign_bwd.restype = _I
-        lib.pemp_mpm_bwd_plan.argtypes = [_I, _I, _I, _I, _IP]
+def _bwd_lib(is_bf16: int):
+    """The backward kernel's library for the feature type."""
+    name = f"mpm_bwd_{_feature(is_bf16)}"
+    if name not in _bound:
+        lib = load_library(name)
+        lib.pemp_mpm_bwd.argtypes = [_I, _P, _P, _P, _P]
+        lib.pemp_mpm_bwd.restype = _I
+        lib.pemp_mpm_bwd_plan.argtypes = [_I, _I, _I, _IP]
         lib.pemp_mpm_bwd_plan.restype = _I
         lib.pemp_cuda_error_string.argtypes = [_I]
         lib.pemp_cuda_error_string.restype = ctypes.c_char_p
-        _bound["mpm_bwd"] = lib
-    return _bound["mpm_bwd"]
+        _bound[name] = lib
+    return _bound[name]
 
 
 def _check_rc(lib, rc: int, what: str) -> None:
@@ -163,12 +219,13 @@ def _check_rc(lib, rc: int, what: str) -> None:
                            f"({lib.pemp_cuda_error_string(rc).decode()})")
 
 
-def _check_features(fts: torch.Tensor, protos: int) -> None:
+def _check_features(fts: torch.Tensor, protos: int) -> int:
+    """Raise on what the kernels do not take; the instance (padded p)."""
     if fts.device.type != "cuda":
         raise ValueError(f"features on {fts.device}, expected cuda")
     if fts.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"features dtype {fts.dtype}: the kernels take "
-                        "float32 or bfloat16")
+                        f"float32 or bfloat16; {USE_KERNELS_HINT}")
     if fts.ndim != 4:
         raise ValueError(f"features must be [B, S+Q, n, c], got "
                          f"{tuple(fts.shape)}")
@@ -176,9 +233,9 @@ def _check_features(fts: torch.Tensor, protos: int) -> None:
         raise ValueError("features must be contiguous")
     if fts.shape[-1] % 8 or fts.data_ptr() % 16:
         raise ValueError("the channel count must be a multiple of 8 and "
-                         "the features 16-byte aligned (vector loads)")
-    if not 1 <= protos <= MAX_PROTOS:
-        raise ValueError(f"protos={protos} outside [1, {MAX_PROTOS}]")
+                         "the features 16-byte aligned (the kernels' vector "
+                         f"loads), got c={fts.shape[-1]}; {USE_KERNELS_HINT}")
+    return padded_protos(protos)
 
 
 def _f32_on(x: torch.Tensor, device, shape, what: str) -> torch.Tensor:
@@ -216,7 +273,7 @@ def _assign_plan(lib, device, c: int, protos: int, is_bf16: int):
             if stages == 0:
                 raise ValueError(f"c={c}, p={protos}: the assign kernel's "
                                  "smallest ring does not fit in a block's "
-                                 "shared memory")
+                                 f"shared memory; {USE_KERNELS_HINT}")
             slots = lib.pemp_mpm_assign_slots(c, protos, is_bf16)
         _check_rc(lib, -min(slots, 0), "assign occupancy")
         if slots == 0:
@@ -240,7 +297,8 @@ def _ring_plan(kind: str, fn, device, c: int, protos: int,
             stages = fn(c, protos, is_bf16, ctypes.byref(slots))
         if stages < 0 or slots.value <= 0:
             raise ValueError(f"c={c}, p={protos}: the {kind} kernel does not "
-                             "fit a block's shared memory")
+                             "fit a block's shared memory; "
+                             f"{USE_KERNELS_HINT}")
         _plans[key] = (stages, slots.value)
     return _plans[key]
 
@@ -263,38 +321,47 @@ def _tickets(device, stream: int, kind: str, count: int) -> torch.Tensor:
 def _assign_launch(fts, sup_fg, sup_bg, ctr, protos: int, eps: float,
                    partials: bool = False):
     """K1 on CUDA, one launch -> packed prototypes [B, 2p, c] (fg first,
-    then bg) and, with ``partials``, its cluster partials num [B*S, T, 2p,
-    c] and den [B*S, T, 2p] (what the backward reads)."""
-    _check_features(fts, protos)
+    then bg) or, with ``partials``, those of the instance pp =
+    ``padded_protos(p)`` [B, 2pp, c] (zero past each class's p), its
+    cluster partials num [B*S, T, 2pp, c] and den [B*S, T, 2pp] and each
+    support row's class softmax sm [B*S, n, 2pp] (what the backward
+    reads)."""
+    pp = _check_features(fts, protos)
     b, sq, n, c = fts.shape
     s = sup_fg.shape[1]
     if not 1 <= s <= sq:
         raise ValueError(f"{s} support images in a packed axis of {sq}")
     fg = _f32_on(sup_fg, fts.device, (b, s, n), "sup_fg")
     bg = _f32_on(sup_bg, fts.device, (b, s, n), "sup_bg")
-    ctr = _f32_on(ctr, fts.device, (c, 2 * protos), "ctr")
+    ctr = pad_protos(_f32_on(ctr, fts.device, (c, 2 * protos), "ctr"),
+                     protos, pp, 1).contiguous()
     if ctr.data_ptr() % 16:                   # the kernel copies it in 16 B
         ctr = ctr.clone()
-    lib = _lib()
     is_bf16 = int(fts.dtype == torch.bfloat16)
-    stages, slots = _assign_plan(lib, fts.device, c, protos, is_bf16)
-    tiles, rows = assign_grid(n, b * s * -(-c // PASS_CHANNELS), slots)
-    k2 = 2 * protos
+    lib = _lib(is_bf16)
+    stages, slots = _assign_plan(lib, fts.device, c, pp, is_bf16)
+    tiles, rows = assign_grid(n, b * s * -(-c // pass_channels(pp)), slots)
+    k2 = 2 * pp
     num = torch.empty((b * s, tiles // CLUSTER, k2, c), dtype=torch.float32,
                       device=fts.device)
     den = torch.empty((b * s, tiles // CLUSTER, k2), dtype=torch.float32,
                       device=fts.device)
     out = torch.empty((b, k2, c), dtype=torch.float32, device=fts.device)
+    sm = (torch.empty((b * s, n, k2), dtype=torch.float32, device=fts.device)
+          if partials else None)
     stream = torch.cuda.current_stream(fts.device).cuda_stream
     tickets = _tickets(fts.device, stream, "assign", b)
     rc = lib.pemp_mpm_assign(fts.data_ptr(), is_bf16, fg.data_ptr(),
                              bg.data_ptr(), ctr.data_ptr(), num.data_ptr(),
                              den.data_ptr(), tickets.data_ptr(),
-                             out.data_ptr(), b, s, sq - s, n, c, protos,
-                             rows, tiles, stages, float(eps), stream)
+                             out.data_ptr(),
+                             sm.data_ptr() if partials else None,
+                             b, s, sq - s, n, c, pp, protos, rows, tiles,
+                             stages, float(eps), stream)
     _check_rc(lib, rc, "assign")
     launches["assign"] += 1
-    return (out, num, den) if partials else out
+    return ((out, num, den, sm) if partials
+            else unpad_protos(out, protos, pp, 1))
 
 
 def _row_blocks(x: torch.Tensor, rows: int) -> torch.Tensor:
@@ -304,19 +371,51 @@ def _row_blocks(x: torch.Tensor, rows: int) -> torch.Tensor:
     return F.pad(x, (0, 0, 0, pad)).reshape(i, -1, rows, m)
 
 
-def plain_assign_blocks(fts, sup_fg, sup_bg, ctr, protos: int, rows: int):
+def _padded_assignment(f, sup_fg, sup_bg, ctr, protos: int, live=None):
+    """``soft_assignment`` [B, S, n, 2p]; with ``live`` < p, ctr is the
+    padded [c, 2p] and the columns past each class's ``live`` get none."""
+    if live is None or live == protos:
+        return soft_assignment(f, sup_fg, sup_bg, ctr, protos)
+    a = soft_assignment(f, sup_fg, sup_bg, unpad_protos(ctr, live, protos, 1),
+                        live)
+    return pad_protos(a, live, protos, a.ndim - 1)
+
+
+def plain_assign_blocks(fts, sup_fg, sup_bg, ctr, protos: int, rows: int,
+                        live=None):
     """Plain version of the assign kernel's cluster partials: for each
     support image and run of ``rows`` pixel rows (a cluster's: CLUSTER
     times the rows per block), ``num = a^T f`` [2p, c] and ``den = sum a``
-    [2p] of the soft assignment ``a``. Returns num [B*S, T, 2p, c] and den
-    [B*S, T, 2p] float32, T = cdiv(n, rows)."""
+    [2p] of the soft assignment ``a`` (on the padded layout, ctr [c, 2p]
+    with zero columns, when ``live`` < p). Returns num [B*S, T, 2p, c] and
+    den [B*S, T, 2p] float32, T = cdiv(n, rows)."""
     s = sup_fg.shape[1]
     f = fts[:, :s].float()
     b, _, n, c = f.shape
-    a = soft_assignment(f, sup_fg, sup_bg, ctr, protos)
+    a = _padded_assignment(f, sup_fg, sup_bg, ctr, protos, live)
     f = _row_blocks(f.reshape(b * s, n, c), rows)
     a = _row_blocks(a.reshape(b * s, n, 2 * protos), rows)
     return torch.einsum("itrk,itrc->itkc", a, f), a.sum(dim=2)
+
+
+def plain_assign_softmax(fts, sup_fg, ctr, protos: int, live=None):
+    """Plain version of the assign kernel's softmax output (what the
+    backward reads): each support row's softmax over its class's own
+    columns of -(|f|^2 - 2 f.ctr + |ctr|^2), before the mask, on the
+    padded layout when ``live`` < p (zero past each class's ``live``).
+    [B*S, n, 2p] float32."""
+    s = sup_fg.shape[1]
+    f = f32up(fts[:, :s])
+    c32 = ctr.to(f.dtype)
+    b, _, n, _ = f.shape
+    dist = -((f * f).sum(dim=-1, keepdim=True)
+             - 2.0 * torch.einsum("bsnc,ck->bsnk", f, c32)
+             + (c32 * c32).sum(0))
+    if live is not None and live < protos:
+        dead = (torch.arange(2 * protos, device=f.device) % protos) >= live
+        dist = dist.masked_fill(dead, -torch.inf)
+    sm = torch.softmax(dist.reshape(b, s, n, 2, protos), dim=-1)
+    return sm.reshape(b * s, n, 2 * protos)
 
 
 def plain_assign_finish(num, den, b: int, s: int, eps: float = ASSIGN_EPS):
@@ -329,17 +428,21 @@ def plain_assign_finish(num, den, b: int, s: int, eps: float = ASSIGN_EPS):
 
 def _match_launch(fts, s: int, packed, protos: int, dist_scalar: float,
                   return_indices: bool):
-    """K2 on CUDA: query rows fts[:, s:] against packed [B, 2p, c]."""
-    _check_features(fts, protos)
+    """K2 on CUDA: query rows fts[:, s:] against packed [B, 2p, c] (or
+    the instance's padded [B, 2pp, c])."""
+    pp = _check_features(fts, protos)
     b, sq, n, c = fts.shape
     q = sq - s
     if q < 1:
         raise ValueError(f"no query images: S={s} of a packed axis of {sq}")
-    packed = _f32_on(packed, fts.device, (b, 2 * protos, c), "prototypes")
-    lib = _lib()
+    if packed.shape[1] != 2 * pp:
+        packed = pad_protos(_f32_on(packed, fts.device, (b, 2 * protos, c),
+                                    "prototypes"), protos, pp, 1)
+    packed = _f32_on(packed, fts.device, (b, 2 * pp, c), "prototypes")
     is_bf16 = int(fts.dtype == torch.bfloat16)
+    lib = _lib(is_bf16)
     stages, slots = _ring_plan("match", lib.pemp_mpm_match_plan,
-                               fts.device, c, protos, is_bf16)
+                               fts.device, c, pp, is_bf16)
     tiles, rows = assign_grid(n, b * q, slots, cluster=1)
     logits = torch.empty((b, q, n, 2), dtype=torch.float32, device=fts.device)
     inds = (torch.empty((b, q, n, 2), dtype=torch.int32, device=fts.device)
@@ -348,7 +451,7 @@ def _match_launch(fts, s: int, packed, protos: int, dist_scalar: float,
     rc = lib.pemp_mpm_match(fts.data_ptr(), is_bf16, packed.data_ptr(),
                             logits.data_ptr(),
                             inds.data_ptr() if inds is not None else None,
-                            b, s, q, n, c, protos, rows, tiles, stages,
+                            b, s, q, n, c, pp, protos, rows, tiles, stages,
                             float(dist_scalar), COS_EPS, stream)
     _check_rc(lib, rc, "match")
     launches["match"] += 1
@@ -378,6 +481,10 @@ def assign_op(fts: torch.Tensor, sup_fg: torch.Tensor, sup_bg: torch.Tensor,
 
 @assign_op.register_kernel("cuda")
 def _assign_cuda(fts, sup_fg, sup_bg, ctr, protos, eps):
+    if not kernels_on(fts.device):
+        s = sup_fg.shape[1]
+        return torch.cat(meta_prototype_assign(fts[:, :s], sup_fg, sup_bg,
+                                               ctr, protos, eps), dim=1)
     return _assign_launch(fts, sup_fg, sup_bg, ctr, protos, eps)
 
 
@@ -404,6 +511,10 @@ def match_op(fts: torch.Tensor, s: int, packed: torch.Tensor, protos: int,
 
 @match_op.register_kernel("cuda")
 def _match_cuda(fts, s, packed, protos, dist_scalar, return_indices):
+    if not kernels_on(fts.device):
+        return _pair(prototype_predictions(
+            fts[:, s:], packed[:, :protos], packed[:, protos:], dist_scalar,
+            return_indices), return_indices, fts)
     return _pair(_match_launch(fts, s, packed, protos, dist_scalar,
                                return_indices), return_indices, fts)
 
@@ -540,13 +651,13 @@ def _match_backward(qry_fts, packed, inds, g, protos: int,
 def plain_match_bwd_blocks(qry_fts, packed, inds, g, protos: int,
                            dist_scalar: float, rows: int,
                            cos_eps: float = COS_EPS):
-    """Plain version of the match_bwd kernel's rows: the query cotangent
-    g_q [B, Q, n, c] and, for each query image and run of ``rows`` pixel
-    rows (a block's), the partials of the prototype cotangent before its
-    norm term, ``gp = g_dot^T q`` [2p, c], and of ``gpn = sum g_d |q|``
-    [2p], with the max over p one-hot at the forward's indices (packed
-    order: fg columns, then bg). Returns g_q, gp [B*Q, T, 2p, c] and gpn
-    [B*Q, T, 2p] float32."""
+    """Plain version of the backward kernel's query rows (phase A): the query
+    cotangent g_q [B, Q, n, c] and, for each query image and run of ``rows``
+    pixel rows (a row tile's), the partials of the prototype cotangent before
+    its norm term, ``gp = g_dot^T q`` [2p, c], and of ``gpn = sum g_d |q|``
+    [2p], with the max over p one-hot at the forward's indices (packed order:
+    fg columns, then bg). Returns g_q, gp [B*Q, T, 2p, c] and gpn [B*Q, T, 2p]
+    float32."""
     q = f32up(qry_fts)
     b, nq, n, c = q.shape
     k2 = 2 * protos
@@ -577,18 +688,17 @@ def plain_match_bwd_blocks(qry_fts, packed, inds, g, protos: int,
 def plain_shot_sums(num, den, eps: float = ASSIGN_EPS):
     """Per-shot sums of the assign kernel's cluster partials (num [B*S, T,
     2p, c], den [B*S, T, 2p]): num_s [B*S, 2p, c] and den_s + eps [B*S, 2p],
-    the sums the backward would otherwise recompute."""
+    the sums the backward would otherwise recompute (phase B)."""
     return num.sum(dim=1), den.sum(dim=1) + eps
 
 
 def plain_match_bwd_finish(gp, gpn, packed, num, den, s: int,
                            eps: float = ASSIGN_EPS):
-    """Plain version of the match_bwd kernel's finish of each episode: the
-    block partials summed, ``g_packed = gp + (p_live ? gpn / pn : 0) p``
-    [B, 2p, c]; then for each shot, from the forward's partials,
-    ``g_num = g_packed / S / den_s`` [B*S, 2p, c] and ``g_den = -sum_c
-    (g_packed / S * num_s) / den_s^2`` [B*S, 2p]. Returns (g_packed, g_num,
-    g_den)."""
+    """Plain version of the backward kernel's finish of each episode (phase B):
+    the row tiles' partials summed, ``g_packed = gp + (p_live ? gpn / pn : 0)
+    p`` [B, 2p, c]; then for each shot, from the forward's partials, ``g_num =
+    g_packed / S / den_s`` [B*S, 2p, c] and ``g_den = -sum_c (g_packed / S *
+    num_s) / den_s^2`` [B*S, 2p]. Returns (g_packed, g_num, g_den)."""
     p = packed.float()
     b = p.shape[0]
     pn, p_live = _norm_and_guard(p)
@@ -604,14 +714,17 @@ def plain_match_bwd_finish(gp, gpn, packed, num, den, s: int,
 
 
 def plain_assign_bwd_blocks(sup_fts, sup_fg, sup_bg, ctr, g_num, g_den,
-                            protos: int, rows: int):
-    """Plain version of the assign_bwd kernel's rows: from g_num [B*S, 2p,
-    c] and g_den [B*S, 2p] (the match_bwd finish), the feature cotangent
-    g_f [B, S, n, c], the mask cotangents g_fg, g_bg [B, S, n] and, for
-    each support image and run of ``rows`` pixel rows, the partials of the
-    centers' cotangent ``gc = (2 g_dist)^T f`` [2p, c] and of ``gd = sum
-    g_dist`` [2p]. Returns (g_f, g_fg, g_bg, gc [B*S, T, 2p, c], gd [B*S,
-    T, 2p]) float32."""
+                            protos: int, rows: int, live=None, sm=None):
+    """Plain version of the backward kernel's support rows (phase C): from
+    g_num [B*S, 2p, c] and g_den [B*S, 2p] (the episodes' finish), the
+    feature cotangent g_f [B, S, n, c], the mask cotangents g_fg, g_bg
+    [B, S, n] and, for each support image and run of ``rows`` pixel rows,
+    the partials of the centers' cotangent ``gc = (2 g_dist)^T f`` [2p, c]
+    and of ``gd = sum g_dist`` [2p]; on the padded layout when ``live`` <
+    p (the columns past each class's ``live`` out of the softmax). ``sm``:
+    the forward's class softmax [B*S, n, 2p] (``plain_assign_softmax``,
+    what the kernel reads), else recomputed. Returns (g_f, g_fg, g_bg, gc
+    [B*S, T, 2p, c], gd [B*S, T, 2p]) float32."""
     f = f32up(sup_fts)
     c32 = ctr.to(f.dtype)
     b, s, n, c = f.shape
@@ -620,7 +733,11 @@ def plain_assign_bwd_blocks(sup_fts, sup_fg, sup_bg, ctr, g_num, g_den,
     f_sq = (f * f).sum(dim=-1, keepdim=True)
     c_sq = (c32 * c32).sum(dim=0)
     dist = -(f_sq - 2.0 * torch.einsum("bsnc,ck->bsnk", f, c32) + c_sq)
-    sm5 = torch.softmax(dist.reshape(b, s, n, 2, k), dim=-1)
+    if live is not None and live < k:
+        dead = (torch.arange(2 * k, device=f.device) % k) >= live
+        dist = dist.masked_fill(dead, -torch.inf)
+    sm5 = (torch.softmax(dist.reshape(b, s, n, 2, k), dim=-1) if sm is None
+           else sm.to(f.dtype).reshape(b, s, n, 2, k))
     mask2 = torch.stack([sup_fg, sup_bg], dim=-1).to(f.dtype)
     a = (sm5 * mask2[..., None]).reshape(b, s, n, 2 * k)
     g_a5 = (torch.einsum("bsnc,bskc->bsnk", f, g_num)
@@ -639,53 +756,52 @@ def plain_assign_bwd_blocks(sup_fts, sup_fg, sup_bg, ctr, g_num, g_den,
 
 
 def plain_assign_bwd_finish(gc, gd, ctr):
-    """Plain version of the assign_bwd kernel's finishes: every partial
-    summed, ``g_ctr = gc^T - 2 ctr gd`` [c, 2p]."""
+    """Plain version of the backward kernel's centers' finish (phase D):
+    every partial summed, ``g_ctr = gc^T - 2 ctr gd`` [c, 2p]."""
     return (gc.sum(dim=(0, 1)).transpose(0, 1)
             - 2.0 * ctr.float() * gd.sum(dim=(0, 1))[None, :])
 
 
-def _backward_launch(fts, sup_fg, sup_bg, ctr, packed, inds, num, den, g,
+def _backward_launch(fts, sup_fg, sup_bg, ctr, packed, inds, num, den, sm, g,
                      protos: int, dist_scalar: float, eps: float,
                      masks: bool):
-    """K4 on CUDA, two launches: match_bwd (query rows, then per episode
-    g_num and g_den from the forward's partials num, den) and assign_bwd
-    (support rows, then g_ctr). Returns (g_fts in fts.dtype, g_fg and g_bg
-    [B, S, n] float32 or None unless ``masks``, g_ctr [c, 2p] float32)."""
-    _check_features(fts, protos)
+    """K4 on CUDA, one cooperative launch of the blocks the card holds at once
+    (csrc/mpm_bwd.cu: query rows, the episodes' finish, support rows, the
+    centers' finish). ``packed`` [B, 2pp, c], the forward's partials ``num``,
+    ``den`` and its softmax ``sm`` are the instance pp's (``_assign_launch``
+    with ``partials``). Returns (g_fts in fts.dtype, g_fg and g_bg [B, S, n] float32 or None unless
+    ``masks``, g_ctr [c, 2p] float32)."""
+    pp = _check_features(fts, protos)
     b, sq, n, c = fts.shape
     s = sup_fg.shape[1]
-    q, k2, dev = sq - s, 2 * protos, fts.device
+    q, k2, dev = sq - s, 2 * pp, fts.device
     fg = _f32_on(sup_fg, dev, (b, s, n), "sup_fg")
     bg = _f32_on(sup_bg, dev, (b, s, n), "sup_bg")
-    ctr = _f32_on(ctr, dev, (c, k2), "ctr")
+    ctr = pad_protos(_f32_on(ctr, dev, (c, 2 * protos), "ctr"), protos, pp,
+                     1).contiguous()
     g = _f32_on(g, dev, (b, q, n, 2), "logit cotangent")
+    packed = _f32_on(packed, dev, (b, k2, c), "prototypes")
+    sm = _f32_on(sm, dev, (b * s, n, k2), "the forward's softmax")
     if ctr.data_ptr() % 16:                   # the kernel copies it in 16 B
         ctr = ctr.clone()
-    lib = _bwd_lib()
     is_bf16 = int(fts.dtype == torch.bfloat16)
-    passes = -(-c // PASS_CHANNELS)
-    ns_m, slots_m = _ring_plan("match_bwd", partial(
-        lib.pemp_mpm_bwd_plan, _BWD_KIND["match_bwd"]), dev, c, protos,
-        is_bf16)
-    ns_a, slots_a = _ring_plan("assign_bwd", partial(
-        lib.pemp_mpm_bwd_plan, _BWD_KIND["assign_bwd"]), dev, c, protos,
-        is_bf16)
-    tiles_m, rows_m = assign_grid(n, b * q * passes, slots_m, cluster=1)
-    tiles_a, rows_a = assign_grid(n, b * s * passes, slots_a, cluster=1)
-    # one float32 scratch, each piece 16-byte aligned: g_num, g_den, the
-    # match_bwd block partials (gp, gpn), the assign_bwd block and image
-    # partials (gc, gd)
-    sizes = (b * s * k2 * c, b * s * k2, b * q * tiles_m * k2 * c,
-             b * q * tiles_m * k2, b * s * tiles_a * k2 * c,
-             b * s * tiles_a * k2, b * s * k2 * c, b * s * k2)
+    lib = _bwd_lib(is_bf16)
+    passes = -(-c // pass_channels(pp))
+    ns, slots = _ring_plan("mpm_bwd", lib.pemp_mpm_bwd_plan, dev, c, pp,
+                           is_bf16)
+    tiles_q, rows_q = assign_grid(n, b * q * passes, slots, cluster=1)
+    tiles_s, rows_s = assign_grid(n, b * s * passes, slots, cluster=1)
+    # one float32 scratch, each piece 16-byte aligned: the query tiles'
+    # partials (gp, gpn), the prototypes' squared norms, g_num, g_den's
+    # shares, den + eps, the support tiles' partials (gc, gd)
+    sizes = (b * q * tiles_q * k2 * c, b * q * tiles_q * k2, b * k2,
+             b * s * k2 * c, b * s * k2 * c // 4, b * s * k2,
+             b * s * tiles_s * k2 * c, b * s * tiles_s * k2)
     offsets, total = [], 0
     for size in sizes:
         offsets.append(total)
         total += -(-size // 4) * 4
     scratch = torch.empty(total, dtype=torch.float32, device=dev)
-    g_num, g_den, gp, gpn, gc, gd, gc_img, gd_img = (
-        scratch.data_ptr() + 4 * o for o in offsets)
     g_fts = torch.empty_like(fts)
     g_ctr = torch.empty((c, k2), dtype=torch.float32, device=dev)
     g_fg = g_bg = None
@@ -693,40 +809,38 @@ def _backward_launch(fts, sup_fg, sup_bg, ctr, packed, inds, num, den, g,
         g_fg = torch.empty((b, s, n), dtype=torch.float32, device=dev)
         g_bg = torch.empty((b, s, n), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    tickets = _tickets(dev, stream, "match_bwd", b)
-    rc = lib.pemp_mpm_match_bwd(
-        fts.data_ptr(), is_bf16, packed.data_ptr(), inds.data_ptr(),
-        g.data_ptr(), num.data_ptr(), den.data_ptr(), g_fts.data_ptr(), gp,
-        gpn, tickets.data_ptr(), g_num, g_den, b, s, q, n, c, protos, rows_m,
-        tiles_m, ns_m, num.shape[1], float(dist_scalar), COS_EPS, float(eps),
-        stream)
-    _check_rc(lib, rc, "match_bwd")
-    launches["match_bwd"] += 1
-    tickets = _tickets(dev, stream, "assign_bwd", b * s + 1)
-    rc = lib.pemp_mpm_assign_bwd(
-        fts.data_ptr(), is_bf16, fg.data_ptr(), bg.data_ptr(), ctr.data_ptr(),
-        g_num, g_den, g_fts.data_ptr(),
+    sync = _tickets(dev, stream, "mpm_bwd", 2)
+    ptrs = (ctypes.c_void_p * 23)(
+        fts.data_ptr(), packed.data_ptr(), inds.data_ptr(), g.data_ptr(),
+        num.data_ptr(), den.data_ptr(), fg.data_ptr(), bg.data_ptr(),
+        ctr.data_ptr(), g_fts.data_ptr(),
         g_fg.data_ptr() if masks else None, g_bg.data_ptr() if masks else None,
-        gc, gd, gc_img, gd_img, tickets.data_ptr(), g_ctr.data_ptr(), b, s, q,
-        n, c, protos, rows_a, tiles_a, ns_a, stream)
-    _check_rc(lib, rc, "assign_bwd")
-    launches["assign_bwd"] += 1
-    return g_fts, g_fg, g_bg, g_ctr
+        g_ctr.data_ptr(), *(scratch.data_ptr() + 4 * o for o in offsets),
+        sync.data_ptr(), sm.data_ptr())
+    ints = (ctypes.c_int * 14)(b, s, q, n, c, pp, protos, num.shape[1],
+                               tiles_q, rows_q, tiles_s, rows_s, ns, slots)
+    floats = (ctypes.c_float * 3)(dist_scalar, COS_EPS, eps)
+    rc = lib.pemp_mpm_bwd(is_bf16, ptrs, ints, floats, stream)
+    _check_rc(lib, rc, "mpm_bwd")
+    launches["mpm_bwd"] += 1
+    return g_fts, g_fg, g_bg, unpad_protos(g_ctr, protos, pp, 1)
 
 
 class MPMChainPacked(torch.autograd.Function):
     """Differentiable assign-then-match on the packed features (K4; the
     custom VJP ``mpm_packed_fused``, ``pemp_tpu/ops/pallas/mpm_vjp.py:197-230``).
 
-    Forward: on CUDA, K1 then K2 with the argmax indices; on the CPU the
-    plain composition. The packed prototypes [B, 2p, c] and the int32
+    Forward: on CUDA, K1 then K2 with the argmax indices; on the CPU (or
+    with the kernels off) the plain composition. The packed prototypes
+    [B, 2p, c] (the kernels' instance's [B, 2pp, c] on CUDA) and the int32
     indices are kept for the backward, and on CUDA K1's cluster partials
-    too. Backward: on CUDA the two kernels of ``csrc/mpm_bwd.cu`` (counted
-    as ``match_bwd`` and ``assign_bwd``); on the CPU its plain version,
-    ``_match_backward`` then ``_assign_backward`` in PyTorch ops (at least
-    float32), as the JAX package's is jnp outside any kernel. Ties of the
-    max over p send the gradient to the first occurrence (autodiff of the
-    plain version splits it; measure zero for real features).
+    and each support row's class softmax too. Backward: on CUDA the kernel
+    of ``csrc/mpm_bwd.cu`` (counted as ``mpm_bwd``); otherwise its plain
+    version, ``_match_backward`` then ``_assign_backward`` in PyTorch ops
+    (at least float32), as the JAX package's is jnp outside any kernel.
+    Ties of the max over p send the gradient to the first occurrence
+    (autodiff of the plain version splits it; measure zero for real
+    features).
     ``backward_calls["mpm_backward"]`` counts backward passes.
     """
 
@@ -734,7 +848,8 @@ class MPMChainPacked(torch.autograd.Function):
     def forward(ctx, fts, sup_fg, sup_bg, ctr, protos: int,
                 dist_scalar: float, eps: float):
         s = sup_fg.shape[1]
-        if fts.device.type == "cpu":
+        ctx.kernels = kernels_on(fts.device)
+        if not ctx.kernels:
             fg, bg = meta_prototype_assign(fts[:, :s], sup_fg, sup_bg, ctr,
                                            protos, eps)
             packed = torch.cat([fg, bg], dim=1)
@@ -757,7 +872,7 @@ class MPMChainPacked(torch.autograd.Function):
         backward_calls["mpm_backward"] += 1
         need = ctx.needs_input_grad
         s = sup_fg.shape[1]
-        if fts.device.type == "cpu":
+        if not ctx.kernels:
             g_qry, g_packed = _match_backward(fts[:, s:], packed, inds, g,
                                               ctx.protos, ctx.dist_scalar)
             g_sup, g_fg, g_bg, g_ctr = _assign_backward(

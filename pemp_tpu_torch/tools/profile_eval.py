@@ -10,10 +10,10 @@ and the TP/FP/FN counts ([bg, fg] x [tp, fp, fn]) summed over the batch.
 Two warm-up launches run first; then ``--launches`` launches run under
 ``torch.profiler`` and ``utils/profiling.py`` reads the trace.
 
-``--no-kernels`` (the JAX tool's ``--no-pallas``) runs the plain mpm
-(``models.pemp_stage1.mpm_predict``) in place of the kernels' chain, by
-the route ``chip_smoke.py``'s plain forward takes. It is for comparison
-only, never a fallback.
+``--no-kernels`` (the JAX tool's ``--no-pallas``) runs the kernels' plain
+versions on the card (``ops.kernels.use_kernels(False)``, what
+``dev.use_kernels=False`` asks of an entry). It is for comparison only,
+never a fallback.
 
 It prints the top kernels on stderr and one JSON line: the JAX tool's
 keys, with ``kernels`` in place of ``pallas``, and ``counts`` (the
@@ -35,10 +35,8 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-from contextlib import nullcontext
 from pathlib import Path
 from typing import Dict, Tuple
-from unittest import mock
 
 import numpy as np
 import torch
@@ -47,8 +45,8 @@ from pemp_tpu_torch.config import Config
 from pemp_tpu_torch.core.experiment import set_precision
 from pemp_tpu_torch.core.metrics import tp_fp_fn
 from pemp_tpu_torch.device import resolve_device, tool_precision
-from pemp_tpu_torch.models import pemp_stage1 as stage1
 from pemp_tpu_torch.models import registry
+from pemp_tpu_torch.ops import kernels
 from pemp_tpu_torch.tools.profile_train import profile_calls
 from pemp_tpu_torch.utils import profiling
 
@@ -82,20 +80,6 @@ def build_model(device: torch.device) -> torch.nn.Module:
     return model.to(device, memory_format=torch.channels_last).eval()
 
 
-def plain_chain(fts, sup_fg, sup_bg, ctr, protos, dist_scalar,
-                return_indices=False):
-    """The plain mpm in place of ``mpm_chain_packed`` (what
-    ``--no-kernels`` patches into ``models.pemp_stage1``)."""
-    s = sup_fg.shape[1]
-    return stage1.mpm_predict(fts[:, :s], fts[:, s:], sup_fg, sup_bg, ctr,
-                              protos, dist_scalar, return_indices)
-
-
-def plain_mpm():
-    """The context in which the model runs the plain mpm."""
-    return mock.patch.object(stage1, "mpm_chain_packed", plain_chain)
-
-
 @torch.no_grad()
 def eval_batch(model, sup, msk, qry, ref) -> torch.Tensor:
     """Logits at input resolution, argmax, and the [2, 3] TP/FP/FN counts
@@ -125,7 +109,7 @@ def main(argv=None) -> Dict:
     sup, msk, qry, ref = (torch.from_numpy(a).to(device) for a in
                           make_inputs(args.batch, args.shots, args.hw))
 
-    with plain_mpm() if args.no_kernels else nullcontext():
+    with kernels.use_kernels(not args.no_kernels):
         total = []
 
         def launch():

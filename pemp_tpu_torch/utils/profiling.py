@@ -34,8 +34,7 @@ from typing import Dict, List, Optional, Tuple
 
 # the port's CUDA kernels (K1-K5) by the counter names of their wrappers
 KERNEL_SYMBOLS = {"assign": "assign_kernel", "match": "match_kernel",
-                  "match_bwd": "match_bwd_kernel",
-                  "assign_bwd": "assign_bwd_kernel",
+                  "mpm_bwd": "mpm_bwd_kernel",
                   "minplus": "minplus_kernel"}
 
 # (substrings of a kernel or op name, label), first match wins. The

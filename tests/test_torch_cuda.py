@@ -18,6 +18,9 @@ CUDA graph (the fused train step's path), the chain's forward and
 backward and the EDT replay bit-equal to their eager launches, and a
 replay counts no launch; a kernel's plan or tickets missing at capture raise;
 ``FusedTrainStep`` captures while the ``DevicePrefetcher``'s thread copies.
+p above 8: K1, K2 and K4 on the padded instances against their plain
+versions, and both PEMP stages at p = 9 and 16 trained and tested through
+their entries against ``dev.use_kernels=False``.
 The operator tools: ``S2BConv2d`` against cuDNN's dilated convolution
 (outputs and gradients, float32 with TF32 off and bfloat16),
 ``memory_report``'s ``s1_train`` row, and ``profile_train``'s profile
@@ -77,8 +80,7 @@ def test_kernels_match_plain(cuda, dtype, s, n):
     cl2, ci2 = K.mpm_chain_packed(fts, fg, bg, ctr, P, SCALE, True)
     assert torch.equal(cl, cl2) and torch.equal(ci, ci2)
     assert (cl - pl).abs().max() <= 2e-3
-    assert K.launches == {"assign": 3, "match": 3, "match_bwd": 0,
-                          "assign_bwd": 0}
+    assert K.launches == {"assign": 3, "match": 3, "mpm_bwd": 0}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -89,8 +91,7 @@ def test_mpm_ops_launch_the_kernels(cuda, dtype):
     K.reset_launches()
     packed = torch.ops.pemp.mpm_assign(fts, fg, bg, ctr, P, K.ASSIGN_EPS)
     logits, inds = torch.ops.pemp.mpm_match(fts, 1, packed, P, SCALE, True)
-    assert K.launches == {"assign": 1, "match": 1, "match_bwd": 0,
-                          "assign_bwd": 0}
+    assert K.launches == {"assign": 1, "match": 1, "mpm_bwd": 0}
     cl, ci = K.mpm_chain_packed(fts, fg, bg, ctr, P, SCALE, True)
     assert torch.equal(logits, cl) and torch.equal(inds, ci)
     torch.library.opcheck(torch.ops.pemp.mpm_assign.default,
@@ -111,8 +112,7 @@ def test_assign_tickets_reset_between_launches(cuda, p):
     K.reset_launches()
     runs = [torch.cat(K.mpm_assign(fts, fg, 1.0 - fg, ctr, p), 1)
             for _ in range(3)]
-    assert K.launches == {"assign": 3, "match": 0, "match_bwd": 0,
-                          "assign_bwd": 0}
+    assert K.launches == {"assign": 3, "match": 0, "mpm_bwd": 0}
     assert all(torch.equal(runs[0], r) for r in runs[1:])
     ref = torch.cat(plain.meta_prototype_assign(fts[:, :1], fg, 1.0 - fg,
                                                 ctr, p), 1)
@@ -131,8 +131,7 @@ def test_assign_takes_more_than_one_column_pass(cuda, c, dtype):
     fts, fg, bg, ctr = _inputs(cuda, 2, 2, 1, 1030, c, dtype, seed=c)
     K.reset_launches()
     runs = [torch.cat(K.mpm_assign(fts, fg, bg, ctr, P), 1) for _ in range(2)]
-    assert K.launches == {"assign": 2, "match": 0, "match_bwd": 0,
-                          "assign_bwd": 0}
+    assert K.launches == {"assign": 2, "match": 0, "mpm_bwd": 0}
     assert torch.equal(runs[0], runs[1])
     ref = torch.cat(plain.meta_prototype_assign(fts[:, :2], fg, bg, ctr, P), 1)
     assert (runs[0] - ref).abs().max() <= 1e-3 * ref.abs().max()
@@ -148,8 +147,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         K.mpm_chain_packed(fts, fg, bg, ctr, P)
     fts, fg, bg, ctr = _inputs(cuda, 1, 1, 1, 49, 64, torch.float32)
-    with pytest.raises(ValueError):
-        K.mpm_chain_packed(fts, fg, bg, torch.rand(64, 18, device=cuda), 9)
+    with pytest.raises(ValueError, match="dev.use_kernels=False"):
+        K.mpm_chain_packed(fts, fg, bg, torch.rand(64, 34, device=cuda), 17)
     with pytest.raises(ValueError):
         K.mpm_chain_packed(fts, fg.cpu(), bg, ctr, P)
     # more shared memory than a block may have, at the fewest ring stages
@@ -192,6 +191,122 @@ def test_edt2_on_the_card_bit_equals_the_cpu(cuda):
     assert torch.equal(edt.edt2(feat).cpu(), edt.edt2(feat.cpu()))
 
 
+@pytest.mark.parametrize("p,dtype", [(9, torch.bfloat16),
+                                     (12, torch.float32),
+                                     (16, torch.bfloat16),
+                                     (16, torch.float32)])
+def test_padded_protos_kernels_match_plain(cuda, p, dtype):
+    """K1 and K2 at p above 8 (the instances 12 and 16, zero columns past
+    each class's p): the prototypes, the logits and the indices against
+    the plain versions as in test_kernels_match_plain, and no index past
+    p."""
+    g = torch.Generator(device=cuda).manual_seed(p)
+    fts = torch.randn(2, 2, 1030, 512, generator=g, device=cuda).to(dtype)
+    fg = (torch.rand(2, 1, 1030, generator=g, device=cuda) > 0.6).float()
+    ctr = torch.rand(512, 2 * p, generator=g, device=cuda)
+    K.reset_launches()
+    kf, kb = K.mpm_assign(fts, fg, 1.0 - fg, ctr, p)
+    pf, pb = plain.meta_prototype_assign(fts[:, :1], fg, 1.0 - fg, ctr, p)
+    ref = torch.cat([pf, pb], 1)
+    assert kf.shape == pf.shape and kb.shape == pb.shape
+    assert (torch.cat([kf, kb], 1) - ref).abs().max() <= 1e-3 * ref.abs().max()
+    kl, ki = K.mpm_match(fts, 1, pf, pb, SCALE, return_indices=True)
+    pl, pi = plain.prototype_predictions(fts[:, 1:], pf, pb, SCALE, True)
+    assert (kl - pl).abs().max() <= 2e-3
+    assert int(ki.max()) < p
+    margin = torch.stack([
+        (plain.cosine_similarity(fts[:, 1:], pr[:, None]) * SCALE)
+        .topk(2, dim=-1).values.diff(dim=-1).neg()[..., 0]
+        for pr in (pb, pf)], dim=-1)
+    sure = margin > 1e-3
+    assert torch.equal(ki[sure], pi[sure])
+    assert K.launches == {"assign": 1, "match": 1, "mpm_bwd": 0}
+
+
+def test_use_kernels_off_runs_the_plain_versions_on_the_card(cuda):
+    """``dev.use_kernels=False`` (``ops.kernels.use_kernels``): CUDA
+    tensors take the plain versions of K1-K5, forward and backward, and
+    no kernel launches; the outputs equal the plain functions'."""
+    from pemp_tpu_torch.ops import kernels
+    fts, fg, bg, ctr = _inputs(cuda, 2, 1, 1, 49, 64, torch.float32)
+    fk = fts.clone().requires_grad_()
+    K.reset_launches()
+    M.reset_launches()
+    with kernels.use_kernels(False):
+        logits = K.mpm_chain_packed(fk, fg, bg, ctr, P, SCALE)
+        logits.sum().backward()
+        d = edt.edt2(logits[..., 1].detach() > 0)
+    assert kernels.kernels_on(fk.device)
+    assert not any(K.launches.values()) and not any(M.launches.values())
+    assert K.backward_calls == {"mpm_backward": 1}
+    pf, pb = plain.meta_prototype_assign(fts[:, :1], fg, bg, ctr, P)
+    assert torch.equal(logits.detach(), plain.prototype_predictions(
+        fts[:, 1:], pf, pb, SCALE))
+    assert torch.equal(d.cpu(), edt.edt2((logits[..., 1].detach() > 0).cpu()))
+
+
+WIDE_ARGS = ["with", "split=0", "data.dataset=SYNTH", "data.height=65",
+             "data.width=65", "data.bs=2", "data.train_n=6",
+             "tr.total_epochs=1", "data.test_bs=2", "data.test_n=4",
+             "te.epochs=1", "loss=cedt", "dev.precision=f32", "seed=1234"]
+
+
+@pytest.mark.parametrize("p", [9, 16])
+def test_wide_protos_train_and_test_through_the_entries(cuda, tmp_path, p):
+    """F9 at the model level: PEMP stage 1 at ``net.protos=p`` and the
+    cascade's stage 2 at ``net.protos2=p`` behind that stage 1's file,
+    each trained three steps (f32, cedt) by its ``train`` entry on the
+    card with the kernels and with ``dev.use_kernels=False``, and the
+    kernels' snapshot tested again by its ``test`` entry with
+    ``dev.use_kernels=False``. The kernels launch as a step and an eval
+    batch do and the plain runs launch none; the one snapshot's test loss
+    within 1e-4 relative and its mIoU within 1e-2 (a flip at a near-tie
+    pixel moves it); stage 1's first step's loss (same weights, same
+    batch) within 1e-5 relative. Not compared: the later steps, whose
+    weights part after the first update (the argmax over p of a random
+    model's nearly equal prototypes routes a pixel's gradient to another
+    prototype), and stage 2's first step, whose input holds stage 1's
+    argmax (the prior), which can part at a near-tie pixel."""
+    from pemp_tpu_torch.core import checkpoint as ckpt_lib
+    from pemp_tpu_torch.entry import pemp_stage1 as entry1
+    from pemp_tpu_torch.entry import pemp_stage2 as entry2
+
+    def run(entry, command, extra, on, model_dir):
+        K.reset_launches()
+        M.reset_launches()
+        res = entry.main([command, *WIDE_ARGS, *extra,
+                          f"dev.use_kernels={on}",
+                          f"g.model_dir={tmp_path / model_dir}"])
+        return res, {**K.launches, **M.launches}
+
+    steps, evals = 3, 4      # online eval and chained test: 2 batches each
+    extra = [f"net.protos={p}"]
+    for stage, entry in ((1, entry1), (2, entry2)):
+        if stage == 2:
+            extra += [f"net.protos2={p}", "tr.lr=0.0035",
+                      f"s1.ckpt={s1_file}"]
+        on, launched = run(entry, "train", extra, True, "kernels")
+        off, plain_launched = run(entry, "train", extra, False, "plain")
+        rid = on["train"]["run_id"]
+        tested, test_launched = run(entry, "test", extra + [f"exp_id={rid}",
+                                                            "-u"],
+                                    False, "kernels")
+        s1_file = (tmp_path / "kernels" / "pemp_stage1" / str(rid)
+                   / ckpt_lib.BEST)
+        assert launched == {"assign": stage * (steps + evals),
+                            "match": stage * (steps + evals),
+                            "mpm_bwd": steps, "minplus": 2 * steps}
+        assert not any(plain_launched.values())
+        assert not any(test_launched.values())
+        assert len(on["train"]["losses"]) == steps
+        first, first_plain = (on["train"]["losses"][0],
+                              off["train"]["losses"][0])
+        assert stage == 2 or abs(first - first_plain) <= 1e-5 * first_plain
+        assert (abs(on["test"]["loss"] - tested["loss"])
+                <= 1e-4 * tested["loss"])
+        assert abs(on["test"]["miou"] - tested["miou"]) <= 1e-2
+
+
 def test_mpm_backward_matches_autograd_of_plain(cuda):
     fts, fg, bg, ctr = _inputs(cuda, 2, 2, 1, 1030, 64, torch.float32)
     fk, ck = fts.clone().requires_grad_(), ctr.clone().requires_grad_()
@@ -200,8 +315,7 @@ def test_mpm_backward_matches_autograd_of_plain(cuda):
     K.reset_launches()
     lk = K.mpm_chain_packed(fk, fg, bg, ck, P, SCALE)
     gk = torch.autograd.grad((lk * w).sum(), (fk, ck))
-    assert K.launches == {"assign": 1, "match": 1, "match_bwd": 1,
-                          "assign_bwd": 1}
+    assert K.launches == {"assign": 1, "match": 1, "mpm_bwd": 1}
     assert K.backward_calls == {"mpm_backward": 1}
     pf, pb = plain.meta_prototype_assign(fp[:, :2], fg, bg, cp, P)
     lp = plain.prototype_predictions(fp[:, 2:], pf, pb, SCALE)
@@ -230,12 +344,16 @@ def _plain_backward(fts, fg, bg, ctr, packed, inds, w, s, p):
                                        (64, 3, torch.bfloat16),
                                        (512, 1, torch.float32),
                                        (512, 8, torch.bfloat16),
+                                       (512, 9, torch.bfloat16),
+                                       (512, 16, torch.float32),
+                                       (512, 16, torch.bfloat16),
                                        (768, 3, torch.float32),
                                        (1024, 3, torch.bfloat16)])
 def test_mpm_backward_kernels_match_the_plain_backward(cuda, c, p, dtype):
     """S=2, Q=2, n=1030 (a partial last stage), every cotangent, one and
-    two column passes; two backward calls bit-identical and the tickets
-    back at zero."""
+    two column passes, p = 9 and 16 on the padded instances 12 and 16
+    (f32 at p = 16: no row ring, rows read from device memory); two
+    backward calls bit-identical and the barrier counters back at zero."""
     fts, fg, bg, ctr, w = _backward_inputs(cuda, 2, 2, 2, 1030, c, p, dtype,
                                            seed=c + p)
     t = [fts.clone().requires_grad_(), fg.clone().requires_grad_(),
@@ -244,8 +362,7 @@ def test_mpm_backward_kernels_match_the_plain_backward(cuda, c, p, dtype):
     logits = K.MPMChainPacked.apply(*t, p, SCALE, plain.ASSIGN_EPS)
     runs = [torch.autograd.grad(logits, t, w, retain_graph=True)
             for _ in range(2)]
-    assert K.launches == {"assign": 1, "match": 1, "match_bwd": 2,
-                          "assign_bwd": 2}
+    assert K.launches == {"assign": 1, "match": 1, "mpm_bwd": 2}
     assert all(torch.equal(a, b) for a, b in zip(*runs))
     with torch.no_grad():
         packed = torch.cat(K.mpm_assign(fts, fg, bg, ctr, p), 1)
@@ -266,19 +383,20 @@ def test_mpm_backward_refuses_what_the_kernels_do_not_take(cuda):
     to the PyTorch ops."""
     fts, fg, bg, ctr, w = _backward_inputs(cuda, 1, 1, 1, 49, 64, P,
                                            torch.float32, seed=1)
-    packed, num, den = K._assign_launch(fts, fg, bg, ctr, P, plain.ASSIGN_EPS,
-                                        partials=True)
+    packed, num, den, sm = K._assign_launch(fts, fg, bg, ctr, P,
+                                            plain.ASSIGN_EPS, partials=True)
     _, inds = K._match_launch(fts, 1, packed, P, SCALE, True)
-    args = [fts, fg, bg, ctr, packed, inds, num, den, w, P, SCALE,
+    args = [fts, fg, bg, ctr, packed, inds, num, den, sm, w, P, SCALE,
             plain.ASSIGN_EPS, False]
     K.reset_launches()
     for i, bad, err in ((0, fts.half(), TypeError),
                         (1, fg.cpu(), ValueError),
-                        (8, w[..., :1].contiguous(), ValueError),
-                        (9, 9, ValueError)):
+                        (8, sm[:, :1].contiguous(), ValueError),
+                        (9, w[..., :1].contiguous(), ValueError),
+                        (10, 17, ValueError)):
         with pytest.raises(err):
             K._backward_launch(*args[:i], bad, *args[i + 1:])
-    assert K.launches["match_bwd"] == K.launches["assign_bwd"] == 0
+    assert K.launches["mpm_bwd"] == 0
 
 
 @pytest.mark.parametrize("p,c,dtype", [(1, 512, torch.bfloat16),
@@ -371,7 +489,7 @@ def test_vgg16_pemp_stages_kernels_match_plain(cuda, stage):
                                  for k, p in model.named_parameters()}
 
         loss_k, gk = step()
-        assert K.launches["match_bwd"] == 1 and K.launches["assign_bwd"] == 1
+        assert K.launches["mpm_bwd"] == 1
         with mock.patch.object(stage1, "mpm_chain_packed", _plain_chain):
             loss_p, gp = step()
     finally:
@@ -431,8 +549,7 @@ def test_kernels_replay_in_a_cuda_graph_as_eager(cuda):
     with torch.cuda.graph(graph, stream=side):
         out = step()
     recorded = {**K.launches, **M.launches}
-    assert recorded == {"assign": 1, "match": 1, "match_bwd": 1,
-                        "assign_bwd": 1, "minplus": 2}
+    assert recorded == {"assign": 1, "match": 1, "mpm_bwd": 1, "minplus": 2}
     for _ in range(2):
         graph.replay()
         torch.cuda.synchronize()
@@ -546,7 +663,7 @@ def test_profile_train_counts_the_kernels_in_the_profile(cuda):
     from pemp_tpu_torch.tools import profile_train
     out = profile_train.main(["--bs", "2", "--hw", "97", "--steps", "2",
                               "--loss", "cedt"])
-    want = {"assign": 2, "match": 2, "match_bwd": 2, "assign_bwd": 2,
+    want = {"assign": 2, "match": 2, "mpm_bwd": 2,
             "minplus": 4}
     assert out["timeline"] == "cuda" and out["kernels"] is True
     assert out["profiled_launches"] == want and out["launches"] == want

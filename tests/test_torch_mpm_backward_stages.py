@@ -1,13 +1,18 @@
 """The plain versions of the mpm backward kernels' stages
 (``pemp_tpu_torch/ops/kernels/mpm.py``: ``plain_match_bwd_blocks``,
 ``plain_match_bwd_finish``, ``plain_shot_sums``,
-``plain_assign_bwd_blocks``, ``plain_assign_bwd_finish``) composed as the
-two CUDA kernels compose them, on the CPU, against the cotangents of the
+``plain_assign_bwd_blocks`` on ``plain_assign_softmax``'s softmax,
+``plain_assign_bwd_finish``) composed as the CUDA kernel's four phases
+compose them, on the CPU, against the cotangents of the
 JAX package's packed custom-VJP chain (``mpm_fused_chain_packed``, Pallas
 in interpret mode, as tests/test_torch_mpm_backward.py runs it) on the
 same numpy inputs. The forward partials they read are those of
 ``plain_assign_blocks`` (the assign kernel's cluster partials), and the
-blocks are ragged (n = 81 and 130 rows in blocks of 32).
+blocks are ragged (n = 81 and 130 rows in blocks of 32). At p = 9, 12
+and 16 the stages run on the kernels' padded layout (the instances 12
+and 16: zero columns past each class's p, out of every softmax) and,
+unpadded, are held against ``_match_backward`` / ``_assign_backward``
+at p.
 
 Tolerance: each cotangent's max abs error within GRAD_TOL = 5e-5 of its
 largest magnitude, tests/test_torch_mpm_backward.py's: both sides sum in
@@ -56,9 +61,10 @@ def _jax_grads(fts, fg, bg, ctr, w, p):
 
 
 def _stages(fts, fg, bg, ctr, w, s, p):
-    """The backward as the kernels compute it: match_bwd's block partials
-    and finish (from the forward's cluster partials), then assign_bwd's
-    block partials and finish."""
+    """The backward as the kernels compute it: the query rows' tile
+    partials and the episodes' finish (from the forward's cluster
+    partials), then the support rows' tile partials (from the forward's
+    softmax) and the centers' finish."""
     fts, fg, bg, ctr, w = (torch.from_numpy(a) for a in (fts, fg, bg, ctr, w))
     b = fts.shape[0]
     num, den = K.plain_assign_blocks(fts, fg, bg, ctr, p, K.CLUSTER * ROWS)
@@ -68,8 +74,9 @@ def _stages(fts, fg, bg, ctr, w, s, p):
     g_q, gp, gpn = K.plain_match_bwd_blocks(fts[:, s:], packed, inds, w, p,
                                             SCALE, ROWS)
     _, g_num, g_den = K.plain_match_bwd_finish(gp, gpn, packed, num, den, s)
+    sm = K.plain_assign_softmax(fts, fg, ctr, p)
     g_f, g_fg, g_bg, gc, gd = K.plain_assign_bwd_blocks(
-        fts[:, :s], fg, bg, ctr, g_num, g_den, p, ROWS)
+        fts[:, :s], fg, bg, ctr, g_num, g_den, p, ROWS, sm=sm)
     g_ctr = K.plain_assign_bwd_finish(gc, gd, ctr)
     return [torch.cat([g_f, g_q], dim=1), g_fg, g_bg, g_ctr]
 
@@ -131,3 +138,41 @@ def test_shot_sums_of_the_forward_partials(s, n):
                                rtol=1e-5, atol=1e-5 * want_num.abs().max())
     torch.testing.assert_close(den_s, want_den.reshape(den_s.shape),
                                rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("p", [9, 12, 16])
+def test_padded_stages_agree_with_the_plain_backward(p):
+    """The four stages on the padded instance ``padded_protos(p)`` (the
+    centers and prototypes with zero columns, ``live=p``), unpadded,
+    against the plain backward at p from the same prototypes and indices,
+    every cotangent within GRAD_TOL; the padded columns' cotangents 0."""
+    s, n = 2, 81
+    pp = K.padded_protos(p)
+    fts, fg, bg, ctr, w = (torch.from_numpy(a) for a in
+                           _inputs(3 * p, 2, s, 1, n, 64, p))
+    ctr_pp = K.pad_protos(ctr, p, pp, 1)
+    num, den = K.plain_assign_blocks(fts, fg, bg, ctr_pp, pp,
+                                     K.CLUSTER * ROWS, live=p)
+    packed_pp = K.plain_assign_finish(num, den, 2, s)
+    packed = K.unpad_protos(packed_pp, p, pp, 1)
+    _, inds = tp.prototype_predictions(fts[:, s:], packed[:, :p],
+                                       packed[:, p:], SCALE, True)
+    g_q, gp, gpn = K.plain_match_bwd_blocks(fts[:, s:], packed_pp, inds, w,
+                                            pp, SCALE, ROWS)
+    g_pk, g_num, g_den = K.plain_match_bwd_finish(gp, gpn, packed_pp, num,
+                                                  den, s)
+    sm = K.plain_assign_softmax(fts, fg, ctr_pp, pp, live=p)
+    dead = (torch.arange(2 * pp) % pp) >= p
+    assert not sm.reshape(-1, 2 * pp)[:, dead].any()
+    g_f, g_fg, g_bg, gc, gd = K.plain_assign_bwd_blocks(
+        fts[:, :s], fg, bg, ctr_pp, g_num, g_den, pp, ROWS, live=p, sm=sm)
+    g_ctr_pp = K.plain_assign_bwd_finish(gc, gd, ctr_pp)
+    assert not g_pk[:, dead].any() and not g_ctr_pp[:, dead].any()
+    g_qry, g_packed = K._match_backward(fts[:, s:], packed, inds, w, p, SCALE)
+    g_sup, w_fg, w_bg, w_ctr = K._assign_backward(
+        fts[:, :s], fg, bg, ctr, g_packed, p, K.ASSIGN_EPS)
+    _grad_close(K.unpad_protos(g_pk, p, pp, 1).numpy(), g_packed.numpy())
+    for got, want in ((torch.cat([g_f, g_q], 1), torch.cat([g_sup, g_qry], 1)),
+                      (g_fg, w_fg), (g_bg, w_bg),
+                      (K.unpad_protos(g_ctr_pp, p, pp, 1), w_ctr)):
+        _grad_close(got.numpy(), want.numpy())

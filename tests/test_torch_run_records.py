@@ -36,12 +36,13 @@ SMALL = ["split=0", "data.dataset=SYNTH", "data.height=33", "data.width=33",
 PORT = ["dev.device=cpu", "dev.precision=f32"]
 # config.json: the JAX package's device scope ``tpu`` is the port's
 # ``dev``, where the keys of the world and the input path keep their names
+# and the kernels' switch ``use_pallas`` is ``use_kernels``
 # (``CONFIG_RENAMED``); the log file is not ported
 CONFIG_RENAMED = {"tpu.mesh": "dev.mesh", "tpu.prefetch": "dev.prefetch",
                   "tpu.compact_wire": "dev.compact_wire",
-                  "tpu.fuse_steps": "dev.fuse_steps"}
-CONFIG_ONLY_JAX = {"tpu.platform", "tpu.precision", "tpu.use_pallas",
-                   "g.log_file"}
+                  "tpu.fuse_steps": "dev.fuse_steps",
+                  "tpu.use_pallas": "dev.use_kernels"}
+CONFIG_ONLY_JAX = {"tpu.platform", "tpu.precision", "g.log_file"}
 CONFIG_ONLY_PORT = {"dev.device", "dev.precision"}
 RESULT = re.compile(r"Loss: \d+\.\d{4}, mIoU: \d+\.\d{2}, bIoU: \d+\.\d{2}")
 

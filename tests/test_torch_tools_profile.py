@@ -175,7 +175,7 @@ def test_summarize_on_a_cpu_profile_keeps_totals_under_the_wall():
 
 @pytest.mark.parametrize("name,group", [
     ("void assign_kernel<3, __nv_bfloat16>(...)", "custom-call/kernels"),
-    ("void match_bwd_kernel<3, float>(...)", "custom-call/kernels"),
+    ("void mpm_bwd_kernel<float, 3>(...)", "custom-call/kernels"),
     ("minplus_kernel", "custom-call/kernels"),
     ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc",
      "conv"),

@@ -25,6 +25,19 @@ SMALL = ["split=0", "data.dataset=SYNTH", "data.height=33", "data.width=33",
          "dev.precision=f32"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Torch on one thread for this module (as
+    ``tests/test_torch_parity_helpers.py``'s fixture, without its JAX
+    import): the suite's parallel workers would otherwise each start a
+    torch thread a core, and these full-width entries then run tens of
+    times slower than alone."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture
 def tmp_path(tmp_path):
     """pytest's ``tmp_path``, removed with the checkpoints the test wrote

@@ -36,8 +36,9 @@ from pemp_tpu_torch.core import losses, solver
 from pemp_tpu_torch.models.pemp_stage1 import PEMPStage1
 from pemp_tpu_torch.models.pemp_stage2 import PEMPCascade, PEMPStage2
 from pemp_tpu_torch.utils.convert import state_dict_from_jax
-from tests.test_torch_parity_helpers import (
-    assert_leaves_close, draw_variables, episode, sd64, tree64,
+from tests.test_torch_parity_helpers import (  # noqa: F401  (fixture)
+    assert_leaves_close, draw_variables, episode, one_torch_thread, sd64,
+    tree64,
 )
 
 H = W = 33
