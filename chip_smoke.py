@@ -115,6 +115,14 @@ SYNTH episodes):
   stage-1 ``.pth`` through both checkpoint converters bit for bit, and
   the converted ``.pt``'s eval forward on the card bit-equal to the
   ``.pth``'s;
+- the measurement tools (``bench_path``; ``pemp_tpu_torch/tools/
+  bench*.py``, each through its ``main`` with a few seconds of rounds):
+  ``bench`` at 401², B = 256 (its one line, its counts of one launch
+  within the argmax tolerance of ``dev.use_kernels=False``'s),
+  ``bench_train --fuse 4`` (plain, kernels and fused arms: rates, MFU in
+  (0, 1], K1-K5 as each arm predicts), ``bench_zoo``'s ``cascade1``,
+  ``latency1`` and ``latency_artifact`` at B = 1 (an exported, saved and
+  loaded cascade), ``bench_train_zoo``'s ``pemp_stage2`` and ``canet``;
 
 and checks that each path went through the kernels and agrees with the
 plain version. The phases ``minplus`` (the EDT kernel, bit-exact, also on
@@ -415,6 +423,17 @@ OPS_INT8_EXACT = (("res_1x1", 2, 51, 1024, 256, 1, 1, 1),
 OPS_FLAG_ARMS = ["base", "benchmark", "deterministic"]
 OPS_FLAG_BUDGET = "3"
 OPS_CKPT_BATCH = 8
+# the measurement tools (``bench_path``; pemp_tpu_torch/tools/bench*.py),
+# each through its command line's ``main`` at the JAX tools' sizes, with
+# BENCH_BUDGET_S seconds of rounds (PEMP_BENCH_BUDGET_S): bench at 401²,
+# B = 256; bench_train with --fuse BENCH_FUSE; bench_zoo's BENCH_ZOO_ROWS,
+# the artifact at B = 1 only (BENCH_ARTIFACT_SAMPLES a round, two rounds);
+# bench_train_zoo's BENCH_TRAIN_ZOO_ROWS
+BENCH_BUDGET_S = "3"
+BENCH_FUSE = 4
+BENCH_ZOO_ROWS = ["cascade1", "latency1", "latency_artifact"]
+BENCH_ARTIFACT_SAMPLES = 40
+BENCH_TRAIN_ZOO_ROWS = ["pemp_stage2", "canet"]
 # one dilated 3x3 256->256 convolution (bf16, channels_last) alone, native
 # against the space-to-batch schedule: (N, C, H, W, dilation, backward):
 # layer3's d=2 at serving B = 1, eval B = 4 and with a backward; the
@@ -4889,6 +4908,191 @@ def ops_tools_path_phase(torch, K, M, smi):
     return launches
 
 
+def finite_positive(*values) -> bool:
+    return all(isinstance(v, (int, float)) and math.isfinite(v) and v > 0
+               for v in values)
+
+
+def bench_counts_vs_plain(torch, bench_tool, counts_one):
+    """``bench``'s counts of one launch against the same launch under
+    ``use_kernels(False)`` (``dev.use_kernels=False``), within the argmax
+    tolerance: the logits within LOGIT_ATOL, the argmax flipping only at
+    near-ties (a plain top-two gap <= 2 x the measured error), and the
+    counts moved by at most 3 a near-tie pixel (a flip moves three
+    counts by one)."""
+    import numpy as np
+
+    from pemp_tpu_torch.core.metrics import tp_fp_fn
+    from pemp_tpu_torch.ops.kernels import use_kernels
+    from pemp_tpu_torch.tools import profile_eval
+
+    device = torch.device("cuda")
+    hw, batch = bench_tool.HW, bench_tool.BATCH
+    sup, msk, qry, ref = (torch.from_numpy(a).to(device) for a in
+                          profile_eval.make_inputs(batch, 1, hw))
+    model = profile_eval.build_model(device)
+    with torch.no_grad():
+        lk = model(sup, msk, qry).float()
+        with use_kernels(False):
+            lp = model(sup, msk, qry).float()
+    err = (lk - lp).abs().max().item()
+    same = lk.argmax(-1) == lp.argmax(-1)
+    near = (lp[..., 1] - lp[..., 0]).abs() <= 2 * err
+    plain = tp_fp_fn(lp.argmax(-1).to(torch.int32).reshape(-1, hw, hw),
+                     ref).sum(0).tolist()
+    out = {"logits_max_abs_err": err,
+           "argmax_agreement": same.float().mean().item(),
+           "flips_outside_near_ties": int((~same & ~near).sum()),
+           "near_tie_pixels": int(near.sum()), "plain_counts": plain,
+           "counts": counts_one,
+           "counts_moved": int(np.abs(np.asarray(counts_one)
+                                      - np.asarray(plain)).sum())}
+    del model, lk, lp, same, near
+    torch.cuda.empty_cache()
+    if (err > LOGIT_ATOL or out["flips_outside_near_ties"]
+            or out["counts_moved"] > 3 * out["near_tie_pixels"]):
+        raise AssertionError(f"bench counts vs dev.use_kernels=False: {out}")
+    return out
+
+
+def tool_lines(main, argv):
+    """A tool's ``main(argv)`` with its stdout captured and echoed: (what
+    it returned, the JSON lines it printed, parsed)."""
+    import io
+    from contextlib import redirect_stdout
+    text = io.StringIO()
+    with redirect_stdout(text):
+        got = main(argv)
+    print(text.getvalue(), end="", flush=True)
+    return got, [json.loads(ln) for ln in text.getvalue().splitlines()
+                 if ln.startswith("{")]
+
+
+def bench_path_phase(torch, K, M, smi):
+    """The measurement tools on the card (``pemp_tpu_torch/tools/``), each
+    through its command line's ``main``, PEMP_BENCH_BUDGET_S =
+    BENCH_BUDGET_S; every line a tool prints parses, and is what it
+    returned:
+
+    - ``bench`` (stage 1, 401², B = 256, bf16): exactly one line, the
+      JAX script's four keys, the value finite and above 0,
+      ``vs_baseline`` = value / 25; K1 and K2 once an ``eval_batch``
+      call; its counts of one launch within the argmax tolerance of the
+      same launch with ``dev.use_kernels=False``
+      (``bench_counts_vs_plain``);
+    - ``bench_train --fuse BENCH_FUSE`` (batch 4, cedt, 401², bf16): every
+      rate finite and above 0, 0 < mfu <= 1; K1-K5 over the timed steps:
+      none in ``plain``, STEP_LAUNCHES a step in ``kernels`` and in the
+      fused arm (its replays' launches);
+    - ``bench_zoo`` BENCH_ZOO_ROWS (the artifact at B = 1): every value
+      finite and above 0; K1 and K2 once a stage a call; ``device_ms``
+      finite and above 0; p99 >= p50;
+    - ``bench_train_zoo`` BENCH_TRAIN_ZOO_ROWS: stage 2 launches two mpm
+      chains, one backward and one EDT a step, CaNet nothing; 0 < mfu <= 1.
+
+    Returns K1-K5's wrapper counts over the phase (the table's
+    ``bench_path_launches``; a replay adds nothing to them)."""
+    from unittest import mock
+
+    from pemp_tpu_torch.tools import (
+        bench, bench_train, bench_train_zoo, bench_zoo,
+    )
+
+    start = time.perf_counter()
+    cudnn = torch.backends.cudnn
+    cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32 = False, False, True
+    K.reset_launches()
+    M.reset_launches()
+    out = {"phase": "bench_path", "nvidia_smi": smi,
+           "budget_s": BENCH_BUDGET_S}
+    walls = {}
+    with mock.patch.dict(os.environ,
+                         {"PEMP_BENCH_BUDGET_S": BENCH_BUDGET_S}):
+        # bench
+        t0 = time.perf_counter()
+        b, printed = tool_lines(bench.main, [])
+        line = {k: b[k] for k in ("metric", "value", "unit", "vs_baseline")}
+        if not (printed == [line] and finite_positive(b["value"])
+                and b["vs_baseline"] == b["value"] / bench.V100_EST_EPS
+                and b["launches"] == {"assign": b["calls"],
+                                      "match": b["calls"]}):
+            raise AssertionError(f"bench: {b}; printed {printed}")
+        out["bench"] = b
+        out["bench_vs_plain"] = bench_counts_vs_plain(torch, bench,
+                                                      b["counts"])
+        walls["bench"] = time.perf_counter() - t0
+
+        # bench_train, plain / kernels / fused
+        t0 = time.perf_counter()
+        lines, printed = tool_lines(bench_train.main,
+                                    ["--fuse", str(BENCH_FUSE)])
+        rows = lines[:3]
+        if printed != lines or [r["path"] for r in rows] != [
+                "plain", "kernels", f"kernels+fuse{BENCH_FUSE}"]:
+            raise AssertionError(f"bench_train lines {printed}")
+        for r in rows:
+            want = {k: 0 if r["path"] == "plain"
+                    else r["steps_timed"] * n
+                    for k, n in STEP_LAUNCHES.items()}
+            if not (finite_positive(r["episodes_per_s"], r["step_flops"],
+                                    r["mfu"]) and r["mfu"] <= 1
+                    and math.isfinite(r["loss_final"])
+                    and r["launches"] == want):
+                raise AssertionError(f"bench_train {r['path']}: {r}; "
+                                     f"launches want {want}")
+        out["bench_train"] = lines
+        walls["bench_train"] = time.perf_counter() - t0
+
+        # bench_zoo
+        t0 = time.perf_counter()
+        with mock.patch.object(bench_zoo, "ARTIFACT_BATCHES", (1,)), \
+                mock.patch.object(bench_zoo, "ARTIFACT_SAMPLES",
+                                  {1: BENCH_ARTIFACT_SAMPLES}), \
+                mock.patch.object(bench_zoo, "ARTIFACT_ROUNDS", 2):
+            zoo, printed = tool_lines(bench_zoo.main, BENCH_ZOO_ROWS)
+        if printed != zoo or [r["row"] for r in zoo] != [
+                "cascade1", "latency1", "latency1", "latency_artifact"]:
+            raise AssertionError(f"bench_zoo lines {printed}")
+        for r in zoo:
+            stages = 1 if r["metric"].startswith("pemp_stage1") else 2
+            want = {"assign": stages * r["calls"],
+                    "match": stages * r["calls"]}
+            ok = finite_positive(r["value"]) and r["launches"] == want
+            if "device_ms" in r:
+                ok = ok and finite_positive(r["device_ms"])
+            if "p99_ms" in r:
+                ok = ok and r["p99_ms"] >= r["value"]
+            if not ok:
+                raise AssertionError(f"bench_zoo {r}; launches want {want}")
+        out["bench_zoo"] = zoo
+        walls["bench_zoo"] = time.perf_counter() - t0
+
+        # bench_train_zoo
+        t0 = time.perf_counter()
+        tz, printed = tool_lines(bench_train_zoo.main, BENCH_TRAIN_ZOO_ROWS)
+        if printed != tz or [r["row"] for r in tz] != BENCH_TRAIN_ZOO_ROWS:
+            raise AssertionError(f"bench_train_zoo lines {printed}")
+        for r in tz:
+            want = {k: 0 for k in STEP_LAUNCHES}      # CaNet: no kernel
+            if r["row"] == "pemp_stage2":
+                want = {k: v for k, v in predicted(r["steps_timed"], 0,
+                                                   2).items()
+                        if k in STEP_LAUNCHES}
+            if not (finite_positive(r["value"], r["step_gflops"], r["mfu"])
+                    and r["mfu"] <= 1 and r["launches"] == want):
+                raise AssertionError(f"bench_train_zoo {r}; launches want "
+                                     f"{want}")
+        out["bench_train_zoo"] = tz
+        walls["bench_train_zoo"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in {**K.launches, **M.launches}.items()
+                if k in STEP_LAUNCHES}
+    out.update(launches=launches, walls_s=walls,
+               wall_s=time.perf_counter() - start)
+    emit(out)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4939,6 +5143,7 @@ def main() -> int:
     serving = serving_path_phase(torch, K)
     tools = tools_path_phase(torch, K, M, smi)
     ops = ops_tools_path_phase(torch, K, M, smi)
+    bench = bench_path_phase(torch, K, M, smi)
 
     # one row per TPU kernel K1-K5. assign and match are one __global__
     # each; the chain (K3, mpm.py:342) is those two launches on the packed
@@ -4966,6 +5171,7 @@ def main() -> int:
          "serving_path_launches": serving[name],
          "tools_path_launches": tools[name],
          "ops_tools_path_launches": ops_launches(ops[name]),
+         "bench_path_launches": bench[name],
          "max_abs_err": worst[name], "ms": times[name],
          "plain_ms": times[f"{name}_plain"], "bound_ms": bounds[name][0],
          "bound_by": bounds[name][1], "library_ms": None}
@@ -4985,6 +5191,7 @@ def main() -> int:
         "serving_path_launches": serving["match"],
         "tools_path_launches": tools["match"],
         "ops_tools_path_launches": ops_launches(ops["match"]),
+        "bench_path_launches": bench["match"],
         "max_abs_err": worst["chain"], "ms": times["chain"],
         "plain_ms": times["chain_plain"], "bound_ms": bounds["chain"][0],
         "bound_by": bounds["chain"][1], "library_ms": None,
@@ -5005,6 +5212,7 @@ def main() -> int:
         "serving_path_launches": serving["mpm_bwd"],
         "tools_path_launches": tools["mpm_bwd"],
         "ops_tools_path_launches": ops_launches(ops["mpm_bwd"]),
+        "bench_path_launches": bench["mpm_bwd"],
         "max_abs_err": bw_worst, "ms": bw_times["bfloat16"],
         "ms_no_spin": bw_times["bfloat16_no_spin"],
         "plain_ms": bw_times["bfloat16_plain"],
@@ -5029,6 +5237,7 @@ def main() -> int:
         "serving_path_launches": serving["minplus"],
         "tools_path_launches": tools["minplus"],
         "ops_tools_path_launches": ops_launches(ops["minplus"]),
+        "bench_path_launches": bench["minplus"],
         "ms": mp_times["phase1"] + mp_times["phase2"],
         "plain_ms": mp_times["phase1_plain"] + mp_times["phase2_plain"],
         "bound_ms": mp_bounds["phase1"][0] + mp_bounds["phase2"][0],

@@ -67,7 +67,8 @@ OUTPUT = "[B,Q,H,W,2] input-resolution logits (argmax=pred)"
 class ServingForward(nn.Module):
     """The eval forward of ``model`` (registry family ``name``, or
     ``"cascade"`` for a ``PEMPCascade``) at input resolution ``hw``, one
-    logits tensor out. ``extra`` is stage 2's prior or CaNet's history."""
+    logits tensor out (``hw=None``: at feature resolution). ``extra`` is
+    stage 2's prior or CaNet's history."""
 
     def __init__(self, name: str, model: nn.Module, hw: int):
         super().__init__()
@@ -89,7 +90,7 @@ class ServingForward(nn.Module):
     def forward(self, sup_rgb: torch.Tensor, sup_mask: torch.Tensor,
                 qry_rgb: torch.Tensor,
                 extra: Optional[torch.Tensor] = None) -> torch.Tensor:
-        out_hw = (self.hw, self.hw)
+        out_hw = None if self.hw is None else (self.hw, self.hw)
         args = (sup_rgb, sup_mask, qry_rgb)
         if self.name == "rpmms":
             return self.model(*args, out_hw=out_hw,
@@ -178,6 +179,20 @@ def save_serving(exported: torch.export.ExportedProgram, out,
     return size
 
 
+def artifact_manifest(model: str, backbone: str, batch: Union[int, str],
+                      shot: int, query: int, hw: int, precision: str,
+                      device: torch.device) -> Dict:
+    """An artifact's manifest (``batch`` an int, or ``"b"`` for a
+    symbolic batch)."""
+    return {
+        "model": model, "backbone": backbone, "batch": batch,
+        "shot": shot, "query": query, "hw": hw, "precision": precision,
+        "device": device.type, "torch": torch.__version__,
+        "inputs": input_shapes(model, batch, shot, query, hw),
+        "output": OUTPUT,
+    }
+
+
 def load_serving(path) -> torch.export.ExportedProgram:
     """An artifact written by ``save_serving``, the ``pemp::`` operators
     registered; with its manifest beside it, the process's matmul and
@@ -244,17 +259,9 @@ def main(argv=None):
         serve, inputs, dyn = build_serving_fn(
             args.model, model, batch, args.shot, args.query, args.hw, device)
     exported = export_serving(serve, inputs, dyn)
-    b = "b" if batch == "poly" else batch
-    manifest = {
-        "model": args.model, "backbone": args.backbone, "batch": b,
-        "shot": args.shot, "query": args.query, "hw": args.hw,
-        "precision": args.precision, "device": device.type,
-        "torch": torch.__version__,
-        "inputs": input_shapes(args.model, b, args.shot, args.query,
-                               args.hw),
-        "output": OUTPUT,
-    }
-    size = save_serving(exported, args.out, manifest)
+    size = save_serving(exported, args.out, artifact_manifest(
+        args.model, args.backbone, "b" if batch == "poly" else batch,
+        args.shot, args.query, args.hw, args.precision, device))
     print(f"exported {args.model}/{args.backbone} -> {args.out} "
           f"({size / 1e6:.1f} MB, device={device.type}, "
           f"{time.perf_counter() - t0:.1f} s)")

@@ -67,16 +67,18 @@ def make_inputs(batch: int, shots: int, hw: int
     return sup, msk, qry, ref
 
 
-def build_model(device: torch.device) -> torch.nn.Module:
-    """PEMP stage 1 (ResNet-50, the registry's net scope) from seed 0,
-    eval mode, channels_last on ``device``, in ``tool_precision``."""
+def build_model(device: torch.device, name: str = "pemp_stage1",
+                shot: int = 1, seed: int = 0) -> torch.nn.Module:
+    """Registry model ``name`` (default PEMP stage 1; ResNet-50, the
+    registry's net scope) at ``shot`` from ``seed``, eval mode,
+    channels_last on ``device``, in ``tool_precision``."""
     precision = tool_precision(device)
-    cfg = Config(tag="pemp_stage1")
-    cfg.net = registry.net_config("pemp_stage1")
+    cfg = Config(tag=name, shot=shot)
+    cfg.net = registry.net_config(name)
     cfg.dev.precision = precision
     set_precision(precision)
-    model = registry.build("pemp_stage1", cfg)
-    model.reset_parameters(torch.Generator().manual_seed(0))
+    model = registry.build(name, cfg)
+    model.reset_parameters(torch.Generator().manual_seed(seed))
     return model.to(device, memory_format=torch.channels_last).eval()
 
 

@@ -174,20 +174,24 @@ def build_setup(entry_name: str, overrides: Dict[str, str],
 
 
 def stage1_overrides(hw: int, bs: int, loss: str, device: torch.device,
-                     precision: str, fuse: int) -> Dict[str, str]:
+                     precision: str, fuse: int,
+                     use_kernels: bool = True) -> Dict[str, str]:
     return {"split": "0", "data.dataset": "SYNTH", "data.height": str(hw),
             "data.width": str(hw), "data.bs": str(bs), "loss": loss,
             "dev.device": device.type, "dev.precision": precision,
-            "dev.fuse_steps": str(fuse)}
+            "dev.fuse_steps": str(fuse), "dev.use_kernels": str(use_kernels)}
 
 
 def flagship_setup(hw: int, bs: int, loss: str, device: torch.device,
                    precision: str = "bf16", fuse: int = 1,
-                   transform: Optional[Callable] = None) -> Setup:
+                   transform: Optional[Callable] = None,
+                   use_kernels: bool = True) -> Setup:
     """The stage-1 train step on ``synthetic_batch`` (the JAX tool's
-    ``make_bench_setup``)."""
+    ``make_bench_setup``); ``use_kernels=False`` sets
+    ``dev.use_kernels=False`` (the JAX tools' jnp arm), which the caller
+    applies with ``ops.kernels.use_kernels``."""
     return build_setup("pemp_stage1", stage1_overrides(
-        hw, bs, loss, device, precision, fuse), device,
+        hw, bs, loss, device, precision, fuse, use_kernels), device,
         synthetic_batch(bs, hw), transform)
 
 

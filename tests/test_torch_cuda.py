@@ -24,7 +24,9 @@ their entries against ``dev.use_kernels=False``.
 The operator tools: ``S2BConv2d`` against cuDNN's dilated convolution
 (outputs and gradients, float32 with TF32 off and bfloat16),
 ``memory_report``'s ``s1_train`` row, and ``profile_train``'s profile
-counting K1-K5 as their wrappers do.
+counting K1-K5 as their wrappers do. The measurement tools: ``bench`` and
+``bench_train`` (plain, kernels, fused) at one short round, K1-K5 as each
+arm predicts and the MFU in (0, 1].
 """
 
 import pytest
@@ -669,3 +671,26 @@ def test_profile_train_counts_the_kernels_in_the_profile(cuda):
     assert out["profiled_launches"] == want and out["launches"] == want
     assert 0 < out["device_ms_per_step"] < out["wall_ms_per_step"]
     assert out["groups_ms_per_step"]["custom-call/kernels"] > 0
+
+
+def test_bench_and_bench_train_run_on_the_card(cuda, monkeypatch):
+    """``bench`` (B = 4) and ``bench_train`` (97x97, batch 2, fused
+    chunks of 2) at one short round: rates and MFU in range, K1/K2 once
+    an eval call, K1-K5 as each train arm predicts."""
+    import math
+
+    from pemp_tpu_torch.tools import bench, bench_train
+    monkeypatch.setenv("PEMP_BENCH_BUDGET_S", "0")
+    monkeypatch.setattr(bench_train, "ROUNDS", 1)
+    monkeypatch.setattr(bench_train, "LAUNCHES", 2)
+    line = bench.main(["--batch", "4"])
+    assert line["value"] > 0 and math.isfinite(line["value"])
+    assert line["launches"] == {"assign": line["calls"],
+                                "match": line["calls"]}
+    rows = bench_train.main(["--hw", "97", "--bs", "2", "--fuse", "2"])[:3]
+    step = {"assign": 1, "match": 1, "mpm_bwd": 1, "minplus": 2}
+    for r, on in zip(rows, (False, True, True)):
+        assert r["kernels"] is on and 0 < r["mfu"] <= 1
+        assert r["launches"] == {k: r["steps_timed"] * n * on
+                                 for k, n in step.items()}
+    assert rows[2]["steps_timed"] == 2 * 2

@@ -50,7 +50,9 @@ def test_the_scan_sees_the_package():
                 "tools/soak_run.py", "tools/exp_int8_conv.py",
                 "tools/exp_int8_blend.py", "tools/exp_cudnn_flags.py",
                 "tools/convert_reference_ckpt.py",
-                "tools/export_reference_ckpt.py"):
+                "tools/export_reference_ckpt.py", "utils/benchtime.py",
+                "tools/bench.py", "tools/bench_train.py",
+                "tools/bench_zoo.py", "tools/bench_train_zoo.py"):
         assert f"pemp_tpu_torch/{new}" in names
     assert {"chip_smoke.py", "kernel_times.py", "input_times.py"} <= names
     assert len(names) > 20

@@ -13,7 +13,9 @@ against the JAX tools (``tools/profile_train.py``,
   time, and no CPU number stands under a device metric.
 - The CUDA kernel names map onto the JAX tool's ``GROUPS`` labels.
 - Without a card and without ``--device cpu`` every tool of the slice
-  raises, and the import scan covers every new file.
+  (and the measurement tools ``bench``, ``bench_train``, ``bench_zoo``,
+  ``bench_train_zoo``) raises, and the import scan covers every new
+  file.
 """
 
 import time
@@ -29,8 +31,9 @@ from pemp_tpu.core.metrics import tp_fp_fn as jax_tp_fp_fn
 from pemp_tpu.models.pemp_stage1 import PEMPStage1 as JaxPEMPStage1
 from pemp_tpu_torch.models.pemp_stage1 import PEMPStage1
 from pemp_tpu_torch.tools import (
-    bench_input, exp_train_levers, memory_report, profile_eval,
-    profile_train, verify_real_data,
+    bench, bench_input, bench_train, bench_train_zoo, bench_zoo,
+    exp_train_levers, memory_report, profile_eval, profile_train,
+    verify_real_data,
 )
 from pemp_tpu_torch.utils import profiling
 from pemp_tpu_torch.utils.convert import state_dict_from_jax
@@ -53,7 +56,11 @@ TOOLS = (("bench_input", bench_input.main, ["--device-eps",
          ("memory_report", memory_report.main, []),
          ("profile_eval", profile_eval.main, []),
          ("profile_train", profile_train.main, []),
-         ("verify_real_data", verify_real_data.main, []))
+         ("verify_real_data", verify_real_data.main, []),
+         ("bench", bench.main, []),
+         ("bench_train", bench_train.main, []),
+         ("bench_zoo", bench_zoo.main, ["cascade1"]),
+         ("bench_train_zoo", bench_train_zoo.main, ["pemp_stage1"]))
 
 
 def _unfreeze(tree):
@@ -212,3 +219,4 @@ def test_the_import_scan_covers_the_tools():
     for tool, _, _ in TOOLS:
         assert f"pemp_tpu_torch/tools/{tool}.py" in names
     assert "pemp_tpu_torch/utils/profiling.py" in names
+    assert "pemp_tpu_torch/utils/benchtime.py" in names
