@@ -19,6 +19,13 @@ into one block a process, and the per-episode counts and losses (and
 CaNet's logits) are gathered back into the batch's order, so every
 process ends with the same metrics; any other batch is computed whole by
 every process, as the JAX mesh replicates it.
+
+Under a profiler each call is the span ``evaluator.step``, and inside it
+``evaluator.wire`` (the batch to the device), ``evaluator.forward``,
+``evaluator.labels`` (the query GT to the device), ``evaluator.metrics``
+(the resize to each GT, the counts and losses) and ``evaluator.fetch``
+(the gather in a world, the copy to the host that waits for the device)
+(``utils/profiling.py::span``).
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from pemp_tpu_torch.core.metrics import Accumulator, FewShotMetric, tp_fp_fn
 from pemp_tpu_torch.models.common import output_resize
 from pemp_tpu_torch.parallel import mesh
 from pemp_tpu_torch.parallel.step import device_batch, take_rows, unpack_batch
+from pemp_tpu_torch.utils.profiling import span
 from pemp_tpu_torch.utils.timer import Timer
 
 ARRAY_KEYS = ("sup_rgb", "sup_mask", "qry_rgb", "qry_msk")
@@ -69,38 +77,48 @@ def make_fast_eval_step(model: torch.nn.Module, device: torch.device,
 
     @torch.no_grad()
     def step(batch):
+        with span("evaluator.step"):
+            return run(batch)
+
+    def run(batch):
         world = mesh.process_count()
         split = world > 1 and len(batch["cls"]) % world == 0
         if split:
             per = len(batch["cls"]) // world
             rank = mesh.process_index()
             batch = take_rows(batch, slice(rank * per, (rank + 1) * per))
-        t = unpack_batch(device_batch(batch, device, compact_wire, keys))
-        feat = apply(model, t)                          # [B,Q,h,w,2]
-        gt = t.get("qry_msk", batch["qry_msk"])
-        if isinstance(gt, torch.Tensor):
-            labels, logits = [gt], [feat]
-        elif isinstance(gt, np.ndarray):        # stacked, not the input's size
-            labels, logits = [torch.from_numpy(gt).to(device)], [feat]
-        else:                   # one GT size an episode
-            labels = [torch.from_numpy(np.ascontiguousarray(g)).to(device)
-                      [None] for g in gt]
-            logits = [feat[i:i + 1] for i in range(len(gt))]
-        parts = [metrics(output_resize(lg, tuple(lb.shape[-2:])),
-                         lb.reshape(lg.shape[:2] + lb.shape[-2:]))
-                 for lg, lb in zip(logits, labels)]
-        counts = torch.cat([c for c, _ in parts])
-        losses = torch.cat([lo for _, lo in parts])
-        # one fetch: counts (< 2^53, exact in f64) beside the losses
-        host = torch.cat([counts.double(), losses.double()[:, None]], dim=1)
-        if split:
-            host = mesh.gather_rows(host)
-            feat = mesh.gather_rows(feat.float()) if with_logits else feat
-        host = host.cpu().numpy()
-        b = host.shape[0]
-        out = host[:, :6].reshape(b, 2, 3).astype(np.int64), host[:, 6]
-        if with_logits:
-            return (*out, feat.float().cpu().numpy())
+        with span("evaluator.wire"):
+            t = unpack_batch(device_batch(batch, device, compact_wire, keys))
+        with span("evaluator.forward"):
+            feat = apply(model, t)                      # [B,Q,h,w,2]
+        with span("evaluator.labels"):
+            gt = t.get("qry_msk", batch["qry_msk"])
+            if isinstance(gt, torch.Tensor):
+                labels, logits = [gt], [feat]
+            elif isinstance(gt, np.ndarray):    # stacked, not the input's size
+                labels, logits = [torch.from_numpy(gt).to(device)], [feat]
+            else:               # one GT size an episode
+                labels = [torch.from_numpy(np.ascontiguousarray(g))
+                          .to(device)[None] for g in gt]
+                logits = [feat[i:i + 1] for i in range(len(gt))]
+        with span("evaluator.metrics"):
+            parts = [metrics(output_resize(lg, tuple(lb.shape[-2:])),
+                             lb.reshape(lg.shape[:2] + lb.shape[-2:]))
+                     for lg, lb in zip(logits, labels)]
+            counts = torch.cat([c for c, _ in parts])
+            losses = torch.cat([lo for _, lo in parts])
+            # one fetch: counts (< 2^53, exact in f64) beside the losses
+            host = torch.cat([counts.double(), losses.double()[:, None]],
+                             dim=1)
+        with span("evaluator.fetch"):
+            if split:
+                host = mesh.gather_rows(host)
+                feat = mesh.gather_rows(feat.float()) if with_logits else feat
+            host = host.cpu().numpy()
+            b = host.shape[0]
+            out = host[:, :6].reshape(b, 2, 3).astype(np.int64), host[:, 6]
+            if with_logits:
+                return (*out, feat.float().cpu().numpy())
         return out
 
     return step

@@ -30,7 +30,9 @@ Counterpart of ``Trainer`` in ``pemp_tpu/core/trainer.py:227-583``
 - ``PEMP_PROFILE_DIR``: a ``torch.profiler`` trace (CPU and, on the
   card, CUDA activity) of the second epoch this run trains, written as
   ``epoch<N>_rank<r>.pt.trace.json`` into that directory; nothing when
-  the variable is unset.
+  the variable is unset. The trace holds the port's spans
+  (``utils/profiling.py::SPANS``): ``trainer.data`` around each wait for
+  the loader's next chunk, the fused launch's and the model's.
 
 In a world of several processes (``parallel/mesh.py``) only rank 0
 writes checkpoints; ``maybe_resume`` reads on rank 0 and broadcasts the
@@ -65,6 +67,7 @@ from pemp_tpu_torch.parallel.step import (
     DDP_WARMUP_STEPS, WARMUP_STEPS, FusedTrainStep, broadcast_batch,
     device_batch, take_rows, unpack_batch,
 )
+from pemp_tpu_torch.utils.profiling import span
 from pemp_tpu_torch.utils.timer import Timer
 
 # a world agrees on a stop request every this many steps (a synchronous
@@ -396,7 +399,8 @@ class Trainer:
         n_steps, last_sync, pending = 0, 0, None
         it = iter(train_loader)
         while True:
-            chunk = list(itertools.islice(it, k))
+            with span("trainer.data"):
+                chunk = list(itertools.islice(it, k))
             if not chunk:
                 break
             with timer.start():

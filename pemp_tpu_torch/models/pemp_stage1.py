@@ -22,6 +22,10 @@ parameters do not train (reference backbones.py:56-62; VGG16 has none).
 ``FewShotModel`` (``models/common.py``) holds what every model shares,
 and ``predict`` the path from the encoder's features to the logits that
 stage 2 (``models/pemp_stage2.py``) shares with stage 1.
+
+Under a profiler the encoder's parts are the spans ``model.backbone`` and
+``model.purifier``, and ``predict``'s the spans ``model.mpm`` and
+``model.upsample`` (``utils/profiling.py::span``); both stages use them.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from pemp_tpu_torch.ops.prototypes import (
     masked_average_pooling, meta_prototype_assign, prototype_predictions,
 )
 from pemp_tpu_torch.ops.resize import resize_nearest
+from pemp_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -109,17 +114,20 @@ def predict(fts, sup_mask, q, ctr, protos, dist_scalar, out_hw, ret_ind):
     # channels_last NCHW -> NHWC is a view; so is the reshape
     fts = fts.permute(0, 2, 3, 1).reshape(b, s + q, h * w, c)
     sup_fg, sup_bg = downsample_masks(sup_mask, (h, w))
-    out = mpm_predict_packed(fts.contiguous(), s, sup_fg, sup_bg, ctr,
-                             protos, dist_scalar, ret_ind=ret_ind)
-    if ret_ind:
-        logits, indices = out
-        logits = logits.reshape(b, q, h, w, 2)
-        resp = response_map(logits, indices.reshape(b, q, h, w, 2), protos)
-        if out_hw is not None:
-            resp = resize_nearest(resp.reshape(b * q, h, w, 1), out_hw)
-            resp = resp.reshape(b, q, *out_hw)
-        return output_resize(logits, out_hw), resp
-    return output_resize(out.reshape(b, q, h, w, 2), out_hw)
+    with span("model.mpm"):
+        out = mpm_predict_packed(fts.contiguous(), s, sup_fg, sup_bg, ctr,
+                                 protos, dist_scalar, ret_ind=ret_ind)
+    with span("model.upsample"):
+        if ret_ind:
+            logits, indices = out
+            logits = logits.reshape(b, q, h, w, 2)
+            resp = response_map(logits, indices.reshape(b, q, h, w, 2),
+                                protos)
+            if out_hw is not None:
+                resp = resize_nearest(resp.reshape(b * q, h, w, 1), out_hw)
+                resp = resp.reshape(b, q, *out_hw)
+            return output_resize(logits, out_hw), resp
+        return output_resize(out.reshape(b, q, h, w, 2), out_hw)
 
 
 class Encoder(nn.Module):
@@ -144,8 +152,12 @@ class Encoder(nn.Module):
         self.out_channels = out_channels
 
     def forward(self, x):
-        x = self.backbone(x)
-        return x if self.purifier is None else self.purifier(x)
+        with span("model.backbone"):
+            x = self.backbone(x)
+        if self.purifier is None:
+            return x
+        with span("model.purifier"):
+            return self.purifier(x)
 
 
 class PEMPStage1(FewShotModel):

@@ -33,6 +33,7 @@ from pemp_tpu_torch.models.common import (
     RESNET_LAYERS, FewShotModel, PurifierV1,
 )
 from pemp_tpu_torch.models.pemp_stage1 import PEMPStage1, predict
+from pemp_tpu_torch.utils.profiling import span
 
 
 class EncoderCM(nn.Module):
@@ -56,8 +57,12 @@ class EncoderCM(nn.Module):
         self.out_channels = out_channels
 
     def forward(self, x, prior, spq):
-        x = self.backbone(x, prior, spq)
-        return x if self.purifier is None else self.purifier(x)
+        with span("model.backbone"):
+            x = self.backbone(x, prior, spq)
+        if self.purifier is None:
+            return x
+        with span("model.purifier"):
+            return self.purifier(x)
 
 
 class PEMPStage2(FewShotModel):
@@ -143,12 +148,13 @@ class PEMPCascade(nn.Module):
     @torch.no_grad()
     def prior(self, sup_img, sup_mask, qry_img) -> torch.Tensor:
         """Stage 1's argmax at input size, float32 [B,Q,H,W]."""
-        if self.stage1.training:
-            with _batch_stats_discarded(self.stage1):
+        with span("cascade.prior"):
+            if self.stage1.training:
+                with _batch_stats_discarded(self.stage1):
+                    logits = self.stage1(sup_img, sup_mask, qry_img)
+            else:
                 logits = self.stage1(sup_img, sup_mask, qry_img)
-        else:
-            logits = self.stage1(sup_img, sup_mask, qry_img)
-        return logits.argmax(dim=-1).float()
+            return logits.argmax(dim=-1).float()
 
     def forward(self, sup_img, sup_mask, qry_img,
                 out_hw: Optional[Tuple[int, int]] = "input",

@@ -39,6 +39,7 @@ import torch
 from pemp_tpu_torch.core import solver
 from pemp_tpu_torch.ops.kernels import minplus, mpm
 from pemp_tpu_torch.parallel import mesh
+from pemp_tpu_torch.utils.profiling import span
 
 ARRAY_KEYS = ("sup_rgb", "sup_mask", "qry_rgb", "qry_msk",
               "history", "qry_prior")   # 'cls' stays on the host (metrics)
@@ -317,7 +318,14 @@ class FusedTrainStep:
       counts as they were).
 
     A chunk takes exactly k batches: the epoch tail runs through the
-    serial step (``Trainer._run_epoch``)."""
+    serial step (``Trainer._run_epoch``).
+
+    Under a profiler a call is the span ``fused.launch``, and inside it
+    ``fused.wire`` (the k ``device_batch`` calls), then ``fused.warm_up``,
+    ``fused.capture``, or ``fused.slots`` (the slot and LR copies),
+    ``fused.replay`` and ``fused.outputs`` (the clones)
+    (``utils/profiling.py::span``). A replay runs no Python: the kernels
+    it launches have no span of the model's."""
 
     def __init__(self, step: Callable, fuse_steps: int, device,
                  optimizer: torch.optim.Optimizer, compact_wire: bool = True,
@@ -353,19 +361,22 @@ class FusedTrainStep:
                 f"the fused step takes {k} batches and LRs, got "
                 f"{len(batches)} and {len(lrs)}: run epoch tails through "
                 "the serial step")
-        dev = [device_batch(b, self.device, self.compact_wire, self.keys)
-               for b in batches]
-        if self.device.type != "cuda":
-            return self._eager(dev, lrs)
-        sig = tuple(tuple((key, tuple(v.shape), v.dtype)
-                          for key, v in sorted(t.items())) for t in dev)
-        graph = self.graphs.get(sig)
-        if graph is None:
-            if self.warm.get(sig, 0) < self.warmup_steps:
-                self.warm[sig] = self.warm.get(sig, 0) + k
-                return self._warm_up(dev, lrs)
-            graph = self.graphs[sig] = self._capture(sig, dev)
-        return self._replay(graph, dev, lrs)
+        with span("fused.launch"):
+            with span("fused.wire"):
+                dev = [device_batch(b, self.device, self.compact_wire,
+                                    self.keys) for b in batches]
+            if self.device.type != "cuda":
+                return self._eager(dev, lrs)
+            sig = tuple(tuple((key, tuple(v.shape), v.dtype)
+                              for key, v in sorted(t.items())) for t in dev)
+            graph = self.graphs.get(sig)
+            if graph is None:
+                if self.warm.get(sig, 0) < self.warmup_steps:
+                    self.warm[sig] = self.warm.get(sig, 0) + k
+                    return self._warm_up(dev, lrs)
+                with span("fused.capture"):
+                    graph = self.graphs[sig] = self._capture(sig, dev)
+            return self._replay(graph, dev, lrs)
 
     def _host_lrs(self, lrs) -> torch.Tensor:
         """The k LRs in ``solver.lr_tensor``'s dtype on the host (pinned
@@ -385,7 +396,7 @@ class FusedTrainStep:
     def _warm_up(self, dev, lrs):
         current = torch.cuda.current_stream(self.device)
         self.side.wait_stream(current)
-        with torch.cuda.stream(self.side):
+        with span("fused.warm_up"), torch.cuda.stream(self.side):
             losses, aux = self._eager(dev, lrs)
         current.wait_stream(self.side)
         for t in (losses, aux):
@@ -427,13 +438,17 @@ class FusedTrainStep:
         return g
 
     def _replay(self, g: _Graph, dev, lrs):
-        for slot, t in zip(g.inputs, dev):
-            for key, v in slot.items():
-                v.copy_(t[key])
-        g.lr.copy_(self._host_lrs(lrs), non_blocking=True)
-        g.graph.replay()
+        with span("fused.slots"):
+            for slot, t in zip(g.inputs, dev):
+                for key, v in slot.items():
+                    v.copy_(t[key])
+            g.lr.copy_(self._host_lrs(lrs), non_blocking=True)
+        with span("fused.replay"):
+            g.graph.replay()
         self.replays += 1
         for key, n in g.recorded.items():
             self.replayed[key] = self.replayed.get(key, 0) + n
         # the next replay overwrites the outputs: the caller keeps copies
-        return g.losses.clone(), (g.aux.clone() if self.with_aux else None)
+        with span("fused.outputs"):
+            return g.losses.clone(), (g.aux.clone() if self.with_aux
+                                      else None)

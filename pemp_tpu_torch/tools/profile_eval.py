@@ -19,8 +19,9 @@ It prints the top kernels on stderr and one JSON line: the JAX tool's
 keys, with ``kernels`` in place of ``pallas``, and ``counts`` (the
 summed counts of one launch), ``launches`` (K1-K5 as their wrappers
 counted them in the window), ``profiled_launches`` (as the profiler
-counted their kernels), the device idle share and the convolutions by
-input shape.
+counted their kernels), the device idle share, the device's idle ms a
+launch inside each of the model's spans (``model.backbone``, ...; on the
+card, else null) and the convolutions by input shape.
 
 Usage (the card unless ``--device cpu``; without a card it raises)::
 
@@ -144,6 +145,7 @@ def main(argv=None) -> Dict:
         "groups_ms_per_launch": summary["groups_ms_per_step"],
         "busy_ms_per_launch": summary["busy_ms_per_step"],
         "device_idle_share": summary["device_idle_share"],
+        "idle_ms_per_launch_by_span": summary["idle_ms_per_step_by_span"],
         "timeline": summary["timeline"],
         "top": summary["top"],
         "conv_by_shape": summary["conv_by_shape"],

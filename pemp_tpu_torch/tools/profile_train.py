@@ -20,7 +20,10 @@ keys (``device_ms_per_step`` is the card's busy time a step,
 the card, their plain versions on the CPU), ``launches`` (K1-K5 as their
 wrappers counted them, replayed launches included) and
 ``profiled_launches`` (as the profiler counted their kernels), the device
-idle share and the convolutions by input shape. ``PEMP_PROFILE_DIR``
+idle share, where the device waited (``idle_ms_per_step_by_span``: its
+idle ms a step inside each of the port's spans, ``fused.slots``,
+``model.backbone``, ...; on the card, else null) and the convolutions by
+input shape. ``PEMP_PROFILE_DIR``
 (``core/trainer.py``) profiles an entry's run instead.
 
 Usage (the card unless ``--device cpu``; without a card it raises)::

@@ -1,4 +1,5 @@
-"""Device time of a profiled run, broken down by kernel.
+"""Device time of a profiled run, broken down by kernel, and the spans
+that mark the port's layers in it.
 
 Counterpart of ``tools/profile_train.py:44`` ``device_plane_ops`` and its
 ``GROUPS``: the JAX tool reads the TPU's "XLA Ops" line of an xplane;
@@ -17,10 +18,17 @@ result is computed from its events:
   convolution op that launched them, its input shapes and its dilation
   (``dilation``: the ASPPV2 branches share their shapes);
 - ``summarize``: all of it per step; on the card also the device ms a
-  step and the device idle share of the profiled window, 1 - device
-  time / wall time (PERF.md §2), which a CPU-only profile leaves None;
-  and the launches of the port's kernels K1-K5 as the profiler counted
-  them (``KERNEL_SYMBOLS``).
+  step and the device idle share of the profiled window, 1 - busy time
+  / wall time, where busy time is the union of the device events'
+  intervals (kernels on several streams overlap: their sum can exceed
+  the wall), which a CPU-only profile leaves None; the device idle ms a
+  step inside each of the port's spans (``SPANS``); and the launches of
+  the port's kernels K1-K5 as the profiler counted them
+  (``KERNEL_SYMBOLS``);
+- ``span``: the port's layers mark their calls with it. While a profiler
+  records, a span is a ``record_function`` range that lands in the same
+  trace as the device's kernels, on one clock; otherwise it is a shared
+  null context, so that an unprofiled call pays one check a span.
 
 Times are in microseconds as the profiler gives them, ms in the summary.
 ``chip_smoke.py``'s ``device_profile`` reads its traces with these
@@ -29,8 +37,11 @@ functions too.
 
 from __future__ import annotations
 
+import contextlib
 from collections import defaultdict
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
+
+import torch
 
 # the port's CUDA kernels (K1-K5) by the counter names of their wrappers
 KERNEL_SYMBOLS = {"assign": "assign_kernel", "match": "match_kernel",
@@ -58,6 +69,31 @@ GROUPS: Tuple[Tuple[Tuple[str, ...], str], ...] = (
 )
 
 
+# the port's spans, dotted by layer; each call has one root span
+# (``evaluator.step``, ``fused.launch``) that the others nest inside
+SPANS = (
+    "evaluator.step", "evaluator.wire", "evaluator.forward",
+    "evaluator.labels", "evaluator.metrics", "evaluator.fetch",
+    "cascade.prior",
+    "model.backbone", "model.purifier", "model.mpm", "model.upsample",
+    "fused.launch", "fused.wire", "fused.warm_up", "fused.capture",
+    "fused.slots", "fused.replay", "fused.outputs",
+    "trainer.data",
+)
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``torch.profiler.record_function`` range named ``name`` while a
+    profiler records and no trace (``torch.compile``, ``torch.export``)
+    is running, which would record it into its graph; otherwise a shared
+    null context."""
+    if (torch._C._autograd._profiler_enabled()
+            and not torch.compiler.is_compiling()):
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
 def label(name: str) -> str:
     """The group of a kernel (or CPU op) name: ``GROUPS``' first match,
     else ``other``."""
@@ -71,12 +107,14 @@ def label(name: str) -> str:
 def device_times(prof) -> Dict[str, Tuple[float, int]]:
     """{name: (device self-time us, calls)}: the device kernels (and
     memcpy / memset) of a profile with CUDA activity; empty on a CPU-only
-    profile."""
+    profile. A span's shadow on the device (the range from its first to
+    its last kernel) is no kernel and is left out."""
     from torch.autograd import DeviceType
     out: Dict[str, Tuple[float, int]] = {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0)
-        if e.device_type == DeviceType.CUDA and us > 0:
+        if (e.device_type == DeviceType.CUDA and us > 0
+                and not e.is_user_annotation):
             t, n = out.get(e.key, (0.0, 0))
             out[e.key] = (t + float(us), n + int(e.count))
     return out
@@ -88,13 +126,68 @@ def on_device(prof) -> bool:
 
 
 def kernel_times(prof) -> Dict[str, Tuple[float, int]]:
-    """``device_times``; on a CPU-only profile every CPU op's self-time,
-    whose sum is at most the window's wall time."""
+    """``device_times``; on a CPU-only profile every CPU op's self-time
+    (spans are no ops), whose sum is at most the window's wall time."""
     times = device_times(prof)
     if times:
         return times
     return {e.key: (float(e.self_cpu_time_total), int(e.count))
-            for e in prof.key_averages() if e.self_cpu_time_total > 0}
+            for e in prof.key_averages()
+            if e.self_cpu_time_total > 0 and not e.is_user_annotation}
+
+
+def merged(intervals: Iterable[Tuple[float, float]]
+           ) -> List[Tuple[float, float]]:
+    """The union of [start, end) intervals as disjoint sorted ones."""
+    out: List[List[float]] = []
+    for s, e in sorted(intervals):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return [(s, e) for s, e in out]
+
+
+def covered(a: List[Tuple[float, float]], b: List[Tuple[float, float]]
+            ) -> float:
+    """The length of the intersection of two ``merged`` unions."""
+    total, i, j = 0.0, 0, 0
+    while i < len(a) and j < len(b):
+        lo, hi = max(a[i][0], b[j][0]), min(a[i][1], b[j][1])
+        if hi > lo:
+            total += hi - lo
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def device_intervals(prof) -> List[Tuple[float, float]]:
+    """(start, end) us of each device kernel, memcpy and memset of a
+    profile, spans' shadows left out; empty on a CPU-only profile."""
+    from torch.autograd import DeviceType
+    return [(e.time_range.start, e.time_range.end) for e in prof.events()
+            if e.device_type == DeviceType.CUDA
+            and not e.is_user_annotation]
+
+
+def idle_by_span(prof, busy: List[Tuple[float, float]]
+                 ) -> Dict[str, float]:
+    """{span: us of its host intervals in which the device ran nothing}
+    for each of ``SPANS`` in the profile; ``busy`` is the ``merged``
+    device intervals."""
+    from torch.autograd import DeviceType
+    found: Dict[str, List[Tuple[float, float]]] = defaultdict(list)
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name in SPANS:
+            found[e.name].append((e.time_range.start, e.time_range.end))
+    out = {}
+    for name in SPANS:
+        if name in found:
+            host = merged(found[name])
+            out[name] = sum(e - s for s, e in host) - covered(host, busy)
+    return out
 
 
 def groups(times: Dict[str, Tuple[float, int]]) -> Dict[str, float]:
@@ -180,18 +273,27 @@ def conv_by_shape(prof, top: Optional[int] = 12, kernels=("",)
 
 def summarize(prof, steps: int, wall_s: float, top: int = 20) -> Dict:
     """The profiled window of ``steps`` steps (or eval launches) that took
-    ``wall_s`` on the host clock, per step: the wall ms, the summed
-    self-time of the timeline (``busy_ms_per_step``), the groups and the
-    top kernels, the convolutions by shape and K1-K5's profiled launches.
-    ``timeline`` says whose times they are: ``cuda`` (the card's kernels;
-    then also the device ms a step, the host's gap and the device idle
-    share) or ``cpu`` (a CPU-only profile's op self-times; the device
-    metrics are then None, never a CPU number)."""
+    ``wall_s`` on the host clock, per step: the wall ms, the busy ms
+    (``busy_ms_per_step``), the groups and the top kernels, the
+    convolutions by shape and K1-K5's profiled launches. ``timeline``
+    says whose times they are: ``cuda`` (the card's kernels; busy is the
+    union of their intervals; then also the device ms a step, the host's
+    gap, the device idle share and the device idle ms a step inside each
+    of the port's spans, ``idle_ms_per_step_by_span``) or ``cpu`` (a
+    CPU-only profile's op self-times, summed; the device metrics are then
+    None, never a CPU number)."""
     times = kernel_times(prof)
     steps = max(int(steps), 1)
     card = on_device(prof)
-    busy_ms = sum(us for us, _ in times.values()) / 1e3 / steps
     wall_ms = wall_s * 1e3 / steps
+    if card:
+        busy = merged(device_intervals(prof))
+        busy_ms = sum(e - s for s, e in busy) / 1e3 / steps
+        by_span = {k: us / 1e3 / steps
+                   for k, us in idle_by_span(prof, busy).items()}
+    else:
+        busy_ms = sum(us for us, _ in times.values()) / 1e3 / steps
+        by_span = None
     ranked = sorted(times.items(), key=lambda kv: -kv[1][0])
     return {
         "timeline": "cuda" if card else "cpu",
@@ -200,6 +302,7 @@ def summarize(prof, steps: int, wall_s: float, top: int = 20) -> Dict:
         "device_ms_per_step": busy_ms if card else None,
         "dispatch_gap_ms_per_step": wall_ms - busy_ms if card else None,
         "device_idle_share": 1 - busy_ms / wall_ms if card else None,
+        "idle_ms_per_step_by_span": by_span,
         "groups_ms_per_step": {
             k: v / 1e3 / steps for k, v in sorted(
                 groups(times).items(), key=lambda kv: -kv[1])},
@@ -211,7 +314,11 @@ def summarize(prof, steps: int, wall_s: float, top: int = 20) -> Dict:
 
 
 def print_top(summary: Dict, unit: str, file) -> None:
-    """The top-op table of ``summarize`` (the JAX tools' stderr table)."""
+    """The top-op table of ``summarize`` (the JAX tools' stderr table),
+    then on the card where the device waited: its idle ms inside each of
+    the port's spans."""
     for row in summary["top"]:
         print(f"  {row['ms_per_step']:8.3f} ms/{unit}  {row['kernel']}",
               file=file)
+    for name, ms in (summary["idle_ms_per_step_by_span"] or {}).items():
+        print(f"  {ms:8.3f} ms/{unit} device idle inside {name}", file=file)
