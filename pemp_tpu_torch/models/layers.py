@@ -4,11 +4,15 @@ Counterpart of ``pemp_tpu/models/layers.py``. The JAX package rebuilt
 torch's conventions on NHWC Flax modules; here they are torch's own:
 
 - ``Conv`` is ``nn.Conv2d`` (default init: kaiming-uniform with a=sqrt(5),
-  bias U(-1/sqrt(fan_in), 1/sqrt(fan_in)));
+  bias U(-1/sqrt(fan_in), 1/sqrt(fan_in))), the same parameters and
+  ``state_dict`` keys, except that a 3x3, stride-1 convolution with
+  ``padding == dilation >= 12`` (the ASPP heads' last two branches) is
+  computed as one dense convolution over its phase subgrids
+  (``ops/s2b.py``), chosen once from the module's own shape;
 - ``BatchNorm`` is ``nn.BatchNorm2d(eps=1e-5, momentum=0.1)``, which is the
   semantics ``_TorchBatchNorm`` reproduces in JAX (running variance from
   the unbiased batch variance, two-pass batch statistics);
-- ``KaimingConv`` is ``nn.Conv2d`` drawn kaiming-normal (relu gain,
+- ``KaimingConv`` is a ``Conv`` drawn kaiming-normal (relu gain,
   fan_in) by ``FewShotModel.reset_parameters``: the VGG16 convs'
   ``kaiming_normal_relu`` init; ``NormalConv`` is drawn from
   normal(0, 0.01), CaNet's head init;
@@ -36,21 +40,40 @@ from typing import Optional
 import torch
 from torch import nn
 
+from pemp_tpu_torch.ops import s2b
 from pemp_tpu_torch.ops.dropblock import dropblock_2d
 from pemp_tpu_torch.parallel import mesh
 
-Conv = nn.Conv2d
 BatchNorm = nn.BatchNorm2d      # defaults eps=1e-5, momentum=0.1
 
 
-class KaimingConv(nn.Conv2d):
+class Conv(nn.Conv2d):
+    """``nn.Conv2d`` that computes a 3x3, stride-1, ungrouped, zero-padded
+    convolution with ``padding == dilation = d >= s2b.S2B_MIN_DILATION``
+    by ``s2b.s2b_conv2d`` (cuDNN has no fast kernel for it), and every
+    other convolution as ``nn.Conv2d`` does. ``s2b_dilation`` holds the d
+    of the route, or 0, decided at construction."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        d = s2b.phase_dilation(self)
+        self.s2b_dilation = d if d >= s2b.S2B_MIN_DILATION else 0
+
+    def _conv_forward(self, input: torch.Tensor, weight: torch.Tensor,
+                      bias: Optional[torch.Tensor]) -> torch.Tensor:
+        if self.s2b_dilation:
+            return s2b.s2b_conv2d(input, weight, bias, self.s2b_dilation)
+        return super()._conv_forward(input, weight, bias)
+
+
+class KaimingConv(Conv):
     """A ``Conv`` whose weight ``FewShotModel.reset_parameters`` draws
     kaiming-normal (relu gain, fan_in) instead of torch's default
     (the JAX package's ``kaiming_normal_relu``); its bias keeps torch's
     U(+-1/sqrt(fan_in))."""
 
 
-class NormalConv(nn.Conv2d):
+class NormalConv(Conv):
     """A ``Conv`` whose weight ``FewShotModel.reset_parameters`` draws from
     normal(0, 0.01) (CaNet's head and the residual blocks RPMMs shares
     with it: the JAX package's ``canet_normal_init``); its bias keeps

@@ -60,9 +60,10 @@ def _capturing(device: torch.device) -> bool:
     return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
 
 
-def _constant(key: tuple, device: torch.device,
-              make: Callable[[], torch.Tensor]) -> torch.Tensor:
-    """The cached device tensor ``key`` names, made by ``make`` on a miss.
+def device_constant(key: tuple, device: torch.device,
+                    make: Callable[[], torch.Tensor]) -> torch.Tensor:
+    """The cached device tensor ``key`` names, made by ``make`` on a miss
+    (the resize constants here, ``ops/s2b.py``'s phase index).
     A miss under CUDA-graph capture raises: the host copy cannot be
     captured, so the sizes must have run once before the capture. Under
     a trace ``make()`` alone, so that the trace holds the constant and
@@ -75,7 +76,7 @@ def _constant(key: tuple, device: torch.device,
     t = _recent.pop(key, None)
     if t is None:
         if _capturing(device):
-            raise RuntimeError(f"resize constant {key} was not made before "
+            raise RuntimeError(f"device constant {key} was not made before "
                                "CUDA-graph capture (run the step eagerly "
                                "first)")
         t = make()
@@ -92,17 +93,18 @@ def interp_matrix(in_size: int, out_size: int, device,
                   dtype: torch.dtype) -> torch.Tensor:
     """``_interp_matrix`` as a cached ``dtype`` tensor on ``device``."""
     device = torch.device(device)
-    return _constant(("bilinear", in_size, out_size, device, dtype), device,
-                     lambda: torch.from_numpy(
-                         _interp_matrix(in_size, out_size)).to(device, dtype))
+    return device_constant(("bilinear", in_size, out_size, device, dtype),
+                           device, lambda: torch.from_numpy(
+                               _interp_matrix(in_size, out_size)).to(
+                                   device, dtype))
 
 
 def nearest_index(in_size: int, out_size: int, device) -> torch.Tensor:
     """``_nearest_coords`` as a cached int64 tensor on ``device``."""
     device = torch.device(device)
-    return _constant(("nearest", in_size, out_size, device), device,
-                     lambda: torch.from_numpy(
-                         _nearest_coords(in_size, out_size)).to(device))
+    return device_constant(("nearest", in_size, out_size, device), device,
+                           lambda: torch.from_numpy(
+                               _nearest_coords(in_size, out_size)).to(device))
 
 
 def resize_bilinear_align_corners(x: torch.Tensor, out_hw,

@@ -9,7 +9,9 @@ the train step's convolutions are PyTorch's backend flags:
   cuDNN TF32 as PyTorch leaves it at bf16);
 - ``benchmark``: ``cudnn.benchmark=True``, cuDNN times its algorithms
   for each new shape and keeps the fastest (the dilated ASPPV2 d=12/18
-  convolutions fall back to slow engines under the heuristics, PERF.md);
+  convolutions fell back to slow engines under the heuristics; the
+  models now run them as dense space-to-batch convolutions,
+  ``ops/s2b.py``);
 - ``deterministic``: ``cudnn.deterministic=True``;
 - ``tf32``: ``cudnn.allow_tf32=True`` and matmul TF32 on (the float32
   convolutions and matmuls of the step on the tensor cores);
@@ -26,7 +28,9 @@ synchronize, until ``--budget`` seconds pass (at least two rounds);
 ``episodes_per_s`` is the best round's, as ``bench_train.py`` reports
 it. One profiled step gives the device ms a step, the device idle share
 and the device ms of the dilation-12 and -18 convolutions (the ASPPV2
-branches, forward and backward, ``utils/profiling.py::conv_by_shape``).
+branches, forward and backward, ``utils/profiling.py::conv_by_shape``,
+which books the space-to-batch route's dense convolutions under the
+dilation they compute).
 
 Prints one JSON row per arm and batch (an arm that fails is an
 ``error`` row, not fatal) and the JAX tool's summary: ``best_arm``,

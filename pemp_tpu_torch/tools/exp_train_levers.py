@@ -10,12 +10,15 @@ modules of the built model instead, each new module holding the same
 
 - ``s2b``: every 3x3, stride-1 ``nn.Conv2d`` with ``padding ==
   dilation = d > 1`` (ResNet layer3 d=2, layer4 d=4 where a trunk has
-  one, the ASPPV2 branches d=6, 12, 18) becomes ``S2BConv2d``: H and W padded up to a
-  multiple of d, the d^2 phase subgrids viewed as a batch of d^2 N, one
-  dense padding-1 3x3 convolution, the result interleaved back. The same
-  sums as the dilated convolution (the pad-up rows are zeros the dilated
+  one, the ASPPV2 branches d=6, 12, 18) becomes ``S2BConv2d``, computed
+  by ``ops/s2b.py::s2b_conv2d``: H and W padded up to whole phase
+  subgrids, the phase subgrids viewed as a batch, one dense padding-1
+  3x3 convolution, the result interleaved back. The same sums as the
+  dilated convolution (the pad-up rows are zeros the dilated
   convolution's zero padding would read too); cuDNN picks its kernels
-  for the dense shape instead.
+  for the dense shape instead. The models take this route themselves
+  at d >= 12 (``models/layers.py::Conv``); this arm prices it at every
+  d.
 - ``wgrad32``: every ``nn.Conv2d`` becomes ``WGrad32Conv2d``, whose
   forward and input gradient are as autocast gives them (bf16 operands
   under bf16) and whose weight gradient is
@@ -23,7 +26,9 @@ modules of the built model instead, each new module holding the same
   bf16 autocast the native weight gradients already take bf16 operands
   (``show_wgrad_dtypes`` prints them), so this arm prices the other
   side of that lever.
-- ``native``: the model as built.
+- ``native``: the model as built, with the models' own space-to-batch
+  route for d >= 12 (``ops/s2b.py``, ``models/layers.py::Conv``) turned
+  off, so that every dilated convolution runs on cuDNN's kernels.
 
 Modes:
 
@@ -72,6 +77,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from pemp_tpu_torch.device import resolve_device, tool_precision
+from pemp_tpu_torch.models.layers import Conv
+from pemp_tpu_torch.ops import s2b
+from pemp_tpu_torch.ops.s2b import s2b_conv2d
 from pemp_tpu_torch.tools.profile_train import (
     Setup, flagship_setup, profile_calls, sync,
 )
@@ -80,39 +88,11 @@ from pemp_tpu_torch.utils import profiling
 
 # ---- lever (b): space-to-batch dilated schedule -------------------------
 
-def s2b_conv2d(x: torch.Tensor, weight: torch.Tensor, bias, d: int
-               ) -> torch.Tensor:
-    """The 3x3 convolution of dilation and padding ``d`` (stride 1) on
-    NCHW ``x`` as one dense padding-1 convolution over the d^2 phase
-    subgrids: x[n, c, q*d + a, r*d + b] is row q, column r of phase
-    (a, b), whose padding-1 neighbours q-1, q+1 are the dilated taps
-    i-d, i+d."""
-    n, c, h, w = x.shape
-    hq, wq = -(-h // d), -(-w // d)
-    fmt = (torch.channels_last
-           if x.is_contiguous(memory_format=torch.channels_last)
-           and not x.is_contiguous() else torch.contiguous_format)
-    xp = F.pad(x, (0, wq * d - w, 0, hq * d - h))
-    xr = (xp.reshape(n, c, hq, d, wq, d).permute(3, 5, 0, 1, 2, 4)
-          .reshape(d * d * n, c, hq, wq).contiguous(memory_format=fmt))
-    y = F.conv2d(xr, weight, bias, padding=1)
-    co = y.shape[1]
-    y = (y.reshape(d, d, n, co, hq, wq).permute(2, 3, 4, 0, 5, 1)
-         .reshape(n, co, hq * d, wq * d))
-    return y[:, :, :h, :w].contiguous(memory_format=fmt)
-
-
 def s2b_eligible(conv: nn.Module) -> bool:
-    """A 3x3, stride-1, ungrouped, zero-padded ``nn.Conv2d`` with
-    ``padding == dilation > 1`` (the dilated convolutions of the
-    models)."""
-    if type(conv) is not nn.Conv2d:     # the models' Conv is nn.Conv2d
-        return False
-    d = conv.dilation[0]
-    return (conv.kernel_size == (3, 3) and conv.stride == (1, 1)
-            and conv.groups == 1 and conv.padding_mode == "zeros"
-            and conv.dilation == (d, d) and d > 1
-            and conv.padding == (d, d))
+    """A 3x3, stride-1, ungrouped, zero-padded ``nn.Conv2d`` (the models'
+    ``Conv`` and its subclasses included) with ``padding == dilation > 1``
+    (the dilated convolutions of the models)."""
+    return isinstance(conv, nn.Conv2d) and s2b.phase_dilation(conv) > 1
 
 
 class S2BConv2d(nn.Module):
@@ -168,7 +148,7 @@ class WGrad32Conv2d(nn.Module):
 
     def __init__(self, conv: nn.Conv2d):
         super().__init__()
-        if type(conv) is not nn.Conv2d or conv.padding_mode != "zeros":
+        if not isinstance(conv, nn.Conv2d) or conv.padding_mode != "zeros":
             raise ValueError(f"not a zero-padded nn.Conv2d: {conv}")
         self.conf = (conv.stride, conv.padding, conv.dilation, conv.groups)
         self.weight = conv.weight
@@ -198,15 +178,28 @@ def swap_convs(model: nn.Module, make: Callable[[nn.Conv2d], nn.Module],
     return n
 
 
+def native_convs(model: nn.Module) -> int:
+    """Turn the models' own space-to-batch route off (``Conv``'s
+    ``s2b_dilation``): every convolution of ``model`` then runs as
+    ``nn.Conv2d``, cuDNN's dilated kernels included; returns how many
+    were routed."""
+    routed = [m for m in model.modules()
+              if isinstance(m, Conv) and m.s2b_dilation]
+    for m in routed:
+        m.s2b_dilation = 0
+    return len(routed)
+
+
 def apply_arm(model: nn.Module, arm: str) -> int:
-    """Swap the modules of ``arm`` into ``model``; returns how many."""
+    """Swap the modules of ``arm`` into ``model``; returns how many (for
+    ``native``, how many convolutions left the models' own route)."""
     if arm == "native":
-        return 0
+        return native_convs(model)
     if arm == "s2b":
         return swap_convs(model, S2BConv2d, s2b_eligible)
     if arm == "wgrad32":
         return swap_convs(model, WGrad32Conv2d,
-                          lambda m: type(m) is nn.Conv2d
+                          lambda m: isinstance(m, nn.Conv2d)
                           and m.padding_mode == "zeros")
     raise KeyError(arm)
 

@@ -18,7 +18,9 @@ never a fallback.
 It prints the top kernels on stderr and one JSON line: the JAX tool's
 keys, with ``kernels`` in place of ``pallas``, and ``counts`` (the
 summed counts of one launch), ``launches`` (K1-K5 as their wrappers
-counted them in the window), ``profiled_launches`` (as the profiler
+counted them in the window), ``s2b_calls`` (the space-to-batch
+convolutions by dilation in the window, ``ops/s2b.py``: ASPPV2's d = 12
+and 18 once a launch each), ``profiled_launches`` (as the profiler
 counted their kernels), the device idle share, the device's idle ms a
 launch inside each of the model's spans (``model.backbone``, ...; on the
 card, else null) and the convolutions by input shape.
@@ -151,6 +153,7 @@ def main(argv=None) -> Dict:
         "conv_by_shape": summary["conv_by_shape"],
         "counts": counts.tolist(),
         "launches": {k: launched[k] for k in profiling.KERNEL_SYMBOLS},
+        "s2b_calls": launched["s2b_calls"],
         "profiled_launches": summary["profiled_launches"],
         "trace_dir": trace_dir,
     }

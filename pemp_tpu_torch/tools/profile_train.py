@@ -18,7 +18,9 @@ keys (``device_ms_per_step`` is the card's busy time a step,
 ``dispatch_gap_ms_per_step`` the host's share of the wall time), with
 ``kernels`` in place of ``pallas`` (the port's CUDA kernels K1-K5 run on
 the card, their plain versions on the CPU), ``launches`` (K1-K5 as their
-wrappers counted them, replayed launches included) and
+wrappers counted them, replayed launches included), ``s2b_calls`` (the
+models' space-to-batch convolutions by dilation, ``ops/s2b.py``, as the
+Python called them in the window: 2 a step eager, none in a replay) and
 ``profiled_launches`` (as the profiler counted their kernels), the device
 idle share, where the device waited (``idle_ms_per_step_by_span``: its
 idle ms a step inside each of the port's spans, ``fused.slots``,
@@ -55,6 +57,7 @@ from pemp_tpu_torch.core import solver
 from pemp_tpu_torch.core.trainer import Trainer
 from pemp_tpu_torch.data import datasets
 from pemp_tpu_torch.device import resolve_device, tool_precision
+from pemp_tpu_torch.ops import s2b
 from pemp_tpu_torch.ops.kernels import minplus, mpm
 from pemp_tpu_torch.parallel.step import device_batch
 from pemp_tpu_torch.utils import profiling
@@ -248,7 +251,9 @@ def profile_calls(fn: Callable, calls: int, device: torch.device,
     """``warmup`` calls of ``fn``, then ``calls`` calls under the profiler
     (CPU and, on the card, CUDA activity, input shapes recorded), the
     window closed by a synchronize: (profile, wall seconds, the K1-K5
-    launches the wrappers counted in the window)."""
+    launches the wrappers counted in the window, and under
+    ``s2b_calls`` the space-to-batch route's calls in it by dilation,
+    ``ops/s2b.py``: none in a graph's replay)."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
@@ -256,14 +261,16 @@ def profile_calls(fn: Callable, calls: int, device: torch.device,
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    before = counts()
+    before, routed = counts(), dict(s2b.s2b_calls)
     with profile(activities=activities, record_shapes=True) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
             fn()
         sync(device)
         wall = time.perf_counter() - t0
-    return prof, wall, {k: v - before[k] for k, v in counts().items()}
+    launched = {k: v - before[k] for k, v in counts().items()}
+    launched["s2b_calls"] = s2b.s2b_calls_since(routed)
+    return prof, wall, launched
 
 
 def profile_setup(setup: Setup, steps: int, device: torch.device):
@@ -336,6 +343,7 @@ def main(argv=None) -> Dict:
         "device_eps": setup.bs / (dev_ms / 1e3) if dev_ms else None,
         **summary,
         "launches": {k: launched[k] for k in profiling.KERNEL_SYMBOLS},
+        "s2b_calls": launched["s2b_calls"],
         "trace_dir": trace_dir,
     }
     print(json.dumps(out), flush=True)

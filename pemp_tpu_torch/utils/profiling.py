@@ -16,7 +16,9 @@ result is computed from its events:
   and calls of the names that hold given substrings;
 - ``conv_by_shape``: the time of the convolutions' kernels grouped by the
   convolution op that launched them, its input shapes and its dilation
-  (``dilation``: the ASPPV2 branches share their shapes);
+  (``dilation``: the ASPPV2 branches share their shapes; the
+  space-to-batch route's dense convolution, forward and backward, counts
+  under the dilation it computes);
 - ``summarize``: all of it per step; on the card also the device ms a
   step and the device idle share of the profiled window, 1 - busy time
   / wall time, where busy time is the union of the device events'
@@ -217,10 +219,49 @@ DILATION_ARG = {"aten::conv2d": 5, "aten::convolution": 5,
                 "aten::_convolution": 5, "aten::convolution_backward": 6}
 
 
-def dilation(op) -> Optional[int]:
+# ``ops/s2b.py``'s span around a call of the space-to-batch route: its
+# dense convolution computes the dilated one of the dilation in the name
+S2B_SPAN = "s2b.d"
+BACKWARD_NODE = "autograd::engine::evaluate_function: "
+
+
+def _s2b_span(op) -> Optional[int]:
+    """The dilation of the ``S2B_SPAN`` that ``op`` runs inside, if any."""
+    while op is not None:
+        if op.name.startswith(S2B_SPAN):
+            return int(op.name[len(S2B_SPAN):])
+        op = op.cpu_parent
+    return None
+
+
+def s2b_routes(prof) -> Dict[Tuple[int, int], int]:
+    """{(thread, sequence number): dilation} of the autograd nodes made
+    inside an ``S2B_SPAN``: the backward of such a node runs outside the
+    span, under an event of the same sequence number and forward
+    thread."""
+    return {(e.thread, e.sequence_nr): d for e in prof.events()
+            if getattr(e, "sequence_nr", -1) >= 0
+            and (d := _s2b_span(e)) is not None}
+
+
+def dilation(op, routes: Optional[Dict[Tuple[int, int], int]] = None
+             ) -> Optional[int]:
     """The dilation of the convolution ``op`` belongs to (its own or its
     nearest ``DILATION_ARG`` ancestor's concrete inputs, recorded with
-    ``record_shapes=True``); None where the profile has no such record."""
+    ``record_shapes=True``); None where the profile has no such record.
+    The space-to-batch route's dense convolution gives the dilation it
+    computes: in its forward from its ``S2B_SPAN``, in its backward from
+    ``routes`` (``s2b_routes``)."""
+    d = _s2b_span(op)
+    if d is not None:
+        return d
+    node = op
+    while node is not None and not node.name.startswith(BACKWARD_NODE):
+        node = node.cpu_parent
+    if node is not None and routes:
+        d = routes.get((node.fwd_thread, node.sequence_nr))
+        if d is not None:
+            return d
     while op is not None and op.name not in DILATION_ARG:
         op = op.cpu_parent
     if op is None:
@@ -240,6 +281,7 @@ def conv_by_shape(prof, top: Optional[int] = 12, kernels=("",)
     conv op's own CPU time (no device kernels). Needs
     ``record_shapes=True``."""
     found: Dict[tuple, List[float]] = {}
+    routes = s2b_routes(prof)
     any_kernel = False
     for e in prof.events():
         for k in getattr(e, "kernels", ()):
@@ -251,7 +293,8 @@ def conv_by_shape(prof, top: Optional[int] = 12, kernels=("",)
                 op = op.cpu_parent
             if "conv" not in op.name:
                 continue
-            key = (k.name[:60], op.name, str(op.input_shapes), dilation(op))
+            key = (k.name[:60], op.name, str(op.input_shapes),
+                   dilation(op, routes))
             acc = found.setdefault(key, [0.0, 0])
             acc[0] += k.duration
             acc[1] += 1
@@ -261,7 +304,7 @@ def conv_by_shape(prof, top: Optional[int] = 12, kernels=("",)
             if "conv" not in e.name or (parent is not None
                                         and "conv" in parent.name):
                 continue
-            key = ("", e.name, str(e.input_shapes), dilation(e))
+            key = ("", e.name, str(e.input_shapes), dilation(e, routes))
             acc = found.setdefault(key, [0.0, 0])
             acc[0] += e.cpu_time_total
             acc[1] += 1

@@ -21,6 +21,9 @@ replay counts no launch; a kernel's plan or tickets missing at capture raise;
 p above 8: K1, K2 and K4 on the padded instances against their plain
 versions, and both PEMP stages at p = 9 and 16 trained and tested through
 their entries against ``dev.use_kernels=False``.
+The models' space-to-batch route: ASPPV2 at B = 1 in bf16 against the
+same module on cuDNN's dilated kernels (output and gradients), and a
+fused train step captured with it, bit-equal to its eager steps.
 The operator tools: ``S2BConv2d`` against cuDNN's dilated convolution
 (outputs and gradients, float32 with TF32 off and bfloat16),
 ``memory_report``'s ``s1_train`` row, and ``profile_train``'s profile
@@ -649,6 +652,121 @@ def test_s2b_conv_matches_the_dilated_conv_on_the_card(cuda, dtype, d):
     tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
     for want, got in zip(*outs):
         assert (got - want).abs().max() <= tol * want.abs().max()
+
+
+# --- the models' space-to-batch route (ops/s2b.py) on the card ----------
+
+def _unrouted(model):
+    """A copy of ``model`` whose convolutions all run as ``nn.Conv2d``
+    (cuDNN's dilated kernels at d = 12 and 18)."""
+    import copy
+
+    from pemp_tpu_torch.models.layers import Conv
+    other = copy.deepcopy(model)
+    for m in other.modules():
+        if isinstance(m, Conv):
+            m.s2b_dilation = 0
+    return other
+
+
+def test_aspp_v2_routed_at_b1_matches_the_dilated_convs(cuda):
+    """ASPPV2 (256 -> 256 -> 512 at 51^2, B = 1, bf16 autocast, eval
+    mode as served) with its d = 12 and 18 branches routed against the same module
+    on cuDNN's dilated kernels: the output, the input gradient and the
+    routed convolutions' weight and bias gradients within two bf16 ulps
+    (2^-7) of the largest magnitude, as the tool's s2b test; one routed
+    call each of d = 12 and 18, none unrouted."""
+    from pemp_tpu_torch.models.layers import ASPPV2
+    from pemp_tpu_torch.ops import s2b
+    g = torch.Generator(device=cuda).manual_seed(0)
+    torch.manual_seed(0)
+    routed = ASPPV2(256, 256, 512).to(
+        cuda, memory_format=torch.channels_last).eval()
+    native = _unrouted(routed)
+    x = torch.randn(1, 256, 51, 51, generator=g, device=cuda,
+                    dtype=torch.bfloat16).to(memory_format=torch.channels_last)
+    r = torch.randn(1, 512, 51, 51, generator=g, device=cuda)
+    outs = []
+    for mod in (native, routed):
+        s2b.reset_s2b_calls()
+        xi = x.clone().requires_grad_()
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            y = mod(xi)
+        (y.float() * r).sum().backward()
+        torch.cuda.synchronize()
+        outs.append([y.float(), xi.grad.float()] + [
+            p.grad for k in (3, 4) for p in getattr(mod, f"aspp_{k}")[2]
+            .parameters()])
+        assert y.is_contiguous(memory_format=torch.channels_last)
+        assert s2b.s2b_calls == ({} if mod is native else {12: 1, 18: 1})
+    for want, got in zip(*outs):
+        assert (got - want).abs().max() <= 2.0 ** -7 * want.abs().max()
+
+
+def test_fused_step_captures_the_routed_convs_as_eager(cuda):
+    """A fused train step (``FusedTrainStep``, k = 2: an eager warm-up
+    chunk, the capture, replays) of ASPPV2 in bf16 autocast, its d = 12
+    and 18 branches routed: every step's loss and the weights after the
+    last equal those of the same steps run eagerly, bit for bit (cuDNN
+    deterministic); the route runs in the warm-up and the capture, two
+    calls a step, and a replay calls nothing."""
+    import numpy as np
+
+    from pemp_tpu_torch.core import solver
+    from pemp_tpu_torch.models.layers import ASPPV2
+    from pemp_tpu_torch.ops import s2b
+    from pemp_tpu_torch.parallel.step import FusedTrainStep, device_batch
+
+    k, chunks = 2, 4
+    rng = np.random.RandomState(0)
+    batches = [{"x": rng.randn(2, 64, 51, 51).astype(np.float32)}
+               for _ in range(k * chunks)]
+
+    def build():
+        torch.manual_seed(0)
+        model = ASPPV2(64, 32, 16, drop_rate=0.0).to(
+            cuda, memory_format=torch.channels_last).train()
+        opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9,
+                              fused=True)
+
+        def step(t, lr):
+            opt.zero_grad(set_to_none=True)
+            x = t["x"].contiguous(memory_format=torch.channels_last)
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                y = model(x)
+            loss = y.float().square().mean()
+            loss.backward()
+            solver.step(opt, lr)
+            return loss.detach(), None
+        return model, opt, step
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        model, _, step = build()
+        lr = torch.full((k * chunks,), 0.01, device=cuda,
+                        dtype=solver.lr_tensor(cuda, (0,)).dtype)
+        eager = torch.stack([
+            step(device_batch(b, cuda, False, ("x",)), lr[j])[0]
+            for j, b in enumerate(batches)])
+        want = {n: p.detach().clone() for n, p in model.named_parameters()}
+        model, opt, step = build()
+        fused = FusedTrainStep(step, k, cuda, opt, compact_wire=False,
+                               keys=("x",), warmup_steps=k)
+        s2b.reset_s2b_calls()
+        losses = []
+        for c in range(chunks):
+            losses.append(fused(batches[c * k:(c + 1) * k], [0.01] * k)[0])
+            if c == 1:
+                assert s2b.s2b_calls == {12: 2 * k, 18: 2 * k}
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    assert fused.captures == 1 and fused.replays == chunks - 1
+    assert s2b.s2b_calls == {12: 2 * k, 18: 2 * k}   # replays call nothing
+    assert torch.equal(torch.cat(losses), eager)
+    for n, p in model.named_parameters():
+        assert torch.equal(p.detach(), want[n]), n
 
 
 def test_memory_report_s1_train_row_runs(cuda):
